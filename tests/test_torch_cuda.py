@@ -1,0 +1,116 @@
+"""The port's CUDA kernels against their plain versions, on the card.
+
+Marked ``cuda``: each test asks the ``cuda_device`` fixture for the card and
+skips inside it where there is none, so every worker collects the same tests.
+Run them on an H100 with ``python -m pytest tests/test_torch_cuda.py -m cuda``.
+fp32 comparisons run with TF32 off, so the plain versions are full fp32.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from vocoder_tpu_torch.models.bigvgan import BigVGAN, BigVGANConfig, random_state_dict
+from vocoder_tpu_torch.nn import fold_weight_norm
+from vocoder_tpu_torch.ops.aa_snake import aa_snake, aa_snake_kernel
+from vocoder_tpu_torch.ops.amp_block import amp_stage, amp_stage_kernel, amp_stage_plain
+from vocoder_tpu_torch.ops.antialias import aa_snake_plain, snake_params
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card and nvcc; the kernels have no CPU mode")
+    prev = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    yield torch.device("cuda")
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = prev
+
+
+def _rel_l2(a, b):
+    return float((a.double() - b.double()).norm() / b.double().norm())
+
+
+def _model(cfg, device, dtype=torch.float32):
+    m = BigVGAN(cfg)
+    m.load_state_dict(random_state_dict(cfg, seed=0))
+    return fold_weight_norm(m).to(device=device, dtype=dtype).eval().requires_grad_(False)
+
+
+NARROW = BigVGANConfig(hop_length=16, upsample_rates=(4, 4), upsample_kernel_sizes=(8, 8), num_mels=8,
+                       upsample_initial_channel=64)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(1, 16, 4096), (3, 16, 1500), (2, 8, 37), (1, 5, 1)])
+def test_aa_snake_kernel_matches_plain(cuda_device, shape, dtype):
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    x = torch.randn(shape, device=cuda_device, generator=gen).to(dtype)
+    alpha = (0.3 * torch.randn(shape[1], device=cuda_device, generator=gen)).to(dtype)
+    beta = (0.3 * torch.randn(shape[1], device=cuda_device, generator=gen)).to(dtype)
+    before = aa_snake.launches
+    got = aa_snake(x, alpha, beta, True)
+    assert aa_snake.launches == before + 1
+    want = aa_snake_plain(x, *snake_params(alpha, beta, True))
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=0, atol=1e-5)  # same fp32 arithmetic, another sum order
+    else:
+        assert _rel_l2(got.float(), want.float()) <= 2e-2  # bf16 output rounding
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("stage", [0, 1])
+def test_amp_stage_kernel_matches_plain(cuda_device, stage, dtype):
+    model = _model(NARROW, cuda_device, dtype)
+    blocks = list(model.resblocks[3 * stage : 3 * stage + 3])
+    c = NARROW.upsample_initial_channel // 2 ** (stage + 1)
+    x = torch.randn(2, c, 300 * (stage + 1), device=cuda_device).to(dtype)
+    before = amp_stage.launches
+    got = amp_stage(blocks, x, NARROW.snake_logscale)
+    assert amp_stage.launches == before + 18
+    want = amp_stage_plain(blocks, x, NARROW.snake_logscale)
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-5)  # tests/test_amp_fused.py:66
+    else:
+        assert _rel_l2(got.float(), want.float()) <= 2e-2
+
+
+@pytest.mark.parametrize("c", [48, 256])
+def test_amp_stage_kernel_channel_tiles(cuda_device, c):
+    """C = 48 runs 16-channel tiles, C = 256 runs 64-channel tiles, over T not a multiple of either time tile."""
+    cfg = BigVGANConfig(hop_length=4, upsample_rates=(2, 2), upsample_kernel_sizes=(4, 4), num_mels=8,
+                        upsample_initial_channel=2 * c)
+    blocks = list(_model(cfg, cuda_device).resblocks[:3])
+    x = torch.randn(1, c, 333, device=cuda_device)
+    torch.testing.assert_close(amp_stage_kernel(blocks, x, True), amp_stage_plain(blocks, x, True),
+                               rtol=2e-4, atol=2e-5)
+
+
+def test_kernels_refuse_autograd(cuda_device):
+    """Forward only: with gradients on, the wrappers raise instead of returning a tensor without a graph."""
+    model = _model(NARROW, cuda_device).requires_grad_(True)
+    x = torch.randn(1, 32, 64, device=cuda_device)
+    with pytest.raises(RuntimeError, match="forward only"):
+        amp_stage(list(model.resblocks[:3]), x, True)
+    with pytest.raises(RuntimeError, match="forward only"):
+        model.activation_post(torch.randn(1, 16, 64, device=cuda_device))
+
+
+def test_amp_stage_refuses_bf16_input_with_fp32_model(cuda_device):
+    """The kernel takes fp32/fp32, bf16/bf16 and fp32 x with bf16 weights; a bf16 x needs a bf16 model."""
+    model = _model(NARROW, cuda_device)
+    x = torch.randn(1, 32, 64, device=cuda_device).to(torch.bfloat16)
+    with torch.inference_mode(), pytest.raises(ValueError, match="bf16 model"):
+        amp_stage(list(model.resblocks[:3]), x, True)
+
+
+def test_generator_kernel_path_matches_plain_path(cuda_device):
+    model = _model(NARROW, cuda_device)
+    mel = torch.from_numpy(np.random.default_rng(0).standard_normal((2, 8, 40)).astype(np.float32) - 3.0)
+    mel = mel.to(cuda_device)
+    with torch.inference_mode():
+        got, want = model(mel), model.forward_plain(mel)
+    assert got.shape == (2, 1, 640)
+    assert _rel_l2(got, want) <= 1e-4

@@ -1,0 +1,22 @@
+"""PyTorch + CUDA port of the vocoder framework, for NVIDIA Hopper (H100).
+
+This package stands beside the JAX package and imports nothing of it: the
+host-side pieces it needs (presets, WAV I/O, the resampler) are its own
+copies.  It currently carries BigVGAN inference end to end:
+
+    python -m vocoder_tpu_torch.cli.infer --model bigvgan \\
+        --resolution 44100_512_2048 --ckpt G.ckpt --input in/ --output out/
+
+Layout.  The generator keeps the JAX package's contract at its public
+function: mel ``(B, num_mels, F)`` in, waveform ``(B, 1, F * hop)`` out.
+Inside, every activation is channels-first ``(B, C, T)``, like the reference
+and like ``torch.nn.Conv1d``; the JAX ops work channels-last ``(B, T, C)``,
+so the parity tests transpose at that boundary.
+
+Devices.  Entry points run on ``cuda`` unless the caller asks for ``cpu``.
+Each hand-written kernel (``csrc/``) has its plain PyTorch version beside
+its wrapper: a tensor on the CPU takes the plain version, a CUDA tensor
+launches the kernel or raises.
+
+Importing this package imports nothing heavy.
+"""

@@ -1,0 +1,99 @@
+"""Weights bridge: JAX parameter trees and reference checkpoints -> port state_dicts.
+
+``bigvgan_state_dict_from_jax`` is the inverse of the JAX package's
+``from_torch_state_dict`` for BigVGAN: it takes that package's parameter tree
+(leaves as numpy arrays, or torch tensors, including ``meta`` ones for a
+shape-only check) and returns the state_dict ``models.bigvgan.BigVGAN``
+loads.  Layouts:
+
+    conv:            JAX v (K, I, O), g (1, 1, O)  -> original1 (O, I, K), original0 (O, 1, 1)
+    transposed conv: JAX v (K, I, O) time-flipped, g (1, I, 1)
+                                                   -> original1 (I, O, K), original0 (I, 1, 1)
+
+``load_reference_state_dict`` reads a reference ``.ckpt``/``.pt`` file and
+keeps the generator's entries (``generator.`` prefix) under the port's names.
+"""
+
+from __future__ import annotations
+
+from pathlib import Path
+
+import numpy as np
+import torch
+
+
+def _t(a) -> torch.Tensor:
+    return a if isinstance(a, torch.Tensor) else torch.tensor(np.asarray(a))
+
+
+def _norm_except_dim0(w: torch.Tensor) -> torch.Tensor:
+    return w.flatten(1).norm(dim=1).reshape(-1, *([1] * (w.dim() - 1)))
+
+
+def _conv(sd: dict, prefix: str, p: dict, transposed: bool = False) -> None:
+    v = _t(p["v"])
+    sd[f"{prefix}.parametrizations.weight.original0"] = _t(p["g"]).reshape(-1, 1, 1)
+    v = v.permute(1, 2, 0).flip(2) if transposed else v.permute(2, 1, 0)
+    sd[f"{prefix}.parametrizations.weight.original1"] = v.contiguous()
+    if "b" in p:
+        sd[f"{prefix}.bias"] = _t(p["b"])
+
+
+def _snake(sd: dict, prefix: str, p: dict) -> None:
+    sd[f"{prefix}.activation.alpha"] = _t(p["alpha"])
+    if "beta" in p:
+        sd[f"{prefix}.activation.beta"] = _t(p["beta"])
+
+
+def amp_block_state_dict_from_jax(block: dict) -> dict[str, torch.Tensor]:
+    """One JAX AMP block's parameters -> ``AMPBlock.state_dict()`` layout."""
+    sd: dict[str, torch.Tensor] = {}
+    for name in ("convs1", "convs2"):
+        for l, conv in enumerate(block[name]):
+            _conv(sd, f"{name}.{l}", conv)
+    for a, act in enumerate(block["activations"]):
+        _snake(sd, f"activations.{a}", act)
+    return sd
+
+
+def bigvgan_state_dict_from_jax(params: dict) -> dict[str, torch.Tensor]:
+    """The JAX BigVGAN parameter tree -> ``BigVGAN.state_dict()`` layout."""
+    if "noise_convs" in params:
+        raise NotImplementedError("BigVGAN with an f0 template is not yet ported")
+    sd: dict[str, torch.Tensor] = {}
+    _conv(sd, "conv_pre", params["conv_pre"])
+    for i, up in enumerate(params["ups"]):
+        _conv(sd, f"ups.{i}", up, transposed=True)
+    for r, block in enumerate(params["resblocks"]):
+        sd.update({f"resblocks.{r}.{k}": v for k, v in amp_block_state_dict_from_jax(block).items()})
+    _snake(sd, "activation_post", params["post_act"])
+    _conv(sd, "conv_post", params["conv_post"])
+    return sd
+
+
+def load_reference_state_dict(path: str | Path, prefix: str = "generator.") -> dict[str, torch.Tensor]:
+    """A reference checkpoint's generator entries, renamed to the port's keys.
+
+    Accepts ``{"state_dict": {...}}`` or a bare state_dict, with weight norm
+    as parametrizations, as legacy ``weight_g``/``weight_v``, or folded
+    ``weight``.  The anti-aliasing FIR buffers (``*.filter``) are dropped:
+    the port computes those taps.  Loads tensors only (``weights_only``).
+    """
+    ckpt = torch.load(path, map_location="cpu", weights_only=True)
+    sd = ckpt.get("state_dict", ckpt)
+    out: dict[str, torch.Tensor] = {}
+    for key, val in sd.items():
+        if not key.startswith(prefix) or key.endswith(".filter"):
+            continue
+        key = key[len(prefix) :]
+        if key.endswith(".weight_g"):
+            key = key[: -len("weight_g")] + "parametrizations.weight.original0"
+        elif key.endswith(".weight_v"):
+            key = key[: -len("weight_v")] + "parametrizations.weight.original1"
+        elif key.endswith(".weight"):
+            out[key[: -len("weight")] + "parametrizations.weight.original0"] = _norm_except_dim0(val.float()).to(val.dtype)
+            key = key[: -len("weight")] + "parametrizations.weight.original1"
+        out[key] = val
+    if not out:
+        raise ValueError(f"{path}: no {prefix!r} entries")
+    return out

@@ -1,0 +1,183 @@
+"""BigVGAN generator as a ``torch.nn.Module``.
+
+Counterpart of ``vocoder_tpu/models/bigvgan.py`` (``apply`` for
+``frame_lengths=None`` and no template): the HiFiGAN upsample skeleton with
+Snake/SnakeBeta activations, each wrapped in the anti-aliased 2x up / 2x down
+FIRs, AMP resblocks averaged per upsample stage, then a post activation, a
+conv and ``tanh``.  Submodule names follow the reference, so the state_dict
+keys are the reference's (``conv_pre``, ``ups``, ``resblocks``,
+``activation_post``, ``conv_post``).
+
+Every AMP stage runs through ``ops.amp_block.amp_stage`` (kernel K2 on the
+card) and ``activation_post`` through ``ops.aa_snake.aa_snake`` (kernel K1);
+the pre/post convs and the transposed-conv upsamples are ``torch.nn``
+layers, as the JAX package left them to XLA.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from math import prod
+
+import numpy as np
+import torch
+from torch import nn
+
+from vocoder_tpu_torch.nn import conv1d, conv_transpose1d, get_padding
+from vocoder_tpu_torch.ops.aa_snake import aa_snake
+from vocoder_tpu_torch.ops.amp_block import amp_stage, amp_stage_plain
+from vocoder_tpu_torch.ops.antialias import aa_snake_plain, snake_params
+
+
+@dataclasses.dataclass(frozen=True)
+class BigVGANConfig:
+    hop_length: int = 512
+    upsample_rates: tuple = (8, 8, 2, 2, 2)
+    upsample_kernel_sizes: tuple = (16, 16, 8, 2, 2)
+    resblock_kernel_sizes: tuple = (3, 7, 11)
+    resblock_dilation_sizes: tuple = ((1, 3, 5), (1, 3, 5), (1, 3, 5))
+    num_mels: int = 128
+    upsample_initial_channel: int = 512
+    activation: str = "snakebeta"  # "snake" | "snakebeta"
+    snake_logscale: bool = True
+    use_template: bool = False
+    pre_conv_kernel_size: int = 7
+    post_conv_kernel_size: int = 7
+
+    def __post_init__(self):
+        if prod(self.upsample_rates) != self.hop_length:
+            raise ValueError(f"upsample rates {self.upsample_rates} do not multiply to hop {self.hop_length}")
+        if self.activation not in ("snake", "snakebeta"):
+            raise ValueError(f"unknown activation {self.activation!r}")
+
+
+class Snake(nn.Module):
+    """Snake (alpha only) or SnakeBeta parameters; log-scale inits to 0, linear to 1."""
+
+    def __init__(self, channels: int, kind: str, logscale: bool, device=None):
+        super().__init__()
+        init = torch.zeros if logscale else torch.ones
+        self.alpha = nn.Parameter(init(channels, device=device))
+        if kind == "snakebeta":
+            self.beta = nn.Parameter(init(channels, device=device))
+        else:
+            self.register_parameter("beta", None)
+
+
+class Activation1d(nn.Module):
+    """Anti-aliased activation: 2x upsample -> snake -> 2x downsample."""
+
+    def __init__(self, activation: Snake, logscale: bool):
+        super().__init__()
+        self.activation = activation
+        self.logscale = logscale
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return aa_snake(x, self.activation.alpha, self.activation.beta, self.logscale)
+
+
+class AMPBlock(nn.Module):
+    """One AMP resblock: per dilation d, act -> conv(k, d) -> act -> conv(k) -> + x.
+
+    Its forward is the stage-level ``amp_stage`` (the blocks of a stage run
+    together there); the block holds the parameters and the shape."""
+
+    def __init__(self, channels: int, kernel_size: int, dilations: tuple, cfg: BigVGANConfig, device=None):
+        super().__init__()
+        self.kernel_size = kernel_size
+        self.dilations = tuple(dilations)
+        k = kernel_size
+        self.convs1 = nn.ModuleList(
+            [conv1d(channels, channels, k, dilation=d, padding=get_padding(k, d), device=device) for d in dilations]
+        )
+        self.convs2 = nn.ModuleList(
+            [conv1d(channels, channels, k, padding=get_padding(k), device=device) for _ in dilations]
+        )
+        self.activations = nn.ModuleList(
+            [
+                Activation1d(Snake(channels, cfg.activation, cfg.snake_logscale, device), cfg.snake_logscale)
+                for _ in range(2 * len(dilations))
+            ]
+        )
+
+
+class BigVGAN(nn.Module):
+    """mel (B, num_mels, F) -> waveform (B, 1, F * hop)."""
+
+    def __init__(self, cfg: BigVGANConfig, device=None):
+        super().__init__()
+        if cfg.use_template:
+            raise NotImplementedError("BigVGAN with an f0 template is not yet ported")
+        self.cfg = cfg
+        uic = cfg.upsample_initial_channel
+        self.conv_pre = conv1d(
+            cfg.num_mels, uic, cfg.pre_conv_kernel_size, padding=get_padding(cfg.pre_conv_kernel_size), device=device
+        )
+        ups, resblocks = [], []
+        for i, (u, k) in enumerate(zip(cfg.upsample_rates, cfg.upsample_kernel_sizes)):
+            c_out = uic // (2 ** (i + 1))
+            ups.append(conv_transpose1d(uic // (2**i), c_out, k, stride=u, padding=(k - u) // 2, device=device))
+            for k_r, d_r in zip(cfg.resblock_kernel_sizes, cfg.resblock_dilation_sizes):
+                resblocks.append(AMPBlock(c_out, k_r, d_r, cfg, device))
+        self.ups = nn.ModuleList(ups)
+        self.resblocks = nn.ModuleList(resblocks)
+        ch = uic // (2 ** len(cfg.upsample_rates))
+        # The post activation is log-scale whatever snake_logscale says (reference bigvgan.py:335-337).
+        self.activation_post = Activation1d(Snake(ch, cfg.activation, True, device), True)
+        self.conv_post = conv1d(
+            ch, 1, cfg.post_conv_kernel_size, padding=get_padding(cfg.post_conv_kernel_size), device=device
+        )
+
+    def forward(self, mel: torch.Tensor) -> torch.Tensor:
+        return self._forward(mel, plain=False)
+
+    def forward_plain(self, mel: torch.Tensor) -> torch.Tensor:
+        """The same function through the kernels' plain versions on any device:
+        what the kernel path is held against on the card."""
+        return self._forward(mel, plain=True)
+
+    def _forward(self, mel: torch.Tensor, plain: bool) -> torch.Tensor:
+        cfg = self.cfg
+        n_k = len(cfg.resblock_kernel_sizes)
+        stage = amp_stage_plain if plain else amp_stage
+        x = self.conv_pre(mel.to(self.conv_post.bias.dtype))
+        for i, up in enumerate(self.ups):
+            x = up(x)
+            x = stage(list(self.resblocks[i * n_k : (i + 1) * n_k]), x, cfg.snake_logscale)
+        if plain:
+            post = self.activation_post.activation
+            x = aa_snake_plain(x, *snake_params(post.alpha, post.beta, True))
+        else:
+            x = self.activation_post(x)
+        return torch.tanh(self.conv_post(x))
+
+
+def random_state_dict(cfg: BigVGANConfig, seed: int) -> dict[str, torch.Tensor]:
+    """fp32 CPU weights for ``BigVGAN(cfg)`` made from a numpy seed.
+
+    Weight-norm directions are standard normal and the gains near 1, so each
+    conv keeps the signal's scale: the transposed convs' gains carry
+    sqrt(rate / 2) for the channel halving, the resblock convs' 0.5 keep the
+    residual branches below the skip path, conv_pre's 0.2 takes a log-mel's
+    offset of about -5 to unit scale and conv_post's 0.25 keeps tanh off its
+    rails.  Biases are small and the snake parameters sit near their init.
+    """
+    rng = np.random.default_rng(seed)
+    shapes = {k: tuple(v.shape) for k, v in BigVGAN(cfg, device="meta").state_dict().items()}
+    sd = {}
+    for key, shape in shapes.items():
+        if key.endswith("original0"):
+            top = key.split(".")[0]
+            gain = {"conv_pre": 0.2, "resblocks": 0.5, "conv_post": 0.25}.get(top, 1.0)
+            if top == "ups":
+                gain = (cfg.upsample_rates[int(key.split(".")[1])] / 2) ** 0.5
+            val = gain * (1.0 + 0.1 * rng.standard_normal(shape))
+        elif key.endswith("original1"):
+            val = rng.standard_normal(shape)
+        elif key.endswith("bias"):
+            val = 0.01 * rng.standard_normal(shape)
+        else:  # snake alpha / beta
+            logscale = cfg.snake_logscale or key.startswith("activation_post.")
+            val = (0.0 if logscale else 1.0) + 0.1 * rng.standard_normal(shape)
+        sd[key] = torch.from_numpy(np.asarray(val, np.float32))
+    return sd
