@@ -95,6 +95,42 @@ def test_bridge_round_trip_is_bit_exact(activation):
     BigVGAN(BigVGANConfig(**kw)).load_state_dict(back)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_stage_plan_is_a_cache_outside_the_state_dict(dtype):
+    """The kernels' per-model launch arguments (packed bf16 weights for the
+    tensor-core route) are built once, rebuilt after an in-place weight change,
+    and leave state_dict() as it was, keys and values, so the bridge tests above
+    cover a model that has run."""
+    from vocoder_tpu_torch.ops.amp_block import ROUTES, stage_plan
+
+    cfg = BigVGANConfig(**NARROW)
+    model = BigVGAN(cfg)
+    model.load_state_dict(random_state_dict(cfg, seed=5))
+    model = fold_weight_norm(model).to(dtype).eval()
+    before = {k: v.clone() for k, v in model.state_dict().items()}
+    blocks = list(model.resblocks[:3])
+    plan = stage_plan(blocks, True)
+    assert plan.route == ROUTES[dtype] and len(plan.params) == 18
+    conv = blocks[0].convs1[0]
+    w0 = plan.weights[0].clone()
+    want = conv.weight.detach().permute(2, 0, 1) if dtype == torch.bfloat16 else conv.weight.detach()
+    assert torch.equal(w0, want) and plan.params[0].w == plan.weights[0].data_ptr()
+    assert stage_plan(blocks, True) is plan  # cached
+    with torch.inference_mode():
+        model(torch.zeros(1, 8, 6, dtype=dtype))
+    with torch.no_grad():
+        conv.weight.mul_(2.0)
+    rebuilt = stage_plan(blocks, True)
+    assert rebuilt is not plan and torch.equal(rebuilt.weights[0], 2 * w0)
+    with torch.no_grad():
+        conv.weight.mul_(0.5)
+
+    after = model.state_dict()
+    assert list(after) == list(before)
+    for key, val in before.items():
+        assert torch.equal(after[key], val), key
+
+
 def test_reference_checkpoint_layouts(tmp_path):
     """generator.-prefixed checkpoints with parametrized, legacy or folded weight norm load alike."""
     cfg = BigVGANConfig(**NARROW)

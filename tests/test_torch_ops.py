@@ -25,7 +25,7 @@ from vocoder_tpu_torch.models.bigvgan import AMPBlock, BigVGANConfig
 from vocoder_tpu_torch.nn import fold_weight_norm
 from vocoder_tpu_torch.ops import antialias as taa
 from vocoder_tpu_torch.ops.aa_snake import aa_snake
-from vocoder_tpu_torch.ops.amp_block import amp_stage, amp_stage_plain
+from vocoder_tpu_torch.ops.amp_block import amp_stage, amp_stage_plain, pack_conv_weight
 from vocoder_tpu_torch.ops.spectral import log_mel_spectrogram, mel_filterbank
 
 
@@ -177,6 +177,46 @@ def test_amp_stage_plain_matches_amp_apply(c, activation, logscale):
     blocks = _port_blocks(jblocks, c, kernel_sizes, dilation_sizes, activation, logscale)
     got = amp_stage_plain(blocks, _to_port(x), logscale)
     np.testing.assert_allclose(_from_port(got), want, rtol=2e-4, atol=2e-5)
+
+
+def _bf16_exact(a: np.ndarray) -> np.ndarray:
+    return np.asarray(jnp.asarray(a).astype(jnp.bfloat16).astype(jnp.float32))
+
+
+def test_amp_stage_plain_bf16_matches_pallas_kernel(monkeypatch):
+    """bf16 x: the plain stage rounds each conv input to bf16 as the fused kernel
+    rounds its matmul operands to mm_dtype = x.dtype.  Interior rows only (the JAX
+    wrapper splices the edge rows from its XLA oracle); measured 1.0e-3 (1.6e-3
+    with the conv inputs left in fp32)."""
+    kernel_sizes, dilation_sizes, c, t = (3, 7, 11), ((1, 3, 5),) * 3, 128, 512
+    cfg = _jax_stage_cfg(c, kernel_sizes, dilation_sizes)
+    rng = np.random.default_rng(2)
+    jblocks = _random_jax_blocks(rng, c, kernel_sizes, dilation_sizes, cfg)
+    # Biases and snake parameters as bf16 values, so both sides hold the same numbers.
+    jblocks = jax.tree_util.tree_map_with_path(
+        lambda path, v: v if jax.tree_util.keystr(path).endswith(("['v']", "['g']")) else _bf16_exact(v), jblocks)
+    x = _bf16_exact(rng.standard_normal((1, t, c)).astype(np.float32))
+
+    # The edge oracle runs XLA convs, which need one dtype: run it in fp32 (those rows are not compared).
+    oracle = jbigvgan._amp_apply
+    monkeypatch.setattr(jbigvgan, "_amp_apply", lambda p, v, *a: oracle(p, v.astype(jnp.float32), *a).astype(v.dtype))
+    want = np.asarray(jamp.amp_stage_fused(jblocks, jnp.asarray(x, jnp.bfloat16), kernel_sizes, dilation_sizes,
+                                           True, 1, interpret=True).astype(jnp.float32))
+    blocks = [b.to(torch.bfloat16) for b in _port_blocks(jblocks, c, kernel_sizes, dilation_sizes)]
+    got = _from_port(amp_stage(blocks, _to_port(x).to(torch.bfloat16), True).float())
+
+    left, right = jamp._halos(kernel_sizes, dilation_sizes, 1)
+    got, want = got[:, left : t - right], want[:, left : t - right]
+    assert np.linalg.norm(got - want) / np.linalg.norm(want) <= 2e-3
+
+
+def test_pack_conv_weight():
+    """The tensor-core kernel's weight layout: pack[j, o, i] == w[o, i, j], bf16 kept."""
+    w = torch.from_numpy(np.random.default_rng(8).standard_normal((32, 16, 5)).astype(np.float32)).to(torch.bfloat16)
+    packed = pack_conv_weight(w)
+    assert packed.shape == (5, 32, 16) and packed.dtype == torch.bfloat16 and packed.is_contiguous()
+    for j, o, i in np.ndindex(5, 32, 16):
+        assert packed[j, o, i] == w[o, i, j]
 
 
 @pytest.mark.parametrize("resolution", ["44100_512_2048", "24000_256_1024"])

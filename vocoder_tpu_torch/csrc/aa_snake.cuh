@@ -16,7 +16,13 @@
 //   aa_load:   xs[q] = x[clamp(p0 - 6 + q)]                   q < W + 12
 //   aa_branch: ss[i] = snake(y2[clamp(2 p0 - 5 + i)])         i < 2W + 10
 //   aa_down:   z[p0 + s] = sum_m f[m] ss[2s + m]              s < W
-// Everything inside is fp32.
+//
+// Everything inside is fp32, and every operation is one IEEE-rounded fp32
+// operation in the order of the plain version (ops/antialias.py:
+// aa_snake_plain, snake, sin_sq, snake_params): the __f*_rn intrinsics keep
+// nvcc from contracting a multiply and an add into an FMA.  The kernels and
+// the plain version on the card then agree to the bit, so rounding z to bf16
+// (the AMP convs' input) comes out the same in the two.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -39,6 +45,10 @@ __device__ __forceinline__ float ld(const __nv_bfloat16* p, int64_t i) { return 
 __device__ __forceinline__ void st(float* p, int64_t i, float v) { p[i] = v; }
 __device__ __forceinline__ void st(__nv_bfloat16* p, int64_t i, float v) { p[i] = __float2bfloat16(v); }
 
+__device__ __forceinline__ float mul(float a, float b) { return __fmul_rn(a, b); }
+__device__ __forceinline__ float add(float a, float b) { return __fadd_rn(a, b); }
+__device__ __forceinline__ float sub(float a, float b) { return __fsub_rn(a, b); }
+
 __device__ __forceinline__ float ld_any(const void* p, int dtype, int64_t i) {
   return dtype == BF16 ? ld(static_cast<const __nv_bfloat16*>(p), i) : ld(static_cast<const float*>(p), i);
 }
@@ -51,22 +61,22 @@ __device__ __forceinline__ void st_any(void* p, int dtype, int64_t i, float v) {
 // JAX package's polynomial, within 6e-7 of libm over |w| <= 300 (__sinf is
 // not, at the |alpha v| of tens to hundreds that snake reaches).
 __device__ __forceinline__ float sin_sq(float w) {
-  const float u = 2.0f * w;
-  const float k = rintf(u * 0.15915494309189535f);
-  const float r = ((u - k * 6.28125f) - k * 0.0019350051879882812f) - k * 3.0199159795074593e-07f;
-  const float r2 = r * r;
+  const float u = mul(2.0f, w);
+  const float k = rintf(mul(u, 0.15915494309189535f));
+  const float r = sub(sub(sub(u, mul(k, 6.28125f)), mul(k, 0.0019350051879882812f)), mul(k, 3.0199159795074593e-07f));
+  const float r2 = mul(r, r);
   float c = 1.7369133647437146e-09f;
-  c = c * r2 + -2.71133732450103e-07f;
-  c = c * r2 + 2.4773424196945306e-05f;
-  c = c * r2 + -0.0013887970410899468f;
-  c = c * r2 + 0.04166652436474753f;
-  c = c * r2 + -0.4999999177267109f;
-  c = c * r2 + 0.9999999922907286f;
-  return 0.5f - 0.5f * c;
+  c = add(mul(c, r2), -2.71133732450103e-07f);
+  c = add(mul(c, r2), 2.4773424196945306e-05f);
+  c = add(mul(c, r2), -0.0013887970410899468f);
+  c = add(mul(c, r2), 0.04166652436474753f);
+  c = add(mul(c, r2), -0.4999999177267109f);
+  c = add(mul(c, r2), 0.9999999922907286f);
+  return sub(0.5f, mul(0.5f, c));
 }
 
 __device__ __forceinline__ float snake(float v, float alpha, float inv_beta) {
-  return v + inv_beta * sin_sq(v * alpha);
+  return add(v, mul(inv_beta, sin_sq(mul(v, alpha))));
 }
 
 // Snake parameters of one channel as the activation uses them.
@@ -81,7 +91,7 @@ __device__ __forceinline__ SnakeAB snake_ab(const void* alpha, const void* beta,
     a = expf(a);
     b = expf(b);
   }
-  return {a, 1.0f / (b + 1e-9f)};
+  return {a, __fdiv_rn(1.0f, add(b, 1e-9f))};
 }
 
 __device__ __forceinline__ int clampi(int v, int lo, int hi) { return v < lo ? lo : (v > hi ? hi : v); }
@@ -103,13 +113,13 @@ __device__ __forceinline__ float aa_y2(const float* xs_row, int n, int p0) {
   if ((n & 1) == 0) {
     const float* p = xs_row + (v - p0 + 3);
 #pragma unroll
-    for (int j = 0; j < 6; ++j) y += kFilt[11 - 2 * j] * p[j];
+    for (int j = 0; j < 6; ++j) y = add(y, mul(kFilt[11 - 2 * j], p[j]));
   } else {
     const float* p = xs_row + (v - p0 + 4);
 #pragma unroll
-    for (int j = 0; j < 6; ++j) y += kFilt[10 - 2 * j] * p[j];
+    for (int j = 0; j < 6; ++j) y = add(y, mul(kFilt[10 - 2 * j], p[j]));
   }
-  return 2.0f * y;
+  return mul(2.0f, y);
 }
 
 // Each thread takes one (odd, even) pair of 2x-rate samples, so the parity
@@ -127,12 +137,13 @@ __device__ void aa_branch(const float* xs, int T, int p0, int W, int nc, const S
   }
 }
 
-// z at window position s of one channel row of ss.
+// z at window position s of one channel row of ss, summed as the plain version
+// sums it: (f[2a] ss[2s + 2a] + f[2a + 1] ss[2s + 2a + 1]) for a = 0..5, left to right.
 __device__ __forceinline__ float aa_down(const float* ss_row, int s) {
   const float* p = ss_row + 2 * s;
   float z = 0.0f;
 #pragma unroll
-  for (int m = 0; m < 12; ++m) z += kFilt[m] * p[m];
+  for (int a = 0; a < 6; ++a) z = add(z, add(mul(kFilt[2 * a], p[2 * a]), mul(kFilt[2 * a + 1], p[2 * a + 1])));
   return z;
 }
 

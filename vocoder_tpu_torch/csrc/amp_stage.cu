@@ -1,4 +1,4 @@
-// K2: one conv of a BigVGAN AMP stage with its anti-aliased Snake fused in.
+// K2, fp32 route: one conv of a BigVGAN AMP stage with its anti-aliased Snake fused in.
 //
 // Replaces the Pallas kernel vocoder_tpu/ops/pallas/amp_block.py::_kernel
 // (pallas_call in amp_stage_fused).  That kernel runs a whole AMP stage per
@@ -11,16 +11,17 @@
 //
 // with epilogues for the residual add (second conv of a pair) and for the
 // running sum over the stage's blocks (last conv of a block), which also
-// divides by the block count and casts on the stage's last conv.  A stage
-// is 18 launches; ops/amp_block.py drives them and keeps the residual
-// stream and the stage sum in fp32 between launches, as the TPU kernel
-// kept them in fp32 in VMEM.
+// divides by the block count and casts on the stage's last conv (the
+// interface is amp_conv.cuh's).  A stage is 18 launches; ops/amp_block.py
+// drives them and keeps the residual stream and the stage sum in fp32
+// between launches, as the TPU kernel kept them in fp32 in VMEM.
 //
 // Bound on an H100: 2 C K operations per output and channel against a few
 // bytes per sample, so the arithmetic sets it: 67 TFLOP/s on the CUDA
-// cores, 989 TFLOP/s on the bf16 tensor cores.  This first version is a
-// plain fp32-FMA kernel tiled in shared memory, which gives the right
-// answer; tensor cores (mma.sync / wgmma) and TMA are later work.
+// cores, 989 TFLOP/s on the bf16 tensor cores.  This kernel serves fp32
+// models: a plain fp32-FMA loop tiled in shared memory, exact against the
+// fp32 plain version.  bf16 models take the tensor-core kernel in
+// amp_conv_mma.cu.
 //
 // Per block: O_TILE output channels x T_TILE times of one batch item, 256
 // threads, 4 x 4 outputs each.  For each chunk of 8 input channels the
@@ -30,6 +31,7 @@
 // memory.  Weights stream from device memory one chunk at a time.
 
 #include "aa_snake.cuh"
+#include "amp_conv.cuh"
 
 namespace {
 
@@ -67,7 +69,7 @@ __host__ inline size_t smem_bytes(int K, int dil) {
   return sizeof(float) * (static_cast<size_t>(kChunk) * (4 * W + 22) + static_cast<size_t>(O_TILE) * kChunk * K);
 }
 
-template <typename TX, typename TW, int O_TILE>
+template <int O_TILE>
 __global__ void __launch_bounds__(kThreads) amp_conv_kernel(ConvArgs a) {
   using Tl = Tile<O_TILE>;
   extern __shared__ float smem[];
@@ -84,13 +86,12 @@ __global__ void __launch_bounds__(kThreads) amp_conv_kernel(ConvArgs a) {
   const int64_t b = blockIdx.z;
   const int p0 = t0 - dil * (K - 1) / 2;  // activation position of window slot 0
   const int ty = threadIdx.x / Tl::kCols, tx = threadIdx.x % Tl::kCols;
-  const TX* x = static_cast<const TX*>(a.x);
-  const TW* w = static_cast<const TW*>(a.w);
-  const int wdt = sizeof(TW) == 2 ? aa::BF16 : aa::F32;
+  const float* x = static_cast<const float*>(a.x);
+  const float* w = static_cast<const float*>(a.w);
 
   float acc[4][4] = {};
   for (int i0 = 0; i0 < C; i0 += kChunk) {
-    if (threadIdx.x < kChunk) ab[threadIdx.x] = aa::snake_ab(a.alpha, a.beta, wdt, a.logscale, i0 + threadIdx.x);
+    if (threadIdx.x < kChunk) ab[threadIdx.x] = aa::snake_ab(a.alpha, a.beta, aa::F32, a.logscale, i0 + threadIdx.x);
     aa::aa_load(x, b * C + i0, T, p0, W, kChunk, xs);
     for (int idx = threadIdx.x; idx < O_TILE * kChunk * K; idx += kThreads) {
       const int o = idx / (kChunk * K), r = idx - o * (kChunk * K);
@@ -123,7 +124,7 @@ __global__ void __launch_bounds__(kThreads) amp_conv_kernel(ConvArgs a) {
     __syncthreads();
   }
 
-  const TW* bias = static_cast<const TW*>(a.bias);
+  const float* bias = static_cast<const float*>(a.bias);
 #pragma unroll
   for (int r = 0; r < 4; ++r) {
     const int o = o0 + ty * 4 + r;
@@ -145,10 +146,10 @@ __global__ void __launch_bounds__(kThreads) amp_conv_kernel(ConvArgs a) {
   }
 }
 
-template <typename TX, typename TW, int O_TILE>
+template <int O_TILE>
 cudaError_t launch(const ConvArgs& a, int B, cudaStream_t stream) {
   const size_t smem = smem_bytes<O_TILE>(a.K, a.dil);
-  auto kernel = amp_conv_kernel<TX, TW, O_TILE>;
+  auto kernel = amp_conv_kernel<O_TILE>;
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (e != cudaSuccess) return e;
@@ -158,37 +159,25 @@ cudaError_t launch(const ConvArgs& a, int B, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-template <typename TX, typename TW>
 cudaError_t dispatch_tile(const ConvArgs& a, int B, cudaStream_t stream) {
-  if (a.C % 64 == 0) return launch<TX, TW, 64>(a, B, stream);
-  if (a.C % 32 == 0) return launch<TX, TW, 32>(a, B, stream);
-  return launch<TX, TW, 16>(a, B, stream);
+  if (a.C % 64 == 0) return launch<64>(a, B, stream);
+  if (a.C % 32 == 0) return launch<32>(a, B, stream);
+  return launch<16>(a, B, stream);
 }
 
 }  // namespace
 
-// One conv of an AMP chain: see ConvArgs for the operands.  x_dtype and
-// w_dtype (the dtype of w, bias, alpha and beta) are 0 for fp32, 1 for
-// bf16; the pairs are fp32/fp32, bf16/bf16 and fp32 x with bf16 weights
-// (the fp32 residual stream of a bf16 model).  C must be a multiple of 16,
-// K odd.  Returns cudaGetLastError(), or cudaErrorInvalidValue.
-extern "C" int amp_conv_fwd(const void* x, int x_dtype, const void* alpha, const void* beta, int logscale,
-                            const void* w, const void* bias, int w_dtype, int B, int C, int T, int K, int dil,
-                            const void* res, int res_dtype, float* out, const float* acc_in, float* acc_out,
-                            void* fin, int fin_dtype, float n_blocks, void* stream) {
-  if (B <= 0 || B > 65535 || C <= 0 || C % 16 != 0 || T <= 0 || K <= 0 || K % 2 == 0 || dil <= 0)
+// One conv of an AMP chain (amp_conv.cuh): fp32 x and fp32 parameters only.
+// C must be a multiple of 16, K odd.
+extern "C" int amp_conv_fwd(const AmpConvParams* p, const void* x, int x_dtype, int B, int T, const void* res,
+                            int res_dtype, float* out, const float* acc_in, float* acc_out, void* fin, int fin_dtype,
+                            void* stream) {
+  if (x_dtype != aa::F32 || p->param_dtype != aa::F32 || B <= 0 || B > 65535 || p->C <= 0 || p->C % 16 != 0 ||
+      T <= 0 || p->K <= 0 || p->K % 2 == 0 || p->dil <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  ConvArgs a{x, alpha, beta, w, bias, res, out, acc_in, acc_out, fin, res_dtype, fin_dtype, logscale,
-             C, T, K, dil, n_blocks};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t e;
-  if (x_dtype == aa::BF16) {
-    if (w_dtype != aa::BF16) return static_cast<int>(cudaErrorInvalidValue);
-    e = dispatch_tile<__nv_bfloat16, __nv_bfloat16>(a, B, s);
-  } else {
-    e = w_dtype == aa::BF16 ? dispatch_tile<float, __nv_bfloat16>(a, B, s) : dispatch_tile<float, float>(a, B, s);
-  }
-  return static_cast<int>(e);
+  ConvArgs a{x, p->alpha, p->beta, p->w, p->bias, res, out, acc_in, acc_out, fin, res_dtype, fin_dtype, p->logscale,
+             p->C, T, p->K, p->dil, p->n_blocks};
+  return static_cast<int>(dispatch_tile(a, B, static_cast<cudaStream_t>(stream)));
 }
 
 extern "C" const char* error_string(int err) { return cudaGetErrorString(static_cast<cudaError_t>(err)); }

@@ -4,24 +4,37 @@ Replaces the Pallas kernel ``vocoder_tpu/ops/pallas/amp_block.py::_kernel``
 (``pallas_call`` in ``amp_stage_fused``), which evaluated a whole stage per
 TPU VMEM tile: for each block (kernel size k, dilations ds) and each d in ds,
 aa-snake -> conv k dilation d -> aa-snake -> conv k -> residual add, then the
-mean over the blocks.  On Hopper the stage runs as one fused kernel per conv
-(``csrc/amp_stage.cu``): each launch evaluates ``conv(aa_snake(x)) + bias``
-with the aa-snake computed in shared memory, plus the residual add or the
-block-sum epilogue.  The residual stream and the stage sum stay in fp32
-between launches; the stage output is cast to x's dtype once.  That is
-``2 * sum(len(ds))`` launches a stage, 18 for BigVGAN's (3, 7, 11) x
-(1, 3, 5).  The convs cost 2 C K operations per output and channel, which
-bounds the kernel by arithmetic, not bytes; it is a plain fp32-FMA kernel
-for now.
+mean over the blocks.  On Hopper the stage runs as one fused kernel per conv:
+each launch evaluates ``conv(aa_snake(x)) + bias`` with the aa-snake computed
+on chip, plus the residual add or the block-sum epilogue.  The
+residual stream and the stage sum stay in fp32 between launches; the stage
+output is cast to x's dtype once.  That is ``2 * sum(len(ds))`` launches a
+stage, 18 for BigVGAN's (3, 7, 11) x (1, 3, 5).
+
+The model's dtype picks the kernel:
+- bf16 parameters: ``csrc/amp_conv_mma.cu``, the convs on the bf16 tensor
+  cores (``mma.sync``, fp32 sums) with the conv inputs rounded to bf16 once,
+  as the TPU kernel rounds its matmul operands to ``mm_dtype = x.dtype``.
+  x may be bf16 or fp32.  C <= 256.
+- fp32 parameters: ``csrc/amp_stage.cu``, a plain fp32-FMA kernel, exact
+  against the fp32 plain version.  x must be fp32.
+
+Each conv's kernel arguments (the packed weights of the bf16 route and the
+parameter pointers) are built once per model into a ``StagePlan``, cached
+outside the modules and rebuilt when a parameter is replaced or changed in
+place; ``state_dict()`` never sees it.  A launch is then one ctypes call.
 
 ``amp_stage`` takes a CPU tensor to ``amp_stage_plain`` and launches the
-kernels for a CUDA tensor, or raises.  ``amp_stage.launches`` counts kernel
-launches.  Forward only, as on the TPU.
+kernels for a CUDA tensor, or raises.  ``amp_stage.launches`` counts
+launches of the fp32 kernel, ``amp_stage.mma_launches`` those of the
+tensor-core kernel.  Forward only, as on the TPU.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import weakref
 
 import torch
 import torch.nn.functional as F
@@ -33,24 +46,43 @@ from vocoder_tpu_torch.ops.antialias import aa_snake_plain, snake_params
 _C_VOID = ctypes.c_void_p
 _C_INT = ctypes.c_int
 
+# The kernel library (csrc/<name>.cu) for each parameter dtype.
+ROUTES = {torch.float32: "amp_stage", torch.bfloat16: "amp_conv_mma"}
+MMA_MAX_CHANNELS = 256
 
-def _lib() -> ctypes.CDLL:
-    lib = build.load("amp_stage")
-    fn = lib.amp_conv_fwd
-    fn.argtypes = [
-        _C_VOID, _C_INT,  # x, x_dtype
-        _C_VOID, _C_VOID, _C_INT,  # alpha, beta, logscale
-        _C_VOID, _C_VOID, _C_INT,  # w, bias, w_dtype
-        _C_INT, _C_INT, _C_INT, _C_INT, _C_INT,  # B, C, T, K, dil
-        _C_VOID, _C_INT,  # res, res_dtype
-        _C_VOID, _C_VOID, _C_VOID,  # out, acc_in, acc_out
-        _C_VOID, _C_INT, ctypes.c_float,  # fin, fin_dtype, n_blocks
-        _C_VOID,  # stream
+
+class ConvParams(ctypes.Structure):
+    """``AmpConvParams`` of ``csrc/amp_conv.cuh``: what stays fixed for one conv of a model."""
+
+    _fields_ = [
+        ("w", _C_VOID), ("bias", _C_VOID), ("alpha", _C_VOID), ("beta", _C_VOID),
+        ("param_dtype", _C_INT), ("logscale", _C_INT), ("C", _C_INT), ("K", _C_INT), ("dil", _C_INT),
+        ("n_blocks", ctypes.c_float),
     ]
-    fn.restype = _C_INT
-    lib.error_string.argtypes = [_C_INT]
-    lib.error_string.restype = ctypes.c_char_p
+
+
+def _lib(name: str) -> ctypes.CDLL:
+    lib = build.load(name)
+    fn = lib.amp_conv_fwd
+    if fn.argtypes is None:
+        fn.argtypes = [
+            _C_VOID, _C_VOID, _C_INT, _C_INT, _C_INT,  # params, x, x_dtype, B, T
+            _C_VOID, _C_INT, _C_VOID, _C_VOID, _C_VOID,  # res, res_dtype, out, acc_in, acc_out
+            _C_VOID, _C_INT, _C_VOID,  # fin, fin_dtype, stream
+        ]
+        fn.restype = _C_INT
+        lib.error_string.argtypes = [_C_INT]
+        lib.error_string.restype = ctypes.c_char_p
+        if name == ROUTES[torch.bfloat16]:
+            lib.amp_conv_time_tile.argtypes = [_C_INT, _C_INT, _C_INT]
+            lib.amp_conv_time_tile.restype = _C_INT
     return lib
+
+
+def mma_time_tile(c: int, b: int, t: int) -> int:
+    """The time tile of the tensor-core kernel's blocks at (C, B, T) on the current card:
+    a launch runs B * ceil(T / tile) blocks."""
+    return _lib(ROUTES[torch.bfloat16]).amp_conv_time_tile(c, b, t)
 
 
 def _snake(act) -> tuple[torch.Tensor, torch.Tensor | None]:
@@ -58,49 +90,107 @@ def _snake(act) -> tuple[torch.Tensor, torch.Tensor | None]:
 
 
 def amp_stage_plain(blocks, x: torch.Tensor, logscale: bool) -> torch.Tensor:
-    """mean_k(AMP block k (x)) in fp32 with the plain aa-snake and F.conv1d."""
+    """mean_k(AMP block k (x)) with the plain aa-snake and F.conv1d, fp32 inside.
+
+    Each conv input is rounded to x's dtype first, as the TPU kernel rounds its
+    matmul operands to ``mm_dtype = x.dtype``; for fp32 x that changes nothing."""
     xf = x.float()
+
+    def act(h, a):
+        return aa_snake_plain(h, *snake_params(*_snake(a), logscale)).to(x.dtype).float()
+
     outs = []
     for blk in blocks:
         h = xf
         k = blk.kernel_size
         for i, (c1, c2, d) in enumerate(zip(blk.convs1, blk.convs2, blk.dilations)):
             a1, a2 = blk.activations[2 * i], blk.activations[2 * i + 1]
-            t = aa_snake_plain(h, *snake_params(*_snake(a1), logscale))
-            t = F.conv1d(t, c1.weight.float(), c1.bias.float(), padding=get_padding(k, d), dilation=d)
-            t = aa_snake_plain(t, *snake_params(*_snake(a2), logscale))
-            t = F.conv1d(t, c2.weight.float(), c2.bias.float(), padding=get_padding(k))
+            t = F.conv1d(act(h, a1), c1.weight.float(), c1.bias.float(), padding=get_padding(k, d), dilation=d)
+            t = F.conv1d(act(t, a2), c2.weight.float(), c2.bias.float(), padding=get_padding(k))
             h = h + t
         outs.append(h)
     return (sum(outs) / len(outs)).to(x.dtype)
 
 
-def _conv(lib, x, act, conv, k: int, d: int, logscale: bool, *, res=None, out=None, acc_in=None, acc_out=None,
-          fin=None, n_blocks: int = 1) -> None:
-    alpha, beta = _snake(act)
-    beta = alpha if beta is None else beta
-    w = conv.weight.contiguous()
-    b, c, t = x.shape
-    params = (alpha, beta, w, conv.bias)
-    if w.shape != (c, c, k) or any(p.dtype != w.dtype or p.device != x.device for p in params):
-        raise ValueError(f"amp_stage: conv weight {tuple(w.shape)} / parameter dtypes do not fit x {tuple(x.shape)}")
-    if x.dtype == torch.bfloat16 and w.dtype != torch.bfloat16:
-        raise ValueError("amp_stage: a bf16 input needs a bf16 model; cast the model with the input")
-    err = lib.amp_conv_fwd(
-        x.data_ptr(), build.dtype_code(x, "amp_stage x"),
-        alpha.data_ptr(), beta.data_ptr(), int(logscale),
-        w.data_ptr(), conv.bias.data_ptr(), build.dtype_code(w, "amp_stage weight"),
-        b, c, t, k, d,
-        None if res is None else res.data_ptr(), 0 if res is None else build.dtype_code(res, "amp_stage res"),
-        None if out is None else out.data_ptr(),
-        None if acc_in is None else acc_in.data_ptr(),
-        None if acc_out is None else acc_out.data_ptr(),
-        None if fin is None else fin.data_ptr(), 0 if fin is None else build.dtype_code(fin, "amp_stage out"),
-        float(n_blocks), build.stream_ptr(x.device),
-    )
-    if err:
-        raise RuntimeError(f"amp_stage: launch failed: {lib.error_string(err).decode()}")
-    amp_stage.launches += 1
+def pack_conv_weight(w: torch.Tensor) -> torch.Tensor:
+    """(C_out, C_in, K) -> (K, C_out, C_in) contiguous, pack[j, o, i] = w[o, i, j]: the
+    tensor-core kernel's B operand, each (tap, channel-chunk) a run of contiguous rows."""
+    return w.detach().permute(2, 0, 1).contiguous()
+
+
+@dataclasses.dataclass
+class StagePlan:
+    """The launch arguments of one stage's convs, in launch order, for one model state."""
+
+    blocks: tuple[int, ...]  # id() of each block
+    slots: list  # (module._parameters, name) of every parameter of the blocks
+    key: list | None  # (data_ptr, version) of each slot's tensor; None: not trackable, never reused
+    logscale: bool
+    dtype: torch.dtype
+    device: torch.device
+    channels: int
+    route: str  # kernel library, a value of ROUTES
+    params: list[ConvParams]
+    addrs: list[int]  # ctypes.addressof of each ConvParams
+    weights: list[torch.Tensor]  # what the ConvParams point to, kept alive
+
+
+_PLANS: weakref.WeakKeyDictionary = weakref.WeakKeyDictionary()  # first block -> StagePlan
+
+
+def _slots(blocks) -> list:
+    return [(m._parameters, name) for blk in blocks for m in blk.modules()
+            for name, p in m._parameters.items() if p is not None]
+
+
+def _key(slots) -> list | None:
+    try:
+        return [(d[name].data_ptr(), d[name]._version) for d, name in slots]
+    except RuntimeError:  # inference tensors carry no version counter
+        return None
+
+
+def stage_plan(blocks, logscale: bool) -> StagePlan:
+    """The cached ``StagePlan`` of these blocks, rebuilt when a parameter was replaced or changed."""
+    ids = tuple(map(id, blocks))
+    plan = _PLANS.get(blocks[0])
+    if plan is not None and plan.blocks == ids and plan.logscale == logscale:
+        key = _key(plan.slots)
+        if key is not None and key == plan.key:
+            return plan
+    slots = _slots(blocks)
+    plan = _build_plan(list(blocks), logscale, ids, slots, _key(slots))
+    _PLANS[blocks[0]] = plan
+    return plan
+
+
+def _build_plan(blocks, logscale: bool, ids, slots, key) -> StagePlan:
+    first = blocks[0].convs1[0].weight
+    dtype, device, c = first.dtype, first.device, first.shape[0]
+    if dtype not in ROUTES:
+        raise TypeError(f"amp_stage: no kernel for {dtype} parameters (float32 or bfloat16)")
+    mma = ROUTES[dtype] == "amp_conv_mma"
+    if mma and c > MMA_MAX_CHANNELS:
+        raise ValueError(f"amp_stage: the tensor-core kernel takes C <= {MMA_MAX_CHANNELS}, got C = {c}")
+    params, weights = [], []
+    for blk in blocks:
+        k = blk.kernel_size
+        for i, (c1, c2, d) in enumerate(zip(blk.convs1, blk.convs2, blk.dilations)):
+            for act, conv, dil in ((blk.activations[2 * i], c1, d), (blk.activations[2 * i + 1], c2, 1)):
+                alpha, beta = _snake(act)
+                beta = alpha if beta is None else beta
+                w = conv.weight.detach()
+                vecs = [t.detach() for t in (conv.bias, alpha, beta)]
+                if w.shape != (c, c, k) or any(t.shape != (c,) or not t.is_contiguous() for t in vecs):
+                    raise ValueError(f"amp_stage: conv weight {tuple(w.shape)} does not fit C = {c}, k = {k}")
+                if any(t.dtype != dtype or t.device != device for t in (w, *vecs)):
+                    raise ValueError("amp_stage: every parameter of a stage needs one dtype and one device")
+                w = pack_conv_weight(w) if mma else w.contiguous()
+                params.append(ConvParams(w.data_ptr(), *(t.data_ptr() for t in vecs), build.DTYPE_CODES[dtype],
+                                         int(logscale), c, k, dil, float(len(blocks))))
+                weights += [w, *vecs]
+    return StagePlan(ids, slots, key, logscale, dtype, device, c, ROUTES[dtype], params,
+                     [ctypes.addressof(p) for p in params], weights)
 
 
 def amp_stage_kernel(blocks, x: torch.Tensor, logscale: bool) -> torch.Tensor:
@@ -111,27 +201,48 @@ def amp_stage_kernel(blocks, x: torch.Tensor, logscale: bool) -> torch.Tensor:
         raise ValueError(f"amp_stage: the kernel needs C % 16 == 0, got C = {x.shape[1]}")
     if torch.is_grad_enabled() and (x.requires_grad or any(p.requires_grad for b in blocks for p in b.parameters())):
         raise RuntimeError("amp_stage: the kernels are forward only; run them under torch.inference_mode()")
-    lib = _lib()
+    plan = stage_plan(blocks, logscale)
+    if plan.channels != x.shape[1] or plan.device != x.device:
+        raise ValueError(f"amp_stage: a {plan.channels}-channel model on {plan.device} cannot take x "
+                         f"{tuple(x.shape)} on {x.device}")
+    if x.dtype == torch.bfloat16 and plan.dtype != torch.bfloat16:
+        raise ValueError("amp_stage: a bf16 input needs a bf16 model; cast the model with the input")
+    xd = build.dtype_code(x, "amp_stage x")
+    fn = _lib(plan.route).amp_conv_fwd
+    mma = plan.route == "amp_conv_mma"
+    b, _, t = x.shape
     n_k = len(blocks)
-    f32 = dict(device=x.device, dtype=torch.float32)
-    res = torch.empty(x.shape, **f32)  # residual stream of the current block
-    y = torch.empty(x.shape, **f32)  # first conv of the current pair
-    acc = torch.empty(x.shape, **f32) if n_k > 1 else None  # sum of finished blocks
+    # fp32 scratch: the residual stream of the current block, the first conv of the
+    # current pair and the sum of the finished blocks, in one allocation.
+    scratch = torch.empty((3 if n_k > 1 else 2, *x.shape), device=x.device, dtype=torch.float32)
     z = torch.empty_like(x)
+    step = x.numel() * 4
+    xp, rp, zp = x.data_ptr(), scratch.data_ptr(), z.data_ptr()
+    yp, acc = rp + step, (rp + 2 * step if n_k > 1 else None)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    addrs = iter(plan.addrs)
+
+    def launch(src, src_dt, res_p, res_dt, out=None, acc_in=None, acc_out=None, fin=None):
+        err = fn(next(addrs), src, src_dt, b, t, res_p, res_dt, out, acc_in, acc_out, fin, xd, stream)
+        if err:
+            raise RuntimeError(f"amp_stage: launch failed: {_lib(plan.route).error_string(err).decode()}")
+        if mma:
+            amp_stage.mma_launches += 1
+        else:
+            amp_stage.launches += 1
+
     for kb, blk in enumerate(blocks):
-        cur = x
-        k = blk.kernel_size
+        cur, cur_dt = xp, xd
         n_d = len(blk.dilations)
-        for i, (c1, c2, d) in enumerate(zip(blk.convs1, blk.convs2, blk.dilations)):
-            a1, a2 = blk.activations[2 * i], blk.activations[2 * i + 1]
-            _conv(lib, cur, a1, c1, k, d, logscale, out=y)
+        for i in range(n_d):
+            launch(cur, cur_dt, None, 0, out=yp)
             if i + 1 < n_d:  # residual add, in place once cur is the fp32 stream
-                _conv(lib, y, a2, c2, k, 1, logscale, res=cur, out=res)
-                cur = res
+                launch(yp, 0, cur, cur_dt, out=rp)
+                cur, cur_dt = rp, 0
             elif kb + 1 < n_k:  # block done: add it to the stage sum
-                _conv(lib, y, a2, c2, k, 1, logscale, res=cur, acc_in=acc if kb else None, acc_out=acc)
+                launch(yp, 0, cur, cur_dt, acc_in=acc if kb else None, acc_out=acc)
             else:  # stage done: (sum + last block) / n_k, cast to x's dtype
-                _conv(lib, y, a2, c2, k, 1, logscale, res=cur, acc_in=acc if kb else None, fin=z, n_blocks=n_k)
+                launch(yp, 0, cur, cur_dt, acc_in=acc if kb else None, fin=zp)
     return z
 
 
@@ -145,3 +256,4 @@ def amp_stage(blocks, x: torch.Tensor, logscale: bool) -> torch.Tensor:
 
 
 amp_stage.launches = 0
+amp_stage.mma_launches = 0
