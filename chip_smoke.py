@@ -7,20 +7,19 @@ Phases, in order; any failure exits non-zero:
   0. build the CUDA kernels from vocoder_tpu_torch/csrc (nvcc, sm_90a);
   1. K1 (aa-snake) against its plain version at activation_post's shape,
      C = 16, T = 512 * 256, b1 and b4, plus ragged T, in fp32 and bf16;
-  2. K2 (AMP stage) against its plain stage at the five stage shapes of the
-     44.1 kHz preset, F = 256 frames, b1: fp32 through the FMA kernel
-     (csrc/amp_stage.cu), bf16 through the tensor-core kernel
-     (csrc/amp_conv_mma.cu) against the plain stage that rounds the same
-     conv inputs to bf16;
+  2. K2 (AMP stage, csrc/amp_conv_mma.cu) against its plain stage at the
+     five stage shapes of the 44.1 kHz preset, F = 256 frames, b1 and b16: fp32
+     through the 3xTF32 route, bf16 through the bf16 route against the
+     plain stage that rounds the same conv inputs to bf16;
   3. the full-width BigVGAN (random weights from a numpy seed, saved as a
      `generator.` checkpoint) through `cli.infer.main` (fp32) on generated
      WAVs and one .npy mel, one file longer than --chunk-frames; K1's and
-     the FMA kernel's launch counts must be > 0 for that run; then the
+     the fp32 K2 route's launch counts must be > 0 for that run; then the
      kernel path against the plain path on the same mel in fp32; then the
      same model in bf16 through `BigVGAN.forward` against its plain path,
-     K1's and the tensor-core kernel's counts > 0 for that forward;
-  4. CUDA-event timings of K1, both K2 routes and the generator: bf16 at b1
-     and b16, fp32 at b1, with K2's yardsticks (the stage's convs alone in
+     K1's and the bf16 K2 route's counts > 0 for that forward;
+  4. CUDA-event timings of K1, both K2 routes and the generator in bf16 and
+     fp32 at b1 and b16, with K2's yardsticks (the stage's convs alone in
      cuDNN, the design's traffic floor) and its host time per launch.
 
 Prints the card's name and power limit first, one JSON line per timing, a
@@ -32,6 +31,7 @@ versions are full fp32.
 from __future__ import annotations
 
 import copy
+import itertools
 import json
 import subprocess
 import sys
@@ -43,6 +43,7 @@ from pathlib import Path
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12  # CUDA cores
 BF16_TC_FLOPS = 989e12  # dense bf16 tensor cores
+TF32_TC_FLOPS = 495e12  # dense tf32 tensor cores; the fp32 route makes three passes (3xTF32)
 
 F_FRAMES = 256
 SEED = 0
@@ -61,6 +62,9 @@ K2_BF16_REL_L2 = 1e-3
 # by ~1e-2.  So the kernel path passes at 5e-3, or within that floor as this run measures it,
 # capped at 2e-2.
 GEN_BF16_REL_L2, GEN_BF16_CAP = 5e-3, 2e-2
+
+# Names of K2's two routes (both csrc/amp_conv_mma.cu) in the kernels line and the launch counts.
+FP32_K2, BF16_K2 = "amp_conv_mma_3xtf32", "amp_conv_mma"
 
 
 def log(obj) -> None:
@@ -122,20 +126,19 @@ def k2_flops(blocks, b, c, t):
     return conv_flops, n_convs * FLOPS_PER_SAMPLE * b * c * t
 
 
-def k2_cost(blocks, b, c, t, itemsize, conv_peak):
-    """(compute s, memory s) of one AMP stage.  The convs run on the best unit
-    for the dtype and the aa-snake prologues on the CUDA cores; on the bf16
-    tensor cores the two units run at once, so compute is the larger of the
-    two times, and in fp32 both share the CUDA cores, so it is their sum.
-    x read once, the weights read once, the output written once."""
+def k2_cost(blocks, b, c, t, itemsize):
+    """(compute s, memory s, CUDA-core compute s) of one AMP stage.  The convs
+    run on the tensor cores, one bf16 pass or three tf32 passes (3xTF32, for
+    fp32), and the aa-snake prologues on the CUDA cores at once, so compute is
+    the larger of the two times.  The CUDA-core figure puts both on the CUDA
+    cores, as a plain fp32-FMA kernel runs them.  x read once, the weights read
+    once, the output written once."""
     conv_flops, snake_flops = k2_flops(blocks, b, c, t)
     weights = sum(p.numel() for blk in blocks for p in blk.parameters())
     nbytes = (2 * b * c * t + weights) * itemsize
-    if conv_peak == FP32_FLOPS:
-        compute = (conv_flops + snake_flops) / FP32_FLOPS
-    else:
-        compute = max(conv_flops / conv_peak, snake_flops / FP32_FLOPS)
-    return compute, nbytes / HBM_BYTES_PER_S
+    tensor = conv_flops / BF16_TC_FLOPS if itemsize == 2 else 3 * conv_flops / TF32_TC_FLOPS
+    compute = max(tensor, snake_flops / FP32_FLOPS)
+    return compute, nbytes / HBM_BYTES_PER_S, (conv_flops + snake_flops) / FP32_FLOPS
 
 
 def k2_design_bytes(blocks, b, c, t, x_itemsize):
@@ -179,15 +182,13 @@ def time_k2(model, dtype, b: int, gen, stamp: dict) -> dict:
     the stages bound by each weigh in that sum."""
     import torch
 
-    from vocoder_tpu_torch.ops.amp_block import amp_stage_kernel, amp_stage_plain, mma_time_tile
+    from vocoder_tpu_torch.ops.amp_block import ROUTES, amp_stage_kernel, amp_stage_plain, launch_shape
 
     cfg = model.cfg
     n_k = len(cfg.resblock_kernel_sizes)
     itemsize = torch.empty((), dtype=dtype).element_size()
-    mma = dtype == torch.bfloat16
-    peak = BF16_TC_FLOPS if mma else FP32_FLOPS
     tot = {"ms": 0.0, "plain_ms": 0.0, "conv_library_ms": 0.0, "design_floor_ms": 0.0, "host_s": 0.0,
-           "launches": 0, "operations": 0.0, "bytes": 0.0}
+           "launches": 0, "operations": 0.0, "bytes": 0.0, "cuda_cores_s": 0.0}
     for i, (c, t) in enumerate(stage_shapes(cfg)):
         blocks = list(model.resblocks[i * n_k : (i + 1) * n_k])
         xs = torch.randn(b, c, t, device="cuda", generator=gen).to(dtype)
@@ -203,27 +204,26 @@ def time_k2(model, dtype, b: int, gen, stamp: dict) -> dict:
         plain_ms = cuda_ms(lambda: amp_stage_plain(blocks, xs, cfg.snake_logscale), iters)
         act = torch.randn(b, c, t, device="cuda", generator=gen).to(dtype)
         conv_ms = cuda_ms(lambda: library_convs(blocks, act), iters)
-        comp_s, mem_s = k2_cost(blocks, b, c, t, itemsize, peak)
+        comp_s, mem_s, cores_s = k2_cost(blocks, b, c, t, itemsize)
         conv_flops, snake_flops = k2_flops(blocks, b, c, t)
         floor_ms = 1e3 * k2_design_bytes(blocks, b, c, t, itemsize) / HBM_BYTES_PER_S
         by = "operations" if comp_s >= mem_s else "bytes"
-        rec = {"metric": "k2_stage_ms", "batch": b, "stage": i, "shape": [b, c, t], "dtype": str(dtype)[6:],
-               "ms": ms, "plain_ms": plain_ms, "conv_library_ms": conv_ms, "bound_ms": 1e3 * max(comp_s, mem_s),
-               "bound_by": by, "design_floor_ms": floor_ms, "host_us_per_launch": 1e6 * host_s / n_launch,
-               "conv_tflops": conv_flops / (ms * 1e9), "snake_gflop": snake_flops / 1e9, **stamp}
-        if mma:
-            tile = mma_time_tile(c, b, t)
-            rec.update(time_tile=tile, blocks_per_launch=b * -(-t // tile))
-        log(rec)
+        tile, n_blocks = launch_shape(dtype, c, b, t)
+        log({"metric": "k2_stage_ms", "batch": b, "stage": i, "shape": [b, c, t], "dtype": str(dtype)[6:],
+             "ms": ms, "plain_ms": plain_ms, "conv_library_ms": conv_ms, "bound_ms": 1e3 * max(comp_s, mem_s),
+             "bound_by": by, "bound_ms_cuda_cores": 1e3 * max(cores_s, mem_s), "design_floor_ms": floor_ms,
+             "host_us_per_launch": 1e6 * host_s / n_launch, "conv_tflops": conv_flops / (ms * 1e9),
+             "snake_gflop": snake_flops / 1e9, "time_tile": tile, "blocks_per_launch": n_blocks, **stamp})
         for key, val in (("ms", ms), ("plain_ms", plain_ms), ("conv_library_ms", conv_ms),
                          ("design_floor_ms", floor_ms), ("host_s", host_s), ("launches", n_launch),
-                         (by, max(comp_s, mem_s))):
+                         (by, max(comp_s, mem_s)), ("cuda_cores_s", max(cores_s, mem_s))):
             tot[key] += val
     rec = {"metric": "k2_forward_ms", "batch": b, "frames": F_FRAMES, "dtype": str(dtype)[6:],
-           "route": "amp_conv_mma" if mma else "amp_stage", "ms": tot["ms"], "plain_ms": tot["plain_ms"],
+           "route": ROUTES[dtype], "ms": tot["ms"], "plain_ms": tot["plain_ms"],
            "conv_library_ms": tot["conv_library_ms"], "library_ms": None,
            "bound_ms": 1e3 * (tot["operations"] + tot["bytes"]),
            "bound_by": "operations" if tot["operations"] >= tot["bytes"] else "bytes",
+           "bound_ms_cuda_cores": 1e3 * tot["cuda_cores_s"],
            "design_floor_ms": tot["design_floor_ms"], "host_us_per_launch": 1e6 * tot["host_s"] / tot["launches"],
            **stamp}
     log(rec)
@@ -302,7 +302,7 @@ def main() -> int:
     post = model.activation_post.activation
     c_post = post.alpha.numel()
     t_post = F_FRAMES * cfg.hop_length
-    errs = {"aa_snake": 0.0, "amp_stage": 0.0, "amp_conv_mma": 0.0}
+    errs = {"aa_snake": 0.0, FP32_K2: 0.0, BF16_K2: 0.0}
     mma_rel = 0.0
 
     with torch.inference_mode():
@@ -327,9 +327,10 @@ def main() -> int:
                 if not ok:
                     raise SystemExit(f"K1 disagrees with its plain version at {(b, c_post, t)} {dtype}")
 
-        # 2. K2 against its plain stage.
-        for i, (c, t) in enumerate(stage_shapes(cfg)):
-            x32 = torch.randn(1, c, t, device=dev, generator=gen)
+        # 2. K2 against its plain stage, at both batches that phase 4 times: b16 takes every
+        # stage's large tile, b1 the small tile wherever the large one leaves the grid narrow.
+        for b, (i, (c, t)) in itertools.product((1, 16), enumerate(stage_shapes(cfg))):
+            x32 = torch.randn(b, c, t, device=dev, generator=gen)
             for dtype, m in ((torch.float32, model), (torch.bfloat16, model_bf16)):
                 blocks = list(m.resblocks[i * n_k : (i + 1) * n_k])
                 x = x32.to(dtype)
@@ -338,20 +339,20 @@ def main() -> int:
                 torch.cuda.synchronize()
                 if dtype == torch.float32:
                     err = float((got - want).abs().max())
-                    errs["amp_stage"] = max(errs["amp_stage"], err)
+                    errs[FP32_K2] = max(errs[FP32_K2], err)
                     ok = bool(torch.allclose(got, want, rtol=K2_FP32_RTOL, atol=K2_FP32_ATOL))
-                    log({"phase": "k2_check", "stage": i, "shape": [1, c, t], "dtype": "fp32", "max_abs_err": err,
+                    log({"phase": "k2_check", "stage": i, "shape": [b, c, t], "dtype": "fp32", "max_abs_err": err,
                          "max_abs_ref": float(want.abs().max()), "ok": ok})
                 else:
                     err = rel_l2(got.float(), want.float())
                     mma_rel = max(mma_rel, err)
                     abs_err = float((got.float() - want.float()).abs().max())
-                    errs["amp_conv_mma"] = max(errs["amp_conv_mma"], abs_err)
+                    errs[BF16_K2] = max(errs[BF16_K2], abs_err)
                     ok = err <= K2_BF16_REL_L2
-                    log({"phase": "k2_check", "stage": i, "shape": [1, c, t], "dtype": "bf16", "rel_l2": err,
+                    log({"phase": "k2_check", "stage": i, "shape": [b, c, t], "dtype": "bf16", "rel_l2": err,
                          "max_abs_err": abs_err, "max_abs_ref": float(want.float().abs().max()), "ok": ok})
                 if not ok:
-                    raise SystemExit(f"K2 disagrees with its plain stage at stage {i} {(c, t)} {dtype}")
+                    raise SystemExit(f"K2 disagrees with its plain stage at stage {i} {(b, c, t)} {dtype}")
 
     # 3. The full generator through the inference CLI.
     rng = np.random.default_rng(SEED)
@@ -369,7 +370,7 @@ def main() -> int:
         infer.main(argv)
         torch.cuda.synchronize()
         cli_s = time.perf_counter() - t0
-        launches = {"aa_snake": aa_snake.launches, "amp_stage": amp_stage.launches}
+        launches = {"aa_snake": aa_snake.launches, FP32_K2: amp_stage.launches}
         log({"phase": "cli", "seconds": cli_s, "launches": launches, "chunk_frames": chunk})
         if min(launches.values()) <= 0:
             raise SystemExit(f"the main path did not launch every kernel: {launches}")
@@ -404,8 +405,8 @@ def main() -> int:
             aa_snake.launches = amp_stage.launches = amp_stage.mma_launches = 0
             got = gen_bf16(mel_bf16)
             torch.cuda.synchronize()
-            bf16_launches = {"aa_snake": aa_snake.launches, "amp_conv_mma": amp_stage.mma_launches,
-                             "amp_stage": amp_stage.launches}
+            bf16_launches = {"aa_snake": aa_snake.launches, BF16_K2: amp_stage.mma_launches,
+                             FP32_K2: amp_stage.launches}
             want = gen_bf16.forward_plain(mel_bf16)
             torch.backends.cudnn.enabled = False  # the same plain path on PyTorch's own convs
             want_native = gen_bf16.forward_plain(mel_bf16)
@@ -414,15 +415,15 @@ def main() -> int:
             err = rel_l2(got.float(), want.float())
             floor = rel_l2(want_native.float(), want.float())
             ok = (err <= max(GEN_BF16_REL_L2, min(floor, GEN_BF16_CAP)) and bool(torch.isfinite(got).all())
-                  and bf16_launches["aa_snake"] > 0 and bf16_launches["amp_conv_mma"] > 0)
+                  and bf16_launches["aa_snake"] > 0 and bf16_launches[BF16_K2] > 0)
             log({"phase": "generator_check_bf16", "shape": list(got.shape), "rel_l2": err,
                  "plain_vs_plain_rel_l2": floor, "max_abs_err": float((got.float() - want.float()).abs().max()),
                  "launches": bf16_launches, "ok": ok})
             if not ok:
                 raise SystemExit("the bf16 generator's kernel path disagrees with its plain path or skipped a kernel")
-            launches["amp_conv_mma"] = bf16_launches["amp_conv_mma"]
+            launches[BF16_K2] = bf16_launches[BF16_K2]
 
-    # 4. Timing, bf16, CUDA events.
+    # 4. Timing, CUDA events.
     entries = {}
     with torch.inference_mode():
         for b in (1, 16):
@@ -437,14 +438,11 @@ def main() -> int:
             log(rec)
             entries.setdefault("aa_snake", {})[b] = rec
 
-            entries.setdefault("amp_conv_mma", {})[b] = time_k2(model_bf16, torch.bfloat16, b, gen, stamp)
-            if b == 1:  # the fp32 FMA route beside it, at the serving batch
-                entries["amp_stage"] = {b: time_k2(model, torch.float32, b, gen, stamp)}
+            entries.setdefault(BF16_K2, {})[b] = time_k2(model_bf16, torch.bfloat16, b, gen, stamp)
+            entries.setdefault(FP32_K2, {})[b] = time_k2(model, torch.float32, b, gen, stamp)
 
             mel = torch.randn(b, cfg.num_mels, F_FRAMES, device=dev, generator=gen) - 5.0
             for dtype, m in ((torch.bfloat16, model_bf16), (torch.float32, model)):
-                if dtype == torch.float32 and b != 1:
-                    continue
                 mel_d = mel.to(dtype)
                 ms = cuda_ms(lambda: m(mel_d), 3 if b == 1 else 2, warmup=1)
                 plain_ms = cuda_ms(lambda: m.forward_plain(mel_d), 2, warmup=1)
@@ -458,18 +456,17 @@ def main() -> int:
                 "replaces": "vocoder_tpu/ops/pallas/aa_snake.py:218", "launches": launches["aa_snake"],
                 "max_abs_err": errs["aa_snake"], "ms": k1["ms"], "plain_ms": k1["plain_ms"], "bound_ms": k1["bound_ms"],
                 "bound_by": k1["bound_by"], "library_ms": None, "ms_b16": entries["aa_snake"][16]["ms"]}]
-    for name, dtype in (("amp_stage", "fp32"), ("amp_conv_mma", "bf16")):
-        k2 = entries[name][1]
-        entry = {"name": name, "route": "cuda", "source": f"vocoder_tpu_torch/csrc/{name}.cu",
-                 "replaces": "vocoder_tpu/ops/pallas/amp_block.py:590", "launches": launches[name],
-                 "max_abs_err": errs[name], "dtype": dtype, "ms": k2["ms"], "plain_ms": k2["plain_ms"],
-                 "bound_ms": k2["bound_ms"], "bound_by": k2["bound_by"], "library_ms": None,
-                 "conv_library_ms": k2["conv_library_ms"], "design_floor_ms": k2["design_floor_ms"],
-                 "host_us_per_launch": k2["host_us_per_launch"]}
-        if 16 in entries[name]:
-            entry.update(ms_b16=entries[name][16]["ms"], bound_ms_b16=entries[name][16]["bound_ms"],
-                         design_floor_ms_b16=entries[name][16]["design_floor_ms"])
-        kernels.append(entry)
+    for name, dtype in ((FP32_K2, "fp32"), (BF16_K2, "bf16")):
+        k2, k2_b16 = entries[name][1], entries[name][16]
+        kernels.append({"name": name, "route": "cuda", "source": "vocoder_tpu_torch/csrc/amp_conv_mma.cu",
+                        "replaces": "vocoder_tpu/ops/pallas/amp_block.py:590", "launches": launches[name],
+                        "max_abs_err": errs[name], "dtype": dtype, "ms": k2["ms"], "plain_ms": k2["plain_ms"],
+                        "bound_ms": k2["bound_ms"], "bound_by": k2["bound_by"], "library_ms": None,
+                        "bound_ms_cuda_cores": k2["bound_ms_cuda_cores"], "conv_library_ms": k2["conv_library_ms"],
+                        "design_floor_ms": k2["design_floor_ms"], "host_us_per_launch": k2["host_us_per_launch"],
+                        "ms_b16": k2_b16["ms"], "bound_ms_b16": k2_b16["bound_ms"],
+                        "conv_library_ms_b16": k2_b16["conv_library_ms"],
+                        "design_floor_ms_b16": k2_b16["design_floor_ms"]})
     log({"kernels": kernels})
     log({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}})
     return 0

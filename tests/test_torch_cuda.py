@@ -83,23 +83,31 @@ def test_amp_stage_kernel_matches_plain(cuda_device, stage, dtype):
         assert _rel_l2(got.float(), want.float()) <= K2_BF16_REL_L2
 
 
-@pytest.mark.parametrize("c", [48, 256])
-def test_amp_stage_kernel_channel_tiles(cuda_device, c):
-    """C = 48 runs 16-channel tiles, C = 256 runs 64-channel tiles, over T not a multiple of either time tile."""
+@pytest.mark.parametrize("batch", [1, 160])
+@pytest.mark.parametrize("c", [16, 32, 48, 64, 128, 192, 256])
+def test_amp_stage_kernel_channel_tiles(cuda_device, c, batch):
+    """fp32 through the 3xTF32 route, every channel class's tiles: C = 48 pads
+    its 64-column warp grid and takes 16-channel weight chunks, C = 128 takes
+    8-channel chunks beside its widest halo, C = 192 and 256 split the small
+    tile's output channels into groups of 128 (the second one partial at 192),
+    and C = 256's large tile takes one block an SM; T = 333 is no multiple of
+    any time tile; b1 takes the small-tile variant, b160 the large one."""
     cfg = BigVGANConfig(hop_length=4, upsample_rates=(2, 2), upsample_kernel_sizes=(4, 4), num_mels=8,
                         upsample_initial_channel=2 * c)
     blocks = list(_model(cfg, cuda_device).resblocks[:3])
-    x = torch.randn(1, c, 333, device=cuda_device)
-    torch.testing.assert_close(amp_stage_kernel(blocks, x, True), amp_stage_plain(blocks, x, True),
-                               rtol=2e-4, atol=2e-5)
+    x = torch.randn(batch, c, 333, device=cuda_device)
+    before = amp_stage.launches
+    got = amp_stage_kernel(blocks, x, True)
+    assert amp_stage.launches == before + 18
+    torch.testing.assert_close(got, amp_stage_plain(blocks, x, True), rtol=2e-4, atol=2e-5)
 
 
 @pytest.mark.parametrize("batch", [1, 160])
-@pytest.mark.parametrize("c", [48, 256])
+@pytest.mark.parametrize("c", [48, 192, 256])
 def test_amp_mma_kernel_channel_tiles(cuda_device, c, batch):
     """bf16 through the tensor-core kernel: C = 48 pads its 64-column warp grid,
-    C = 256 fills it; T = 333 is no multiple of any time tile; b1 takes the
-    small-tile variant, b160 the large one."""
+    C = 192 pads the 256-column one, C = 256 fills it; T = 333 is no multiple of
+    any time tile; b1 takes the small-tile variant, b160 the large one."""
     cfg = BigVGANConfig(hop_length=4, upsample_rates=(2, 2), upsample_kernel_sizes=(4, 4), num_mels=8,
                         upsample_initial_channel=2 * c)
     blocks = list(_model(cfg, cuda_device, torch.bfloat16).resblocks[:3])
@@ -111,8 +119,8 @@ def test_amp_mma_kernel_channel_tiles(cuda_device, c, batch):
 
 
 def test_amp_stage_routes_by_model_dtype(cuda_device):
-    """fp32 models take the FMA kernel, bf16 models the tensor-core kernel, each with its own counter;
-    a bf16 model also takes an fp32 x (the residual stream's dtype)."""
+    """fp32 models take the kernel's 3xTF32 route (counter ``launches``), bf16 models its bf16 route
+    (``mma_launches``); a bf16 model also takes an fp32 x (the residual stream's dtype)."""
     for dtype, x_dtype, counter in ((torch.float32, torch.float32, "launches"),
                                     (torch.bfloat16, torch.bfloat16, "mma_launches"),
                                     (torch.bfloat16, torch.float32, "mma_launches")):
@@ -128,10 +136,11 @@ def test_amp_stage_routes_by_model_dtype(cuda_device):
         assert _rel_l2(got.float(), amp_stage_plain(blocks, x, True).float()) <= tol
 
 
-def test_packed_weight_cache_follows_in_place_changes(cuda_device):
-    """The bf16 route packs each conv's weights once per model; an in-place change rebuilds the pack."""
-    blocks = list(_model(NARROW, cuda_device, torch.bfloat16).resblocks[:3])
-    x = torch.randn(1, 32, 200, device=cuda_device).to(torch.bfloat16)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_packed_weight_cache_follows_in_place_changes(cuda_device, dtype):
+    """Both routes pack each conv's weights once per model; an in-place change rebuilds the pack."""
+    blocks = list(_model(NARROW, cuda_device, dtype).resblocks[:3])
+    x = torch.randn(1, 32, 200, device=cuda_device).to(dtype)
     with torch.inference_mode():
         first = amp_stage(blocks, x, True)
         plan = stage_plan(blocks, True)
@@ -141,7 +150,11 @@ def test_packed_weight_cache_follows_in_place_changes(cuda_device):
     with torch.inference_mode():
         second = amp_stage(blocks, x, True)
         assert stage_plan(blocks, True) is not plan
-    assert _rel_l2(second.float(), amp_stage_plain(blocks, x, True).float()) <= K2_BF16_REL_L2
+        want = amp_stage_plain(blocks, x, True)
+    if dtype == torch.float32:
+        torch.testing.assert_close(second, want, rtol=2e-4, atol=2e-5)
+    else:
+        assert _rel_l2(second.float(), want.float()) <= K2_BF16_REL_L2
     assert _rel_l2(second.float(), first.float()) > 1e-2
 
 
@@ -156,7 +169,7 @@ def test_kernels_refuse_autograd(cuda_device):
 
 
 def test_amp_stage_refuses_bf16_input_with_fp32_model(cuda_device):
-    """fp32 models take fp32 x only (the FMA kernel); a bf16 x needs a bf16 model."""
+    """fp32 models take fp32 x only (the 3xTF32 route); a bf16 x needs a bf16 model."""
     model = _model(NARROW, cuda_device)
     x = torch.randn(1, 32, 64, device=cuda_device).to(torch.bfloat16)
     with torch.inference_mode(), pytest.raises(ValueError, match="bf16 model"):

@@ -97,8 +97,8 @@ def test_bridge_round_trip_is_bit_exact(activation):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_stage_plan_is_a_cache_outside_the_state_dict(dtype):
-    """The kernels' per-model launch arguments (packed bf16 weights for the
-    tensor-core route) are built once, rebuilt after an in-place weight change,
+    """The kernel's per-model launch arguments (weights packed as (K, C, C) in
+    the model's dtype) are built once, rebuilt after an in-place weight change,
     and leave state_dict() as it was, keys and values, so the bridge tests above
     cover a model that has run."""
     from vocoder_tpu_torch.ops.amp_block import ROUTES, stage_plan
@@ -113,7 +113,7 @@ def test_stage_plan_is_a_cache_outside_the_state_dict(dtype):
     assert plan.route == ROUTES[dtype] and len(plan.params) == 18
     conv = blocks[0].convs1[0]
     w0 = plan.weights[0].clone()
-    want = conv.weight.detach().permute(2, 0, 1) if dtype == torch.bfloat16 else conv.weight.detach()
+    want = conv.weight.detach().permute(2, 0, 1)
     assert torch.equal(w0, want) and plan.params[0].w == plan.weights[0].data_ptr()
     assert stage_plan(blocks, True) is plan  # cached
     with torch.inference_mode():

@@ -14,6 +14,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from vocoder_tpu.models import bigvgan as jbigvgan
 from vocoder_tpu.ops import antialias as jaa
@@ -139,6 +140,74 @@ def test_amp_stage_plain_matches_pallas_kernel():
                                            interpret=True))
     got = amp_stage(_port_blocks(jblocks, c, kernel_sizes, dilation_sizes), _to_port(xf), True)
     np.testing.assert_allclose(_from_port(got), want, rtol=2e-4, atol=2e-5)
+
+
+def tf32_split(v: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """fp32 ``v`` as ``hi + lo``, both tf32 values (fp32 with the low 13 mantissa bits zero), as
+    csrc/amp_conv_mma.cu's fp32 route splits each operand, with the bits of ``cvt.rna.tf32.f32``:
+    round to nearest, ties away from zero."""
+
+    def rna(u: torch.Tensor) -> torch.Tensor:
+        return ((u.contiguous().view(torch.int32) + 0x1000) & ~0x1FFF).view(torch.float32)
+
+    hi = rna(v)
+    return hi, rna(v - hi)
+
+
+def conv1d_3xtf32(a, w, bias, padding: int, dilation: int = 1) -> torch.Tensor:
+    """F.conv1d from the fp32 route's operands and products: ``lo·hi + hi·lo + hi·hi`` of the tf32
+    splits, small terms first; tf32 x tf32 products are exact in fp32.  The order of the sums is
+    not the kernel's: this sums three whole convs, the kernel adds each 8-channel step's three
+    products into its running sum."""
+    (a_hi, a_lo), (w_hi, w_lo) = tf32_split(a), tf32_split(w)
+    kw = dict(padding=padding, dilation=dilation)
+    return F.conv1d(a_lo, w_hi, None, **kw) + F.conv1d(a_hi, w_lo, None, **kw) + F.conv1d(a_hi, w_hi, bias, **kw)
+
+
+def test_tf32_split_rounds_to_nearest_ties_away():
+    """The fp32 route's operand split (cvt.rna.tf32.f32, twice): hi and lo keep 10 explicit mantissa
+    bits (the low 13 are zero), hi is v rounded to nearest with ties away from zero, and hi + lo
+    is v within 2^-22 |v|."""
+    rng = np.random.default_rng(9)
+    v = (rng.standard_normal(100_000) * np.exp2(rng.integers(-30, 30, 100_000))).astype(np.float32)
+    # Exact ties (the 13 dropped bits are 1 then zeros) at 1.x, the last one carrying into the exponent.
+    ties = ((np.asarray([0, 1, 3, 0x155, 0x3FF], np.uint32) << 13) | 0x1000 | (127 << 23)).view(np.float32)
+    v = np.concatenate([v, ties, -ties, np.float32([0.0, -0.0, 1.0, -3.5])])
+    hi, lo = (t.numpy() for t in tf32_split(torch.from_numpy(v)))
+    for part in (hi, lo):
+        assert not (part.view(np.uint32) & 0x1FFF).any()
+    # Round to nearest, ties away, computed in float64 from the value, not the bits.
+    v64 = v.astype(np.float64)
+    ulp = np.exp2(np.floor(np.log2(np.where(v64 == 0, 1.0, np.abs(v64)))) - 10)
+    np.testing.assert_array_equal(hi, np.sign(v64) * np.floor(np.abs(v64) / ulp + 0.5) * ulp)
+    np.testing.assert_array_equal(hi[-len(ties) - 4 : -4], -(ties + np.float32(2**-11)))  # away from zero
+    assert (np.abs(hi.astype(np.float64) + lo - v64) <= np.exp2(-22) * np.abs(v64)).all()
+
+
+def test_amp_stage_3xtf32_matches_pallas_kernel():
+    """The fp32 route's arithmetic (plain aa-snake, tf32-split operands, three F.conv1d a conv:
+    conv1d_3xtf32) against the JAX fused kernel in fp32 at its tolerance, with the setup of
+    test_amp_stage_plain_matches_pallas_kernel at C = 64 (fold 2) and BigVGAN's (3, 7, 11) x
+    (1, 3, 5).  Three passes read max-abs 2.4e-7 against the kernel here (outputs up to 2.2);
+    one pass of TF32 (hi x hi alone) reads 4.1e-5, outside the tolerance: the reason for three."""
+    kernel_sizes, dilation_sizes, c, t = (3, 7, 11), ((1, 3, 5),) * 3, 64, 512
+    cfg = _jax_stage_cfg(c, kernel_sizes, dilation_sizes)
+    keys = jax.random.split(jax.random.key(0), len(kernel_sizes))
+    jblocks = [jbigvgan._amp_init(k, c, ks, ds, cfg) for k, ks, ds in zip(keys, kernel_sizes, dilation_sizes)]
+    x = (np.random.default_rng(1).standard_normal((1, t, c)) * 0.5).astype(np.float32)
+
+    xf = jnp.asarray(x.reshape(1, t // 2, 2 * c))  # time-folded by 2: C * fold = 128 lanes
+    want = np.asarray(jamp.amp_stage_fused(jblocks, xf, kernel_sizes, dilation_sizes, True, 2, interpret=True))
+    want = want.reshape(1, t, c)
+    blocks = _port_blocks(jblocks, c, kernel_sizes, dilation_sizes)
+    got = _from_port(amp_stage_plain(blocks, _to_port(x), True, conv=conv1d_3xtf32))
+    np.testing.assert_allclose(got, want, rtol=2e-4, atol=2e-5)
+
+    def one_pass(a, w, bias, **kw):
+        return F.conv1d(tf32_split(a)[0], tf32_split(w)[0], bias, **kw)
+
+    single = _from_port(amp_stage_plain(blocks, _to_port(x), True, conv=one_pass))
+    assert not np.allclose(single, want, rtol=2e-4, atol=2e-5)
 
 
 def _random_jax_blocks(rng, c, kernel_sizes, dilation_sizes, cfg):

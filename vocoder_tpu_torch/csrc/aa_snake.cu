@@ -3,7 +3,7 @@
 // Replaces the Pallas kernel vocoder_tpu/ops/pallas/aa_snake.py::_kernel
 // (pallas_call in _interior), which BigVGAN runs as its anti-aliased Snake.
 // Here it serves `activation_post` (C = 16, T = 512 F at 44.1 kHz); the AMP
-// conv kernel (amp_stage.cu) shares its device functions as a prologue.
+// conv kernel (amp_conv_mma.cu) shares its arithmetic as a prologue.
 //
 // Bound on an H100: per output sample it reads one input and writes one
 // output (4 or 8 bytes in bf16 or fp32) and does about 104 fp32 operations

@@ -1,5 +1,5 @@
 // Anti-aliased Snake, device side: shared by the K1 kernel (aa_snake.cu) and
-// the prologue of the AMP conv kernel (amp_stage.cu).
+// the prologue of the AMP conv kernel (amp_conv_mma.cu).
 //
 // With f the 12-tap ratio-2 Kaiser-sinc filter and x one channel row of
 // length T, the reference composition (2x upsample -> snake -> 2x

@@ -1,4 +1,4 @@
-// The host interface shared by the two K2 routes (amp_stage.cu, amp_conv_mma.cu).
+// The host interface of K2 (amp_conv_mma.cu), for both of its routes.
 //
 // ops/amp_block.py builds one AmpConvParams per conv of a model once, beside
 // the weights it points to, and passes it by pointer with the tensors of each
@@ -19,7 +19,7 @@
 #pragma once
 
 struct AmpConvParams {
-  const void* w;      // amp_stage.cu: fp32 (C, C, K); amp_conv_mma.cu: bf16 (K, C, C), w[j, o, i]
+  const void* w;      // (K, C, C), w[j, o, i], dtype param_dtype (bf16 or fp32: the route)
   const void* bias;   // (C,), dtype param_dtype
   const void* alpha;  // (C,) raw Snake parameters, dtype param_dtype
   const void* beta;

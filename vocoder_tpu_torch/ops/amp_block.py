@@ -1,4 +1,4 @@
-"""K2: a whole BigVGAN AMP stage, as hand-written CUDA kernels beside its plain version.
+"""K2: a whole BigVGAN AMP stage, as a hand-written CUDA kernel beside its plain version.
 
 Replaces the Pallas kernel ``vocoder_tpu/ops/pallas/amp_block.py::_kernel``
 (``pallas_call`` in ``amp_stage_fused``), which evaluated a whole stage per
@@ -11,23 +11,28 @@ residual stream and the stage sum stay in fp32 between launches; the stage
 output is cast to x's dtype once.  That is ``2 * sum(len(ds))`` launches a
 stage, 18 for BigVGAN's (3, 7, 11) x (1, 3, 5).
 
-The model's dtype picks the kernel:
-- bf16 parameters: ``csrc/amp_conv_mma.cu``, the convs on the bf16 tensor
-  cores (``mma.sync``, fp32 sums) with the conv inputs rounded to bf16 once,
-  as the TPU kernel rounds its matmul operands to ``mm_dtype = x.dtype``.
-  x may be bf16 or fp32.  C <= 256.
-- fp32 parameters: ``csrc/amp_stage.cu``, a plain fp32-FMA kernel, exact
-  against the fp32 plain version.  x must be fp32.
+One kernel, ``csrc/amp_conv_mma.cu``, runs the convs on the tensor cores
+(``mma.sync``, fp32 sums); the model's dtype picks its operand type:
+- bf16 parameters: the conv inputs rounded to bf16 once, as the TPU kernel
+  rounds its matmul operands to ``mm_dtype = x.dtype``.  x may be bf16 or fp32.
+- fp32 parameters: 3xTF32.  Each fp32 operand splits into tf32 ``hi`` and
+  ``lo`` and each product is ``lo·hi + hi·lo + hi·hi``, fp32-grade, as the
+  JAX package's fp32 convs run at ``Precision.HIGHEST``.  x must be fp32.
+Both take C <= 256, every BigVGAN preset's widest stage.  The convs bound the
+kernel (three tf32 passes at 495 TFLOP/s in fp32, one bf16 pass at 989 in
+bf16) beside the aa-snake prologue on the fp32 CUDA cores; the kernel computes
+the aa-snake once per tile and streams each conv's packed weights through a
+``cp.async`` ring (the source's header has the design).
 
-Each conv's kernel arguments (the packed weights of the bf16 route and the
-parameter pointers) are built once per model into a ``StagePlan``, cached
-outside the modules and rebuilt when a parameter is replaced or changed in
-place; ``state_dict()`` never sees it.  A launch is then one ctypes call.
+Each conv's kernel arguments (the packed weights and the parameter
+pointers) are built once per model into a ``StagePlan``, cached outside the
+modules and rebuilt when a parameter is replaced or changed in place;
+``state_dict()`` never sees it.  A launch is then one ctypes call.
 
 ``amp_stage`` takes a CPU tensor to ``amp_stage_plain`` and launches the
-kernels for a CUDA tensor, or raises.  ``amp_stage.launches`` counts
-launches of the fp32 kernel, ``amp_stage.mma_launches`` those of the
-tensor-core kernel.  Forward only, as on the TPU.
+kernel for a CUDA tensor, or raises.  ``amp_stage.launches`` counts
+launches of the fp32 (3xTF32) route, ``amp_stage.mma_launches`` those of the
+bf16 route.  Forward only, as on the TPU.
 """
 
 from __future__ import annotations
@@ -46,8 +51,9 @@ from vocoder_tpu_torch.ops.antialias import aa_snake_plain, snake_params
 _C_VOID = ctypes.c_void_p
 _C_INT = ctypes.c_int
 
-# The kernel library (csrc/<name>.cu) for each parameter dtype.
-ROUTES = {torch.float32: "amp_stage", torch.bfloat16: "amp_conv_mma"}
+LIB = "amp_conv_mma"  # csrc/amp_conv_mma.cu
+# The kernel's route (operand type of the convs) for each parameter dtype.
+ROUTES = {torch.float32: "3xtf32", torch.bfloat16: "bf16"}
 MMA_MAX_CHANNELS = 256
 
 
@@ -61,8 +67,8 @@ class ConvParams(ctypes.Structure):
     ]
 
 
-def _lib(name: str) -> ctypes.CDLL:
-    lib = build.load(name)
+def _lib() -> ctypes.CDLL:
+    lib = build.load(LIB)
     fn = lib.amp_conv_fwd
     if fn.argtypes is None:
         fn.argtypes = [
@@ -73,27 +79,31 @@ def _lib(name: str) -> ctypes.CDLL:
         fn.restype = _C_INT
         lib.error_string.argtypes = [_C_INT]
         lib.error_string.restype = ctypes.c_char_p
-        if name == ROUTES[torch.bfloat16]:
-            lib.amp_conv_time_tile.argtypes = [_C_INT, _C_INT, _C_INT]
-            lib.amp_conv_time_tile.restype = _C_INT
+        lib.amp_conv_launch_shape.argtypes = [_C_INT, _C_INT, _C_INT, _C_INT, ctypes.POINTER(_C_INT)]
+        lib.amp_conv_launch_shape.restype = _C_INT
     return lib
 
 
-def mma_time_tile(c: int, b: int, t: int) -> int:
-    """The time tile of the tensor-core kernel's blocks at (C, B, T) on the current card:
-    a launch runs B * ceil(T / tile) blocks."""
-    return _lib(ROUTES[torch.bfloat16]).amp_conv_time_tile(c, b, t)
+def launch_shape(dtype: torch.dtype, c: int, b: int, t: int) -> tuple[int, int]:
+    """(time tile, blocks) of one kernel launch for a ``dtype`` model at (C, B, T) on the current card."""
+    shape = (_C_INT * 2)()
+    err = _lib().amp_conv_launch_shape(build.DTYPE_CODES[dtype], c, b, t, shape)
+    if err:
+        raise ValueError(f"amp_stage: no launch at C = {c}, B = {b}, T = {t}")
+    return shape[0], shape[1]
 
 
 def _snake(act) -> tuple[torch.Tensor, torch.Tensor | None]:
     return act.activation.alpha, act.activation.beta
 
 
-def amp_stage_plain(blocks, x: torch.Tensor, logscale: bool) -> torch.Tensor:
-    """mean_k(AMP block k (x)) with the plain aa-snake and F.conv1d, fp32 inside.
+def amp_stage_plain(blocks, x: torch.Tensor, logscale: bool, conv=F.conv1d) -> torch.Tensor:
+    """mean_k(AMP block k (x)) with the plain aa-snake and ``conv`` (F.conv1d), fp32 inside.
 
     Each conv input is rounded to x's dtype first, as the TPU kernel rounds its
-    matmul operands to ``mm_dtype = x.dtype``; for fp32 x that changes nothing."""
+    matmul operands to ``mm_dtype = x.dtype``; for fp32 x that changes nothing.
+    ``conv`` is a test hook: the CPU tests pass an emulation of the fp32 route's
+    3xTF32 products through it."""
     xf = x.float()
 
     def act(h, a):
@@ -105,16 +115,16 @@ def amp_stage_plain(blocks, x: torch.Tensor, logscale: bool) -> torch.Tensor:
         k = blk.kernel_size
         for i, (c1, c2, d) in enumerate(zip(blk.convs1, blk.convs2, blk.dilations)):
             a1, a2 = blk.activations[2 * i], blk.activations[2 * i + 1]
-            t = F.conv1d(act(h, a1), c1.weight.float(), c1.bias.float(), padding=get_padding(k, d), dilation=d)
-            t = F.conv1d(act(t, a2), c2.weight.float(), c2.bias.float(), padding=get_padding(k))
+            t = conv(act(h, a1), c1.weight.float(), c1.bias.float(), padding=get_padding(k, d), dilation=d)
+            t = conv(act(t, a2), c2.weight.float(), c2.bias.float(), padding=get_padding(k))
             h = h + t
         outs.append(h)
     return (sum(outs) / len(outs)).to(x.dtype)
 
 
 def pack_conv_weight(w: torch.Tensor) -> torch.Tensor:
-    """(C_out, C_in, K) -> (K, C_out, C_in) contiguous, pack[j, o, i] = w[o, i, j]: the
-    tensor-core kernel's B operand, each (tap, channel-chunk) a run of contiguous rows."""
+    """(C_out, C_in, K) -> (K, C_out, C_in) contiguous, pack[j, o, i] = w[o, i, j], dtype kept: the
+    kernel's B operand, each (tap, channel-chunk) a run of contiguous rows."""
     return w.detach().permute(2, 0, 1).contiguous()
 
 
@@ -129,7 +139,7 @@ class StagePlan:
     dtype: torch.dtype
     device: torch.device
     channels: int
-    route: str  # kernel library, a value of ROUTES
+    route: str  # a value of ROUTES
     params: list[ConvParams]
     addrs: list[int]  # ctypes.addressof of each ConvParams
     weights: list[torch.Tensor]  # what the ConvParams point to, kept alive
@@ -169,9 +179,8 @@ def _build_plan(blocks, logscale: bool, ids, slots, key) -> StagePlan:
     dtype, device, c = first.dtype, first.device, first.shape[0]
     if dtype not in ROUTES:
         raise TypeError(f"amp_stage: no kernel for {dtype} parameters (float32 or bfloat16)")
-    mma = ROUTES[dtype] == "amp_conv_mma"
-    if mma and c > MMA_MAX_CHANNELS:
-        raise ValueError(f"amp_stage: the tensor-core kernel takes C <= {MMA_MAX_CHANNELS}, got C = {c}")
+    if c > MMA_MAX_CHANNELS:
+        raise ValueError(f"amp_stage: the kernel takes C <= {MMA_MAX_CHANNELS}, got C = {c}")
     params, weights = [], []
     for blk in blocks:
         k = blk.kernel_size
@@ -185,7 +194,7 @@ def _build_plan(blocks, logscale: bool, ids, slots, key) -> StagePlan:
                     raise ValueError(f"amp_stage: conv weight {tuple(w.shape)} does not fit C = {c}, k = {k}")
                 if any(t.dtype != dtype or t.device != device for t in (w, *vecs)):
                     raise ValueError("amp_stage: every parameter of a stage needs one dtype and one device")
-                w = pack_conv_weight(w) if mma else w.contiguous()
+                w = pack_conv_weight(w)
                 params.append(ConvParams(w.data_ptr(), *(t.data_ptr() for t in vecs), build.DTYPE_CODES[dtype],
                                          int(logscale), c, k, dil, float(len(blocks))))
                 weights += [w, *vecs]
@@ -208,8 +217,9 @@ def amp_stage_kernel(blocks, x: torch.Tensor, logscale: bool) -> torch.Tensor:
     if x.dtype == torch.bfloat16 and plan.dtype != torch.bfloat16:
         raise ValueError("amp_stage: a bf16 input needs a bf16 model; cast the model with the input")
     xd = build.dtype_code(x, "amp_stage x")
-    fn = _lib(plan.route).amp_conv_fwd
-    mma = plan.route == "amp_conv_mma"
+    lib = _lib()
+    fn = lib.amp_conv_fwd
+    fp32 = plan.dtype == torch.float32
     b, _, t = x.shape
     n_k = len(blocks)
     # fp32 scratch: the residual stream of the current block, the first conv of the
@@ -225,11 +235,11 @@ def amp_stage_kernel(blocks, x: torch.Tensor, logscale: bool) -> torch.Tensor:
     def launch(src, src_dt, res_p, res_dt, out=None, acc_in=None, acc_out=None, fin=None):
         err = fn(next(addrs), src, src_dt, b, t, res_p, res_dt, out, acc_in, acc_out, fin, xd, stream)
         if err:
-            raise RuntimeError(f"amp_stage: launch failed: {_lib(plan.route).error_string(err).decode()}")
-        if mma:
-            amp_stage.mma_launches += 1
-        else:
+            raise RuntimeError(f"amp_stage: launch failed: {lib.error_string(err).decode()}")
+        if fp32:
             amp_stage.launches += 1
+        else:
+            amp_stage.mma_launches += 1
 
     for kb, blk in enumerate(blocks):
         cur, cur_dt = xp, xd

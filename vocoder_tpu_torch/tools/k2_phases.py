@@ -1,19 +1,23 @@
-"""Where the bf16 K2 kernel's time goes: each phase cut out in turn, on the card.
+"""Where K2's time goes: each phase of one route cut out in turn, on the card.
 
-    python -m vocoder_tpu_torch.tools.k2_phases        # from the repository root; one CUDA card
+    python -m vocoder_tpu_torch.tools.k2_phases [--dtype bf16|fp32]   # from the repository root; one CUDA card
 
 Builds copies of ``csrc/amp_conv_mma.cu`` in which one phase does nothing (the
 aa-snake prologue, the tensor-core main loop, or the epilogue's reads and
-writes of device memory), times the five AMP stages of the 44.1 kHz BigVGAN
-(F = 256 frames, random weights from seed 0) through each at b1 and b16 with
-CUDA events, and prints one JSON line per variant.  A phase's cost is the
-full time minus the time without it; phases overlap across blocks, so the
-costs need not add up to the full time.  The outputs of the cut variants are
-wrong by design and are not checked.
+writes of device memory; in fp32 also the operand split, left out or
+written as ``cvt.rna``), times the five AMP stages of the 44.1 kHz BigVGAN
+(F = 256 frames, random weights from seed 0) in the model dtype ``--dtype``
+(bf16 by default; fp32 takes the 3xTF32 route) through each at b1 and b16
+with CUDA events, and prints one JSON line per variant.  The three phase cuts
+are in code that the two routes share, so they serve both.  A phase's cost
+is the full time minus the time without it; phases overlap across blocks, so
+the costs need not add up to the full time.  The outputs of the cut variants
+are wrong by design and are not checked.
 """
 
 from __future__ import annotations
 
+import argparse
 import ctypes
 import json
 import subprocess
@@ -25,14 +29,22 @@ from vocoder_tpu_torch.config import build_task_config
 from vocoder_tpu_torch.models.bigvgan import BigVGAN, random_state_dict
 from vocoder_tpu_torch.nn import fold_weight_norm
 from vocoder_tpu_torch.ops import build
-from vocoder_tpu_torch.ops.amp_block import ROUTES, amp_stage_kernel
+from vocoder_tpu_torch.ops.amp_block import LIB, amp_stage_kernel
 
-# Each cut: (text in the source, what replaces it).
+# Each cut: (text in the source, what replaces it, the dtypes it applies to).
+_SPLIT = """      f.hi[i] = tf32(r[i]);
+      f.lo[i] = tf32(__float_as_uint(__fsub_rn(__uint_as_float(r[i]), __uint_as_float(f.hi[i]))));"""
 CUTS = {
-    "no_prologue": ("  if (threadIdx.x < C * n_seg) {", "  if (false) {"),
-    "no_mma": ("for (int q = 0; q < n_chunks; ++q) {", "for (int q = 0; q < 0; ++q) {"),
-    "no_epilogue_io": ("for (int idx = threadIdx.x; idx < C * kQuads; idx += kThreads) {",
-                       "for (int idx = threadIdx.x; idx < 0; idx += kThreads) {"),
+    "no_prologue": ("  if (threadIdx.x < C * n_seg) {", "  if (false) {", ("bf16", "fp32")),
+    "no_mma": ("for (int q = 0; q < n_chunks; ++q) {", "for (int q = 0; q < 0; ++q) {", ("bf16", "fp32")),
+    "no_epilogue_io": ("for (int idx = threadIdx.x; idx < n_out * kQuads; idx += kThreads) {",
+                       "for (int idx = threadIdx.x; idx < 0; idx += kThreads) {", ("bf16", "fp32")),
+    # The 3xTF32 operand split: left out (each fp32 pattern goes to the MMAs as it is), or written
+    # as the cvt.rna.tf32.f32 instructions whose rounding the integer split reproduces.
+    "no_split": (_SPLIT, "      f.hi[i] = f.lo[i] = r[i];", ("fp32",)),
+    "cvt_split": (_SPLIT, """      asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(f.hi[i]) : "f"(__uint_as_float(r[i])));
+      const float rest = __fsub_rn(__uint_as_float(r[i]), __uint_as_float(f.hi[i]));
+      asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(f.lo[i]) : "f"(rest));""", ("fp32",)),
 }
 
 
@@ -48,14 +60,15 @@ def cuda_ms(fn, iters: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def build_variants() -> dict[str, str]:
-    """Compile the kernel and each cut copy in parallel; name -> shared library path."""
-    name = ROUTES[torch.bfloat16]
-    src = (build.CSRC / f"{name}.cu").read_text()
+def build_variants(dtype: str) -> dict[str, str]:
+    """Compile the kernel and each of the dtype's cut copies in parallel; name -> shared library path."""
+    src = (build.CSRC / f"{LIB}.cu").read_text()
     out = build.BUILD_DIR / "phases"
     out.mkdir(parents=True, exist_ok=True)
     texts = {"full": src}
-    for cut, (old, new) in CUTS.items():
+    for cut, (old, new, dtypes) in CUTS.items():
+        if dtype not in dtypes:
+            continue
         if src.count(old) != 1:
             raise RuntimeError(f"{cut}: the source no longer has exactly one {old!r}")
         texts[cut] = src.replace(old, new)
@@ -74,33 +87,36 @@ def build_variants() -> dict[str, str]:
     return libs
 
 
-def main() -> int:
+def main(argv: list[str] | None = None) -> int:
+    ap = argparse.ArgumentParser(description="K2's time by phase, on the card")
+    ap.add_argument("--dtype", choices=("bf16", "fp32"), default="bf16", help="model dtype: the K2 route")
+    args = ap.parse_args(argv)
+    dtype = torch.bfloat16 if args.dtype == "bf16" else torch.float32
     if not torch.cuda.is_available():
         print("k2_phases: no CUDA device", file=sys.stderr)
         return 2
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, timeout=60, check=True).stdout.strip().splitlines()[0]
-    libs = build_variants()
+    libs = build_variants(args.dtype)
     cfg = build_task_config("bigvgan", "44100_512_2048").generator
     model = BigVGAN(cfg)
     model.load_state_dict(random_state_dict(cfg, 0))
-    model = fold_weight_norm(model).cuda().eval().to(torch.bfloat16)
+    model = fold_weight_norm(model).cuda().eval().to(dtype)
     n_k = len(cfg.resblock_kernel_sizes)
     gen = torch.Generator(device="cuda").manual_seed(0)
     shapes, t = [], 256
     for i, u in enumerate(cfg.upsample_rates):
         t *= u
         shapes.append((cfg.upsample_initial_channel // 2 ** (i + 1), t))
-    route = ROUTES[torch.bfloat16]
     with torch.inference_mode():
         for variant, path in libs.items():
             lib = ctypes.CDLL(path)
-            build._libs[route] = lib  # amp_stage_kernel launches through this library from now on
-            row = {"variant": variant, "card": card}
+            build._libs[LIB] = lib  # amp_stage_kernel launches through this library from now on
+            row = {"variant": variant, "dtype": args.dtype, "card": card}
             for b in (1, 16):
                 for i, (c, t) in enumerate(shapes):
                     blocks = list(model.resblocks[i * n_k : (i + 1) * n_k])
-                    x = torch.randn(b, c, t, device="cuda", generator=gen).to(torch.bfloat16)
+                    x = torch.randn(b, c, t, device="cuda", generator=gen).to(dtype)
                     row[f"b{b}_stage{i}_ms"] = cuda_ms(lambda: amp_stage_kernel(blocks, x, cfg.snake_logscale))
                 row[f"b{b}_ms"] = sum(row[f"b{b}_stage{i}_ms"] for i in range(len(shapes)))
             print(json.dumps(row), flush=True)
