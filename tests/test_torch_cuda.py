@@ -49,8 +49,18 @@ NARROW = BigVGANConfig(hop_length=16, upsample_rates=(4, 4), upsample_kernel_siz
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape", [(1, 16, 4096), (3, 16, 1500), (2, 8, 37), (1, 5, 1)])
+@pytest.mark.parametrize("shape", [
+    (1, 16, 4096), (3, 16, 1500), (2, 8, 37), (1, 5, 1),
+    (1, 16, 3967), (1, 16, 3969),  # one below and one above the 3968-output tile
+    (2, 16, 12004), (1, 16, 15936),  # bulk-copied tiles between edge tiles (rows 16-byte aligned in fp32; both)
+    (2, 8, 100),  # T no multiple of the 31-output run
+    (3, 4, 11),  # T under the 12-sample halo
+    (1, 70000, 8),  # B * C > 65535 rows
+])
 def test_aa_snake_kernel_matches_plain(cuda_device, shape, dtype):
+    """K1 against the plain version: fp32 within FMA rounding, bf16 within its output rounding.  The
+    shapes reach the tile's edges, the bulk copy and the clamped fill, partial runs and a 1-D grid
+    over more rows than a 2-D grid's y could take."""
     gen = torch.Generator(device=cuda_device).manual_seed(0)
     x = torch.randn(shape, device=cuda_device, generator=gen).to(dtype)
     alpha = (0.3 * torch.randn(shape[1], device=cuda_device, generator=gen)).to(dtype)
@@ -60,7 +70,7 @@ def test_aa_snake_kernel_matches_plain(cuda_device, shape, dtype):
     assert aa_snake.launches == before + 1
     want = aa_snake_plain(x, *snake_params(alpha, beta, True))
     if dtype == torch.float32:
-        torch.testing.assert_close(got, want, rtol=0, atol=1e-5)  # same fp32 arithmetic, another sum order
+        torch.testing.assert_close(got, want, rtol=0, atol=1e-5)  # fp32, FMAs against separate roundings
     else:
         assert _rel_l2(got.float(), want.float()) <= 2e-2  # bf16 output rounding
 

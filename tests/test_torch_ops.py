@@ -25,9 +25,11 @@ from vocoder_tpu_torch.convert import amp_block_state_dict_from_jax
 from vocoder_tpu_torch.models.bigvgan import AMPBlock, BigVGANConfig
 from vocoder_tpu_torch.nn import fold_weight_norm
 from vocoder_tpu_torch.ops import antialias as taa
+from vocoder_tpu_torch.ops import build
 from vocoder_tpu_torch.ops.aa_snake import aa_snake
 from vocoder_tpu_torch.ops.amp_block import amp_stage, amp_stage_plain, pack_conv_weight
 from vocoder_tpu_torch.ops.spectral import log_mel_spectrogram, mel_filterbank
+from vocoder_tpu_torch.tools import k1_variants, k2_phases, timing
 
 
 def _to_port(x: np.ndarray) -> torch.Tensor:  # (B, T, C) -> (B, C, T)
@@ -76,16 +78,34 @@ def test_poly_sin_accuracy():
 
 
 def test_cuda_header_constants_match_python():
-    """csrc/aa_snake.cuh hard-codes the FIR taps and the sin polynomial: they
+    """csrc/aa_snake.cuh hard-codes the FIR taps (and, for its FMA arithmetic, the
+    doubled taps and 2 pi split in two floats) and the sin polynomial: they
     must be the Python ones."""
     src = (Path(__file__).resolve().parents[1] / "vocoder_tpu_torch" / "csrc" / "aa_snake.cuh").read_text()
     taps = re.search(r"kFilt\[12\] = \{([^}]*)\}", src).group(1)
     got = np.asarray([float(v.strip().rstrip("f")) for v in taps.split(",")], np.float32)
     np.testing.assert_array_equal(got, taa.kaiser_sinc_filter1d(0.25, 0.3, 12))
+    doubled = re.search(r"kFilt2\[12\] = \{([^}]*)\}", src).group(1)
+    assert [v.strip() for v in doubled.split(",")] == [f"2 * {v.strip()}" for v in taps.split(",")]
+    two_pi = {name: np.float32(float(v.rstrip("f"))) for name, v in re.findall(r"(kTwoPi\w+) = ([-\d.e]+f)", src)}
+    assert two_pi["kTwoPiHi"] == np.float32(2 * np.pi)
+    assert two_pi["kTwoPiLo"] == np.float32(2 * np.pi - np.float64(np.float32(2 * np.pi)))
     for coef in taa._COS_COEF:
         assert repr(coef) in src
     for const in (taa._TP_HI, taa._TP_MID, taa._TP_LO):
         assert repr(const) in src
+
+
+@pytest.mark.parametrize("tool, source, variant", [
+    *(("k1_variants", "aa_snake.cu", v) for v in k1_variants.VARIANTS),
+    *(("k2_phases", "amp_conv_mma.cu", v) for v in k2_phases.CUTS),
+])
+def test_timing_tool_variants_find_their_text(tool, source, variant):
+    """The timing tools build each variant by replacing pieces of a kernel source, each of which must
+    still be there exactly once, or the tool fails on the card."""
+    pairs = k1_variants.VARIANTS[variant] if tool == "k1_variants" else [k2_phases.CUTS[variant][:2]]
+    src = (build.CSRC / source).read_text()
+    assert timing.edit(src, variant, pairs) != src
 
 
 def test_length_mask_matches_jax():

@@ -224,98 +224,24 @@ __host__ __device__ inline Geometry geometry(int C, int K, int dil) {
   return g;
 }
 
-// y2[clamp(n)] from x clamped to [0, T).
-template <typename TX>
-__device__ __forceinline__ float y2_at(const TX* xrow, int T, int n) {
-  n = aa::clampi(n, 0, 2 * T - 1);
-  const int v = n >> 1, par = n & 1;
-  float y = 0.0f;
-#pragma unroll
-  for (int j = 0; j < 6; ++j)
-    y = aa::add(y, aa::mul(aa::kFilt[11 - 2 * j - par], aa::ld(xrow, aa::clampi(v - 3 + par + j, 0, T - 1))));
-  return aa::mul(2.0f, y);
-}
-
-// One run of activation values, col[r * lda] = Op::store(aa_snake(x)[pb + r]) for r < len.  Pair m
-// holds the snake values at 2x-rate indices 2 pb - 5 + 2m (e) and 2 pb - 4 + 2m (o),
-// aa_snake.cuh's ss; value r is the decimating FIR over pairs r .. r + 5.  Pair m sits in slot
-// m % 6 and xw[(m + j) % 6] = x[pb - 5 + m + j]: with the loops unrolled by six the windows rotate
-// by index, not by moves, and six pairs and six x values are live.  A run near a sequence edge
-// (kEdge) clamps its x reads to [0, T), takes y2[0] or y2[2T - 1] for 2x-rate indices past the
-// ends, and writes 0 for positions outside [0, T): the same arithmetic as inside, a few
-// selects more.
-template <class Op, typename TX, bool kEdge>
-struct Run {
-  const TX* x;
+// col[r * lda] = Op::store(v): a run's values down one channel column of the act tile.
+template <class Op>
+struct ColOut {
   typename Op::T* col;
-  int pb, lda, T;
-  aa::SnakeAB ab;
-  float y2_lo, y2_hi;
-  float xw[6], e[6], o[6];
-
-  __device__ __forceinline__ float x_at(int q) const { return aa::ld(x, kEdge ? aa::clampi(q, 0, T - 1) : q); }
-  __device__ __forceinline__ float y2_edge(float y, int n) const {
-    return n < 0 ? y2_lo : (n > 2 * T - 1 ? y2_hi : y);
-  }
-  __device__ __forceinline__ void start() {  // x for pair 0, then pairs 0 .. 4
-    if (kEdge) {
-      y2_lo = y2_at(x, T, 0);
-      y2_hi = y2_at(x, T, 2 * T - 1);
-    }
-#pragma unroll
-    for (int j = 0; j < 5; ++j) xw[j] = x_at(pb - 5 + j);
-#pragma unroll
-    for (int m = 0; m < 5; ++m) pair(m, m);
-  }
-  __device__ __forceinline__ void pair(int m, int slot) {
-    xw[(slot + 5) % 6] = x_at(pb + m);
-    float yo = 0.0f, ye = 0.0f;  // y2 at the odd index 2 pb - 5 + 2m and the even one after it
-#pragma unroll
-    for (int j = 0; j < 6; ++j) {
-      yo = aa::add(yo, aa::mul(aa::kFilt[10 - 2 * j], xw[(slot + j) % 6]));
-      ye = aa::add(ye, aa::mul(aa::kFilt[11 - 2 * j], xw[(slot + j) % 6]));
-    }
-    yo = aa::mul(2.0f, yo);
-    ye = aa::mul(2.0f, ye);
-    if (kEdge) {
-      yo = y2_edge(yo, 2 * pb - 5 + 2 * m);
-      ye = y2_edge(ye, 2 * pb - 4 + 2 * m);
-    }
-    e[slot] = aa::snake(yo, ab.alpha, ab.inv_beta);
-    o[slot] = aa::snake(ye, ab.alpha, ab.inv_beta);
-  }
-  __device__ __forceinline__ void step(int m, int slot) {  // pair m, then value m - 5
-    pair(m, slot);
-    float z = 0.0f;
-#pragma unroll
-    for (int a = 0; a < 6; ++a) {
-      const int k = (slot + 1 + a) % 6;
-      z = aa::add(z, aa::add(aa::mul(aa::kFilt[2 * a], e[k]), aa::mul(aa::kFilt[2 * a + 1], o[k])));
-    }
-    if (kEdge && (pb + m - 5 < 0 || pb + m - 5 >= T)) z = 0.0f;
-    col[(m - 5) * lda] = Op::store(z);
-  }
-  __device__ __forceinline__ void rows(int len) {
-    start();
-    int m0 = 5;  // m0 % 6 == 5 in every group: pair m0 + u sits in slot (u + 5) % 6
-    for (; m0 + 6 <= len + 5; m0 += 6) {  // no exit inside a group, so its pairs interleave
-#pragma unroll
-      for (int u = 0; u < 6; ++u) step(m0 + u, (u + 5) % 6);
-    }
-#pragma unroll
-    for (int u = 0; u < 5; ++u)
-      if (m0 + u < len + 5) step(m0 + u, (u + 5) % 6);
-  }
+  int lda;
+  __device__ __forceinline__ void put(int r, float v) const { col[r * lda] = Op::store(v); }
 };
 
-// col[r * lda] = Op::store(aa_snake(x)[pb + r]) for r < len, 0 where pb + r lies outside [0, T).
+// col[r * lda] = Op::store(aa_snake(x)[pb + r]) for r < len, 0 where pb + r lies outside [0, T), in
+// the plain version's arithmetic (aa::Exact): one aa::Run of aa_snake.cuh reading x from device
+// memory.
 template <class Op, typename TX>
-__device__ __forceinline__ void act_rows(const TX* xrow, int T, int pb, int len, aa::SnakeAB ab,
+__device__ __forceinline__ void act_rows(const TX* xrow, int T, int pb, int len, aa::Exact::Params ab,
                                          typename Op::T* col, int lda) {
-  if (pb >= 5 && pb + len + 4 <= T - 1) {
-    Run<Op, TX, false>{xrow, col, pb, lda, T, ab}.rows(len);
+  if (!aa::run_at_edge(pb, len, T)) {
+    aa::Run<aa::Exact, aa::GlobalX<TX, false>, ColOut<Op>, false>{{xrow, T}, {col, lda}, pb, T, ab}.rows(len);
   } else {
-    Run<Op, TX, true>{xrow, col, pb, lda, T, ab}.rows(len);
+    aa::Run<aa::Exact, aa::GlobalX<TX, true>, ColOut<Op>, true>{{xrow, T}, {col, lda}, pb, T, ab}.rows(len);
   }
 }
 
@@ -398,7 +324,7 @@ __global__ void __launch_bounds__(kThreads, Cf::kMinBlocks) amp_conv_mma_kernel(
     const int ch = threadIdx.x % C, s0 = (threadIdx.x / C) * seg_len;
     const int len = min(seg_len, g.W - s0);
     if (len > 0) {
-      const aa::SnakeAB ab = aa::snake_ab(p.alpha, p.beta, Op::kDtype, p.logscale, ch);
+      const aa::Exact::Params ab = aa::Exact::params(p.alpha, p.beta, Op::kDtype, p.logscale, ch);
       const int64_t row = (b * C + ch) * T_len;
       T* col = act + s0 * g.lda + ch;
       if (c.x_dtype == aa::BF16)

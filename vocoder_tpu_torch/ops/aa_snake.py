@@ -2,12 +2,14 @@
 
 Replaces the Pallas kernel ``vocoder_tpu/ops/pallas/aa_snake.py::_kernel``
 (``pallas_call`` in ``_interior``, wrapped by ``fused_aa_snake``).  The CUDA
-source is ``csrc/aa_snake.cu`` with the device functions in
-``csrc/aa_snake.cuh``, which the AMP conv kernel shares.  On an H100 it is
-bound by its fp32 operations (about 104 per output sample, most of them the
-sin polynomial's FMAs) rather than by its bytes (one read and one write per
-sample); it keeps the 2x-rate signal in shared memory and makes the sequence
-edges exact by index clamping, so no edge splice follows it.
+source is ``csrc/aa_snake.cu``; the run that computes the activation lives in
+``csrc/aa_snake.cuh``, which the AMP conv kernel's prologue shares.  On an
+H100 the kernel in bf16 is bound by its fp32 operations (88 per output
+sample) rather than by its bytes (one read and one write per sample).  Each thread
+computes a run of consecutive outputs in registers, with the FIR taps and the
+sin polynomial as FMAs (within a few ulps of the plain version, not bit-equal
+to it), from a tile of x that one bulk copy stages in shared memory; the
+sequence edges are exact by index clamping, so no edge splice follows it.
 
 ``aa_snake`` takes a CPU tensor to the plain version
 (``antialias.aa_snake_plain``) and launches the kernel for a CUDA tensor, or
@@ -18,22 +20,34 @@ waits for the training slice.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from vocoder_tpu_torch.ops import build
 from vocoder_tpu_torch.ops.antialias import aa_snake_plain, snake_params
 
-# Operations per output sample, for the roofline bound: two 6-tap branch
-# FIRs (2 x 13), two snakes (2 x 27: the argument, the Cody-Waite reduction,
-# the degree-6 Horner cosine and the add) and the 12-tap decimating FIR (24).
-FLOPS_PER_SAMPLE = 104
+# Operations per output sample, for the roofline bound, an FMA counted as two.
+# The plain version's order (aa::Exact, K2's prologue): two 6-tap branch FIRs
+# (2 x 13: six products, five adds, the doubling), two snakes (2 x 27: the
+# argument, the Cody-Waite reduction, the degree-6 Horner cosine, the scale
+# and the add) and the 12-tap decimating FIR (24).
+EXACT_FLOPS_PER_SAMPLE = 104
+# K1's FMA form (aa::Fma): the branch FIRs on doubled taps (2 x 11: a product
+# and five FMAs), two snakes (2 x 21: the argument 1, the rounding of u / 2 pi
+# by a shifter 3, the reduction in two FMAs 4, r^2 1, the Horner cosine, its
+# constant term and the scale folded per channel, in five FMAs 10, and the add
+# in one FMA 2) and the 12-tap decimating FIR (12 FMAs, 24): 48 fp32
+# instructions.
+FLOPS_PER_SAMPLE = 88
 
 _C_VOID = ctypes.c_void_p
 _C_INT = ctypes.c_int
 
 
+@functools.cache
 def _lib() -> ctypes.CDLL:
+    """The K1 library with its C entries' types set, once."""
     lib = build.load("aa_snake")
     fn = lib.aa_snake_fwd
     fn.argtypes = [_C_VOID, _C_VOID, _C_INT, _C_VOID, _C_VOID, _C_INT, _C_INT, _C_INT, _C_INT, _C_INT, _C_VOID]

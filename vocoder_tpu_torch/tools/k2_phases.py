@@ -20,8 +20,8 @@ from __future__ import annotations
 import argparse
 import ctypes
 import json
-import subprocess
 import sys
+from pathlib import Path
 
 import torch
 
@@ -30,6 +30,7 @@ from vocoder_tpu_torch.models.bigvgan import BigVGAN, random_state_dict
 from vocoder_tpu_torch.nn import fold_weight_norm
 from vocoder_tpu_torch.ops import build
 from vocoder_tpu_torch.ops.amp_block import LIB, amp_stage_kernel
+from vocoder_tpu_torch.tools.timing import build_variants, card_line, cuda_ms, edit
 
 # Each cut: (text in the source, what replaces it, the dtypes it applies to).
 _SPLIT = """      f.hi[i] = tf32(r[i]);
@@ -48,43 +49,14 @@ CUTS = {
 }
 
 
-def cuda_ms(fn, iters: int = 3) -> float:
-    fn()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
-
-
-def build_variants(dtype: str) -> dict[str, str]:
-    """Compile the kernel and each of the dtype's cut copies in parallel; name -> shared library path."""
+def variant_sources(dtype: str) -> dict[str, tuple[str, Path]]:
+    """The kernel and each of the dtype's cut copies: name -> (source text, include directory)."""
     src = (build.CSRC / f"{LIB}.cu").read_text()
-    out = build.BUILD_DIR / "phases"
-    out.mkdir(parents=True, exist_ok=True)
-    texts = {"full": src}
+    jobs = {"full": (src, build.CSRC)}
     for cut, (old, new, dtypes) in CUTS.items():
-        if dtype not in dtypes:
-            continue
-        if src.count(old) != 1:
-            raise RuntimeError(f"{cut}: the source no longer has exactly one {old!r}")
-        texts[cut] = src.replace(old, new)
-    procs = {}
-    for variant, text in texts.items():
-        cu, lib = out / f"{variant}.cu", out / f"{variant}.so"
-        cu.write_text(text)
-        cmd = [build._nvcc(), *build.NVCC_FLAGS, "-I", str(build.CSRC), "-o", str(lib), str(cu)]
-        procs[variant] = (lib, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-    libs = {}
-    for variant, (lib, proc) in procs.items():
-        log, _ = proc.communicate()
-        if proc.returncode != 0:
-            raise RuntimeError(f"{variant}: nvcc failed\n{log}")
-        libs[variant] = str(lib)
-    return libs
+        if dtype in dtypes:
+            jobs[cut] = (edit(src, cut, [(old, new)]), build.CSRC)
+    return jobs
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -95,9 +67,8 @@ def main(argv: list[str] | None = None) -> int:
     if not torch.cuda.is_available():
         print("k2_phases: no CUDA device", file=sys.stderr)
         return 2
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                          capture_output=True, text=True, timeout=60, check=True).stdout.strip().splitlines()[0]
-    libs = build_variants(args.dtype)
+    card = card_line()
+    libs = build_variants("phases", variant_sources(args.dtype))
     cfg = build_task_config("bigvgan", "44100_512_2048").generator
     model = BigVGAN(cfg)
     model.load_state_dict(random_state_dict(cfg, 0))
@@ -117,7 +88,7 @@ def main(argv: list[str] | None = None) -> int:
                 for i, (c, t) in enumerate(shapes):
                     blocks = list(model.resblocks[i * n_k : (i + 1) * n_k])
                     x = torch.randn(b, c, t, device="cuda", generator=gen).to(dtype)
-                    row[f"b{b}_stage{i}_ms"] = cuda_ms(lambda: amp_stage_kernel(blocks, x, cfg.snake_logscale))
+                    row[f"b{b}_stage{i}_ms"] = cuda_ms(lambda: amp_stage_kernel(blocks, x, cfg.snake_logscale), 3, warmup=1)
                 row[f"b{b}_ms"] = sum(row[f"b{b}_stage{i}_ms"] for i in range(len(shapes)))
             print(json.dumps(row), flush=True)
     return 0
