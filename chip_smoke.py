@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's BigVGAN inference on one CUDA card and check it.
+"""Drive the PyTorch port's inference (BigVGAN, HiFiGAN, Vocos) on one CUDA card and check it.
 
     python3 chip_smoke.py          # from the repository root; needs one NVIDIA H100
 
@@ -7,11 +7,15 @@ Phases, in order; any failure exits non-zero:
   0. build the CUDA kernels from vocoder_tpu_torch/csrc (nvcc, sm_90a);
   1. K1 (aa-snake) against its plain version at activation_post's shape,
      C = 16, T = 512 * 256, b1, b4 and b16, plus ragged T and a B * C above
-     65535 rows, in fp32 and bf16;
+     65535 rows, in fp32 and bf16; then at b16 with per-item lengths against
+     the masked plain version (lengths T, 0, 1, under the 12-sample halo,
+     the 3968-output tile's edges +- 1 and random ones), exactly 0 past each;
   2. K2 (AMP stage, csrc/amp_conv_mma.cu) against its plain stage at the
      five stage shapes of the 44.1 kHz preset, F = 256 frames, b1 and b16: fp32
      through the 3xTF32 route, bf16 through the bf16 route against the
-     plain stage that rounds the same conv inputs to bf16;
+     plain stage that rounds the same conv inputs to bf16; then every stage
+     at b16 with per-item lengths (as K1's, with K2's time tile's edges)
+     against the masked plain stage, exactly 0 past each length;
   3. the full-width BigVGAN (random weights from a numpy seed, saved as a
      `generator.` checkpoint) through `cli.infer.main` (fp32) on generated
      WAVs and one .npy mel, one file longer than --chunk-frames; K1's and
@@ -19,16 +23,28 @@ Phases, in order; any failure exits non-zero:
      kernel path against the plain path on the same mel in fp32; then the
      same model in bf16 through `BigVGAN.forward` against its plain path,
      K1's and the bf16 K2 route's counts > 0 for that forward;
-  4. CUDA-event timings of K1, both K2 routes and the generator in bf16 and
+  4. a padded batch of 8 mels (64 ... 300 frames) through
+     `BigVGAN.forward(mel, frame_lengths)`, fp32 and bf16, against each mel's
+     own forward, the kernels' counts > 0 for each masked forward;
+  5. HiFiGAN and Vocos at full width (44.1 kHz presets, random weights from
+     numpy seed 0): finite outputs, and a padded batch against per-item runs;
+  6. the batched CLI: `--batch 4` against `--batch 1` over WAVs of different
+     lengths, a stereo one, a long one and a .npy mel, for bigvgan (the
+     kernels' counts > 0 in the batched run), hifigan and vocos;
+  7. CUDA-event timings of K1, both K2 routes and the generator in bf16 and
      fp32 at b1 and b16, with K2's yardsticks (the stage's convs alone in
      cuDNN, the design's traffic floor) and each kernel's host time per
      launch.  K1's launches are queued behind a spin kernel, so its time is
      the card's alone (`device_time`, vocoder_tpu_torch/tools/timing.py).
+     Then BigVGAN's masked b16 forward against the unmasked one at the same
+     padded shape, HiFiGAN's and Vocos' forwards at b1 and b16 in both
+     dtypes, and the CLI's seconds at --batch 1 and --batch 16 over 32 WAVs.
 
-Prints the card's name and power limit first, one JSON line per timing, a
-`{"kernels": [...]}` line and, last, `{"ok": true, "device": {...}}`.
-Comparisons in fp32 run with TF32 off (cuDNN and matmul), so the plain
-versions are full fp32.
+Prints the card's name and power limit first, one JSON line per check and
+timing, a `{"kernels": [...]}` line and, last, `{"ok": true, "device": {...}}`.
+The kernel and model comparisons run with TF32 off (cuDNN and matmul), so
+the plain versions are full fp32; every CLI phase starts from PyTorch's
+default flags (cuDNN TF32 on), so that it checks the CLI's own setting.
 """
 
 from __future__ import annotations
@@ -65,8 +81,13 @@ K2_BF16_REL_L2 = 1e-3
 # capped at 2e-2.
 GEN_BF16_REL_L2, GEN_BF16_CAP = 5e-3, 2e-2
 
+GEN_BATCH_REL_L2 = 1e-5  # a padded batch against per-item runs, fp32: the same kernels, other sum orders in cuDNN
+WAV_TOL = 2.0 / 32768  # a WAV of the batched CLI against the per-file run's: two 16-bit steps
+
 # Names of K2's two routes (both csrc/amp_conv_mma.cu) in the kernels line and the launch counts.
 FP32_K2, BF16_K2 = "amp_conv_mma_3xtf32", "amp_conv_mma"
+K1_TILE = 3968  # csrc/aa_snake.cu: kThreads * kRun outputs a block
+HALO = 12  # the aa-snake's reach in x at the 1x rate, both sides together
 
 
 def log(obj) -> None:
@@ -233,6 +254,365 @@ def write_inputs(root: Path, task, rng) -> dict[str, int]:
     return expected
 
 
+def dtag(dtype) -> str:
+    return "bf16" if "bfloat16" in str(dtype) else "fp32"
+
+
+def tf32_off() -> None:
+    """Both TF32 flags off, for the kernel and model comparisons: the plain versions in full fp32."""
+    import torch
+
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+
+
+def tf32_defaults() -> None:
+    """PyTorch's default flags (cuDNN convolutions may round to TF32, matmuls may not), before each
+    CLI phase: the CLI has to turn TF32 off itself."""
+    import torch
+
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = True, False
+
+
+def run_cli(infer, argv: list[str]) -> float:
+    """`cli.infer.main(argv)` from PyTorch's default TF32 flags; its seconds.  Fails unless the CLI
+    left both flags off."""
+    import torch
+
+    tf32_defaults()
+    t0 = time.perf_counter()
+    infer.main(argv)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    if torch.backends.cudnn.allow_tf32 or torch.backends.cuda.matmul.allow_tf32:
+        raise SystemExit("the inference CLI left TF32 on: its fp32 convs would not be fp32")
+    return seconds
+
+
+def launch_counts() -> dict[str, int]:
+    from vocoder_tpu_torch.ops.aa_snake import aa_snake
+    from vocoder_tpu_torch.ops.amp_block import amp_stage
+
+    return {"aa_snake": aa_snake.launches, FP32_K2: amp_stage.launches, BF16_K2: amp_stage.mma_launches}
+
+
+def drive_path(name: str, fn, need: tuple[str, ...], paths: dict):
+    """Drive one main path with every launch count set to 0 just before and read just after; record
+    the counts under `name` and fail if a kernel in `need` was not launched."""
+    import torch
+
+    from vocoder_tpu_torch.ops.aa_snake import aa_snake
+    from vocoder_tpu_torch.ops.amp_block import amp_stage
+
+    aa_snake.launches = amp_stage.launches = amp_stage.mma_launches = 0
+    out = fn()
+    torch.cuda.synchronize()
+    paths[name] = launch_counts()
+    if any(paths[name][k] <= 0 for k in need):
+        raise SystemExit(f"path {name} did not launch every kernel it runs: {paths[name]}")
+    return out
+
+
+def spread_lengths(t: int, tile: int, rng, n: int = 16) -> list[int]:
+    """n item lengths for a padded batch of T-long rows: T, 0, 1, one under the 12-sample halo, the
+    first two tile edges +- 1, and random lengths in [1, T]."""
+    fixed = [t, 0, 1, HALO - 5, tile - 1, tile + 1, 2 * tile - 1, 2 * tile + 1]
+    return [min(v, t) for v in fixed] + sorted(int(v) for v in rng.integers(1, t + 1, n - len(fixed)))
+
+
+def past_lengths_zero(got, lengths) -> bool:
+    return all(not bool(got[i, :, n:].any()) for i, n in enumerate(lengths))
+
+
+def check_masked_kernels(model, model_bf16, c_post: int, t_post: int, dev, errs_masked: dict) -> None:
+    """K1 at activation_post's (16, 16, T) and K2 at every AMP stage at b16, fp32 and bf16, with per-item
+    lengths, against the masked plain versions at the unmasked checks' tolerances; 0 past each length.
+    Inputs from generators of their own, so the unmasked checks' inputs stay those of earlier runs."""
+    import numpy as np
+    import torch
+
+    from vocoder_tpu_torch.ops.aa_snake import aa_snake_kernel
+    from vocoder_tpu_torch.ops.amp_block import amp_stage_kernel, amp_stage_plain, launch_shape
+    from vocoder_tpu_torch.ops.antialias import aa_snake_plain, snake_params
+
+    cfg = model.cfg
+    n_k = len(cfg.resblock_kernel_sizes)
+    rng = np.random.default_rng(SEED + 2)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+    models = ((torch.float32, model), (torch.bfloat16, model_bf16))
+    lengths = spread_lengths(t_post, K1_TILE, rng)
+    lens = torch.tensor(lengths, device=dev, dtype=torch.int32)
+    x32 = torch.randn(len(lengths), c_post, t_post, device=dev, generator=gen)
+    for dtype, m in models:
+        p = m.activation_post.activation
+        x = x32.to(dtype)
+        got = aa_snake_kernel(x, p.alpha, p.beta, True, lens)
+        want = aa_snake_plain(x, *snake_params(p.alpha, p.beta, True), lens)
+        torch.cuda.synchronize()
+        zeros = past_lengths_zero(got, lengths)
+        if dtype == torch.float32:
+            err = float((got - want).abs().max())
+            errs_masked["aa_snake"] = max(errs_masked["aa_snake"], err)
+            ok = zeros and err <= K1_FP32_MAX_ABS
+            rec = {"max_abs_err": err}
+        else:
+            err = rel_l2(got.float(), want.float())
+            ok = zeros and err <= BF16_REL_L2
+            rec = {"rel_l2": err}
+        log({"phase": "k1_masked_check", "shape": list(x.shape), "dtype": dtag(dtype), "lengths": lengths,
+             **rec, "zeros_past_lengths": zeros, "ok": ok})
+        if not ok:
+            raise SystemExit(f"K1 with lengths disagrees with its masked plain version ({dtype})")
+    for i, (c, t) in enumerate(stage_shapes(cfg)):
+        x32 = torch.randn(16, c, t, device=dev, generator=gen)
+        for dtype, m in models:
+            blocks = list(m.resblocks[i * n_k : (i + 1) * n_k])
+            tile, _ = launch_shape(dtype, c, 16, t)
+            lengths = spread_lengths(t, tile, rng)
+            lens = torch.tensor(lengths, device=dev, dtype=torch.int32)
+            x = x32.to(dtype)
+            got = amp_stage_kernel(blocks, x, cfg.snake_logscale, lens)
+            want = amp_stage_plain(blocks, x, cfg.snake_logscale, lens)
+            torch.cuda.synchronize()
+            zeros = past_lengths_zero(got, lengths)
+            name = FP32_K2 if dtype == torch.float32 else BF16_K2
+            abs_err = float((got.float() - want.float()).abs().max())
+            errs_masked[name] = max(errs_masked[name], abs_err)
+            if dtype == torch.float32:
+                ok = zeros and bool(torch.allclose(got, want, rtol=K2_FP32_RTOL, atol=K2_FP32_ATOL))
+                rec = {"max_abs_err": abs_err}
+            else:
+                err = rel_l2(got.float(), want.float())
+                ok = zeros and err <= K2_BF16_REL_L2
+                rec = {"rel_l2": err, "max_abs_err": abs_err}
+            log({"phase": "k2_masked_check", "stage": i, "shape": [16, c, t], "dtype": dtag(dtype),
+                 "time_tile": tile, "lengths": lengths, **rec, "zeros_past_lengths": zeros, "ok": ok})
+            if not ok:
+                raise SystemExit(f"K2 with lengths disagrees with its masked plain stage at stage {i} {dtype}")
+
+
+def padded_mels(num_mels: int, frames: list[int], rng, dev):
+    """One mel per length, log-mel-like, and their right-zero-padded batch with its lengths."""
+    import numpy as np
+    import torch
+
+    mels = [torch.from_numpy((rng.standard_normal((1, num_mels, n)) - 5.0).astype(np.float32)).to(dev)
+            for n in frames]
+    batch = torch.zeros(len(frames), num_mels, max(frames), device=dev)
+    for i, m in enumerate(mels):
+        batch[i, :, : m.shape[-1]] = m[0]
+    return mels, batch, torch.tensor(frames, device=dev, dtype=torch.int32)
+
+
+def batch_vs_items(model, mels, batch, lens, frames, hop: int):
+    """(rows of the padded batch cut to their items' samples, the items' own forwards, the batch):
+    concatenated over the items."""
+    import torch
+
+    out = model(batch, lens)
+    rows = torch.cat([out[i, 0, : n * hop] for i, n in enumerate(frames)]).float()
+    alone = torch.cat([model(m)[0, 0] for m in mels]).float()
+    return rows, alone, out
+
+
+MASKED_FRAMES = [64, 101, 137, 173, 209, 240, 271, 300]
+
+
+def check_masked_generator(model, model_bf16, hop: int, dev, paths: dict) -> None:
+    """BigVGAN.forward(mel, frame_lengths) on 8 mels of different lengths against each mel's own forward:
+    fp32 within GEN_BATCH_REL_L2; bf16 within GEN_BF16_REL_L2, or the plain-vs-plain floor (cuDNN
+    convs against PyTorch's own, per item) capped at GEN_BF16_CAP, measured only when needed."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(SEED + 3)
+    mels, batch, lens = padded_mels(model.cfg.num_mels, MASKED_FRAMES, rng, dev)
+    for dtype, m, route in ((torch.float32, model, FP32_K2), (torch.bfloat16, model_bf16, BF16_K2)):
+        tag = dtag(dtype)
+        drive_path(f"masked_forward_{tag}", lambda: m(batch.to(dtype), lens), ("aa_snake", route), paths)
+        rows, alone, out = batch_vs_items(m, [x.to(dtype) for x in mels], batch.to(dtype), lens, MASKED_FRAMES, hop)
+        err = rel_l2(rows, alone)
+        zeros = past_lengths_zero(out, [n * hop for n in MASKED_FRAMES])
+        floor = None
+        if dtype == torch.float32:
+            limit = GEN_BATCH_REL_L2
+        else:
+            limit = GEN_BF16_REL_L2
+            if err > limit:
+                plain = torch.cat([m.forward_plain(x.to(dtype))[0, 0] for x in mels]).float()
+                torch.backends.cudnn.enabled = False
+                native = torch.cat([m.forward_plain(x.to(dtype))[0, 0] for x in mels]).float()
+                torch.backends.cudnn.enabled = True
+                floor = rel_l2(native, plain)
+                limit = max(limit, min(floor, GEN_BF16_CAP))
+        ok = err <= limit and zeros and bool(torch.isfinite(out).all())
+        log({"phase": "masked_generator_check", "model": "bigvgan", "dtype": tag, "frames": MASKED_FRAMES,
+             "rel_l2_batch_vs_items": err, "plain_vs_plain_rel_l2": floor, "limit": limit,
+             "zeros_past_lengths": zeros, "launches": paths[f"masked_forward_{tag}"], "ok": ok})
+        if not ok:
+            raise SystemExit(f"BigVGAN's padded {tag} batch disagrees with its per-item runs")
+
+
+def library_models(dev) -> dict:
+    """HiFiGAN and Vocos at the 44.1 kHz presets, full width, random weights from numpy seed 0: name ->
+    (task, fp32 state_dict, fp32 model on the card)."""
+    from vocoder_tpu_torch.config import build_task_config
+    from vocoder_tpu_torch.models import hifigan, vocos
+    from vocoder_tpu_torch.nn import fold_weight_norm
+
+    out = {}
+    for name, mod in (("hifigan", hifigan), ("vocos", vocos)):
+        task = build_task_config(name, "44100_512_2048")
+        sd = mod.random_state_dict(task.generator, SEED)
+        model = {"hifigan": hifigan.HiFiGAN, "vocos": vocos.Vocos}[name](task.generator)
+        model.load_state_dict(sd)
+        out[name] = (task, sd, fold_weight_norm(model).to(dev).eval())
+    return out
+
+
+def check_library_models(models: dict, dev) -> None:
+    """HiFiGAN and Vocos on the card: finite outputs, and a padded fp32 batch against per-item runs."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(SEED + 4)
+    for name, (task, _, model) in models.items():
+        mels, batch, lens = padded_mels(task.num_mels, MASKED_FRAMES, rng, dev)
+        rows, alone, out = batch_vs_items(model, mels, batch, lens, MASKED_FRAMES, task.hop_length)
+        err = rel_l2(rows, alone)
+        finite = bool(torch.isfinite(rows).all() and torch.isfinite(alone).all())
+        ok = finite and err <= GEN_BATCH_REL_L2 and float(alone.abs().max()) > 1e-3
+        log({"phase": "masked_generator_check", "model": name, "dtype": "fp32", "frames": MASKED_FRAMES,
+             "rel_l2_batch_vs_items": err, "limit": GEN_BATCH_REL_L2, "finite": finite,
+             "peak": float(alone.abs().max()), "rms": float(alone.pow(2).mean().sqrt()), "ok": ok})
+        if not ok:
+            raise SystemExit(f"{name}: non-finite output, or its padded batch disagrees with its per-item runs")
+
+
+def write_batch_inputs(root: Path, task, rng) -> None:
+    """WAVs of different lengths (one stereo, one at 22.05 kHz, one past --chunk-frames) and one .npy mel."""
+    import numpy as np
+
+    from vocoder_tpu_torch.data.audio_io import write_wav
+
+    sr = task.sampling_rate
+    for name, rate, seconds, ch in (("a.wav", sr, 0.25, 1), ("b.wav", sr, 0.6, 1), ("c.wav", sr, 0.93, 1),
+                                    ("d.wav", sr, 1.4, 1), ("e.wav", sr, 2.1, 1), ("stereo.wav", sr, 0.7, 2),
+                                    ("low_rate.wav", 22050, 0.5, 1), ("long.wav", sr, 9.0, 1)):
+        n = int(rate * seconds)
+        t = np.arange(n) / rate
+        audio = 0.3 * np.sin(2 * np.pi * 220.0 * t) * (1 + 0.5 * np.sin(2 * np.pi * 3.0 * t))
+        audio = audio[None] + 0.01 * rng.standard_normal((ch, n))
+        write_wav(root / name, audio.astype(np.float32), rate)
+    np.save(root / "mel.npy", (rng.standard_normal((task.num_mels, 150)) - 5.0).astype(np.float32))
+
+
+def check_batched_cli(infer, root: Path, ckpts: dict, paths: dict) -> None:
+    """`--batch 4` against `--batch 1` for each model over the same inputs; each WAV within WAV_TOL.
+    The bigvgan batched run is a main path: the kernels' counts > 0."""
+    import numpy as np
+
+    from vocoder_tpu_torch.data.audio_io import read_wav
+
+    for name, ckpt in ckpts.items():
+        wavs, seconds = {}, {}
+        for batch in (4, 1):
+            out = root / f"out_{name}_b{batch}"
+            argv = ["--model", name, "--resolution", "44100_512_2048", "--ckpt", str(ckpt), "--input",
+                    str(root / "batch_in"), "--output", str(out), "--chunk-frames", "512", "--batch", str(batch)]
+            if name == "bigvgan" and batch == 4:
+                seconds[batch] = drive_path("cli_bigvgan_batch4", lambda: run_cli(infer, argv),
+                                            ("aa_snake", FP32_K2), paths)
+            else:
+                seconds[batch] = run_cli(infer, argv)
+            wavs[batch] = {p.name: read_wav(p)[0] for p in sorted(out.iterdir())}
+        names = sorted(wavs[1])
+        errs = {f: float(np.abs(wavs[4][f] - wavs[1][f]).max()) if wavs[4][f].shape == wavs[1][f].shape
+                else float("inf") for f in names if f in wavs[4]}
+        ok = (sorted(wavs[4]) == names and len(names) == 9 and max(errs.values()) <= WAV_TOL
+              and all(np.isfinite(w).all() and np.abs(w).max() > 1e-3 for w in wavs[4].values()))
+        log({"phase": "cli_batch_check", "model": name, "files": names, "max_abs_vs_batch1": errs,
+             "seconds": {f"batch{b}": s for b, s in seconds.items()},
+             "launches": paths.get("cli_bigvgan_batch4") if name == "bigvgan" else None, "ok": ok})
+        if not ok:
+            raise SystemExit(f"{name}: the batched CLI's WAVs differ from the per-file run's")
+
+
+def time_masked_generator(model, model_bf16, task, dev, stamp: dict) -> None:
+    """BigVGAN at b16, F_FRAMES frames: the forward with frame_lengths (lengths spread over
+    F_FRAMES / 4 ... F_FRAMES) against the unmasked forward at the same padded shape."""
+    import numpy as np
+    import torch
+
+    from vocoder_tpu_torch.tools.timing import cuda_ms
+
+    rng = np.random.default_rng(SEED + 5)
+    frames = [F_FRAMES] + sorted(int(v) for v in rng.integers(F_FRAMES // 4, F_FRAMES + 1, 15))
+    mel = torch.from_numpy((rng.standard_normal((16, task.num_mels, F_FRAMES)) - 5.0).astype(np.float32)).to(dev)
+    for i, n in enumerate(frames):
+        mel[i, :, n:] = 0.0
+    lens = torch.tensor(frames, device=dev, dtype=torch.int32)
+    for dtype, m in ((torch.bfloat16, model_bf16), (torch.float32, model)):
+        mel_d = mel.to(dtype)
+        unmasked = cuda_ms(lambda: m(mel_d), 2, warmup=1)
+        masked = cuda_ms(lambda: m(mel_d, lens), 2, warmup=1)
+        log({"metric": "masked_generator_ms", "model": "bigvgan", "batch": 16, "frames": F_FRAMES,
+             "dtype": dtag(dtype), "lengths": frames, "filled": sum(frames) / (16 * F_FRAMES),
+             "ms": masked, "unmasked_ms": unmasked, "masked_over_unmasked": masked / unmasked,
+             "audio_s_per_s": sum(frames) * task.hop_length / task.sampling_rate / (masked / 1e3), **stamp})
+
+
+def time_library_models(models: dict, dev, stamp: dict) -> dict:
+    """HiFiGAN's and Vocos' forward ms and audio-s/s at b1 and b16, F_FRAMES frames, bf16 and fp32, as
+    the host queues the calls (at b1 the host sets the pace: tools/profile_forward.py gives the card's
+    busy time)."""
+    import torch
+
+    from vocoder_tpu_torch.tools.timing import cuda_ms
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 6)
+    out = {}
+    for name, (task, _, model) in models.items():
+        m_bf16 = copy.deepcopy(model).to(torch.bfloat16)
+        for b in (1, 16):
+            mel = torch.randn(b, task.num_mels, F_FRAMES, device=dev, generator=gen) - 5.0
+            for dtype, m in ((torch.bfloat16, m_bf16), (torch.float32, model)):
+                mel_d = mel.to(dtype)
+                y = m(mel_d)
+                ms = cuda_ms(lambda: m(mel_d), 5 if b == 1 else 2, warmup=2)
+                audio_s = b * F_FRAMES * task.hop_length / task.sampling_rate
+                rec = {"metric": "generator_ms", "model": name, "batch": b, "frames": F_FRAMES,
+                       "dtype": dtag(dtype), "ms": ms, "audio_s_per_s": audio_s / (ms / 1e3),
+                       "finite": bool(torch.isfinite(y).all()), **stamp}
+                log(rec)
+                if not rec["finite"]:
+                    raise SystemExit(f"{name} {dtype}: non-finite output")
+                out[(name, b, rec["dtype"])] = rec
+    return out
+
+
+def time_cli(infer, root: Path, ckpt: Path, task, rng, stamp: dict) -> None:
+    """The CLI's seconds over the same 32 WAVs (0.5 ... 3 s) at --batch 1 and --batch 16, BigVGAN fp32."""
+    import numpy as np
+
+    from vocoder_tpu_torch.data.audio_io import write_wav
+
+    src = root / "cli_32"
+    src.mkdir()
+    audio_s = 0.0
+    for i, seconds in enumerate(rng.uniform(0.5, 3.0, 32)):
+        n = int(task.sampling_rate * seconds)
+        t = np.arange(n) / task.sampling_rate
+        audio = 0.3 * np.sin(2 * np.pi * (110.0 + 10 * i) * t) + 0.01 * rng.standard_normal(n)
+        write_wav(src / f"{i:02d}.wav", audio[None].astype(np.float32), task.sampling_rate)
+        audio_s += -(-n // task.hop_length) * task.hop_length / task.sampling_rate
+    for batch in (1, 16):
+        argv = ["--model", "bigvgan", "--resolution", "44100_512_2048", "--ckpt", str(ckpt), "--input", str(src),
+                "--output", str(root / f"cli_32_b{batch}"), "--batch", str(batch)]
+        seconds = run_cli(infer, argv)
+        log({"metric": "cli_seconds", "model": "bigvgan", "dtype": "fp32", "batch": batch, "files": 32,
+             "audio_s": audio_s, "seconds": seconds, "audio_s_per_s": audio_s / seconds, **stamp})
+
+
 def main() -> int:
     import torch
 
@@ -247,15 +627,14 @@ def main() -> int:
     from vocoder_tpu_torch.models.bigvgan import BigVGAN, random_state_dict
     from vocoder_tpu_torch.nn import fold_weight_norm
     from vocoder_tpu_torch.ops import build
-    from vocoder_tpu_torch.ops.aa_snake import aa_snake, aa_snake_kernel
-    from vocoder_tpu_torch.ops.amp_block import amp_stage, amp_stage_kernel, amp_stage_plain
+    from vocoder_tpu_torch.ops.aa_snake import aa_snake_kernel
+    from vocoder_tpu_torch.ops.amp_block import amp_stage_kernel, amp_stage_plain
     from vocoder_tpu_torch.ops.antialias import aa_snake_plain, snake_params
     from vocoder_tpu_torch.tools.timing import card_line, cuda_ms, device_time
 
     card = card_line()
     print(card, flush=True)
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
+    tf32_off()
     dev = torch.device("cuda")
     kind = torch.cuda.get_device_name(0)
     stamp = {"card": card, "device": kind}
@@ -285,6 +664,8 @@ def main() -> int:
     c_post = post.alpha.numel()
     t_post = F_FRAMES * cfg.hop_length
     errs = {"aa_snake": 0.0, FP32_K2: 0.0, BF16_K2: 0.0}
+    errs_masked = dict(errs)
+    paths = {}  # main path -> the launch counts of its run
     mma_rel = 0.0
 
     with torch.inference_mode():
@@ -340,6 +721,9 @@ def main() -> int:
                 if not ok:
                     raise SystemExit(f"K2 disagrees with its plain stage at stage {i} {(b, c, t)} {dtype}")
 
+        # 1-2, with per-item lengths.
+        check_masked_kernels(model, model_bf16, c_post, t_post, dev, errs_masked)
+
     # 3. The full generator through the inference CLI.
     rng = np.random.default_rng(SEED)
     with tempfile.TemporaryDirectory() as tmp:
@@ -351,15 +735,9 @@ def main() -> int:
         chunk = 512
         argv = ["--model", "bigvgan", "--resolution", "44100_512_2048", "--ckpt", str(ckpt),
                 "--input", str(root / "in"), "--output", str(root / "out"), "--chunk-frames", str(chunk)]
-        aa_snake.launches = amp_stage.launches = amp_stage.mma_launches = 0
-        t0 = time.perf_counter()
-        infer.main(argv)
-        torch.cuda.synchronize()
-        cli_s = time.perf_counter() - t0
-        launches = {"aa_snake": aa_snake.launches, FP32_K2: amp_stage.launches}
-        log({"phase": "cli", "seconds": cli_s, "launches": launches, "chunk_frames": chunk})
-        if min(launches.values()) <= 0:
-            raise SystemExit(f"the main path did not launch every kernel: {launches}")
+        cli_s = drive_path("cli_bigvgan", lambda: run_cli(infer, argv), ("aa_snake", FP32_K2), paths)
+        tf32_off()
+        log({"phase": "cli", "seconds": cli_s, "launches": paths["cli_bigvgan"], "chunk_frames": chunk})
         for name, n in expected.items():
             audio, sr = read_wav(root / "out" / name)
             ok = sr == task.sampling_rate and audio.shape == (1, n) and bool(np.isfinite(audio).all())
@@ -372,7 +750,7 @@ def main() -> int:
         # Kernel path against the plain path on the same mel, fp32; and the WAV against the kernel path.
         with torch.inference_mode():
             gen_model = infer.load_generator(ckpt, task, dev)
-            mel = infer.load_mel(root / "in" / "mel.npy", task, dev)
+            mel = infer.load_mel_item(root / "in" / "mel.npy", task, dev)
             got = gen_model(mel)
             want = gen_model.forward_plain(mel)
             torch.cuda.synchronize()
@@ -388,11 +766,8 @@ def main() -> int:
             # The same model and mel in bf16 through BigVGAN.forward: the tensor-core route.
             gen_bf16 = copy.deepcopy(gen_model).to(torch.bfloat16)
             mel_bf16 = mel.to(torch.bfloat16)
-            aa_snake.launches = amp_stage.launches = amp_stage.mma_launches = 0
-            got = gen_bf16(mel_bf16)
-            torch.cuda.synchronize()
-            bf16_launches = {"aa_snake": aa_snake.launches, BF16_K2: amp_stage.mma_launches,
-                             FP32_K2: amp_stage.launches}
+            got = drive_path("forward_bf16", lambda: gen_bf16(mel_bf16), ("aa_snake", BF16_K2), paths)
+            bf16_launches = paths["forward_bf16"]
             want = gen_bf16.forward_plain(mel_bf16)
             torch.backends.cudnn.enabled = False  # the same plain path on PyTorch's own convs
             want_native = gen_bf16.forward_plain(mel_bf16)
@@ -407,9 +782,25 @@ def main() -> int:
                  "launches": bf16_launches, "ok": ok})
             if not ok:
                 raise SystemExit("the bf16 generator's kernel path disagrees with its plain path or skipped a kernel")
-            launches[BF16_K2] = bf16_launches[BF16_K2]
 
-    # 4. Timing, CUDA events.
+            # 4. A padded batch against per-item runs, on the kernels.
+            check_masked_generator(model, model_bf16, cfg.hop_length, dev, paths)
+
+            # 5. HiFiGAN and Vocos on the card.
+            lib_models = library_models(dev)
+            check_library_models(lib_models, dev)
+
+        # 6. The batched CLI against the per-file CLI, every family.
+        (root / "batch_in").mkdir()
+        write_batch_inputs(root / "batch_in", task, rng)
+        ckpts = {"bigvgan": ckpt}
+        for name, (_, lib_sd, _) in lib_models.items():
+            ckpts[name] = root / f"{name}.ckpt"
+            torch.save({"state_dict": {f"generator.{k}": v for k, v in lib_sd.items()}}, ckpts[name])
+        check_batched_cli(infer, root, ckpts, paths)
+        tf32_off()
+
+    # 7. Timing, CUDA events.
     entries = {}
     with torch.inference_mode():
         for b in (1, 16):
@@ -436,21 +827,33 @@ def main() -> int:
                 ms = cuda_ms(lambda: m(mel_d), 3 if b == 1 else 2, warmup=1)
                 plain_ms = cuda_ms(lambda: m.forward_plain(mel_d), 2, warmup=1)
                 audio_s = b * F_FRAMES * cfg.hop_length / task.sampling_rate
-                log({"metric": "generator_ms", "batch": b, "frames": F_FRAMES,
+                log({"metric": "generator_ms", "model": "bigvgan", "batch": b, "frames": F_FRAMES,
                      "dtype": "bf16" if dtype == torch.bfloat16 else "fp32", "ms": ms, "plain_ms": plain_ms,
                      "audio_s_per_s": audio_s / (ms / 1e3), **stamp})
+        time_masked_generator(model, model_bf16, task, dev, stamp)
+        time_library_models(lib_models, dev, stamp)
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = Path(tmp) / "generator.ckpt"
+        torch.save({"state_dict": {f"generator.{k}": v for k, v in sd.items()}}, ckpt)
+        time_cli(infer, Path(tmp), ckpt, task, np.random.default_rng(SEED + 7), stamp)
+
+    def launches(name):  # over the main paths' runs; each path's count beside it
+        by_path = {path: c[name] for path, c in paths.items() if c[name]}
+        return {"launches": sum(by_path.values()), "launches_by_path": by_path}
 
     k1 = entries["aa_snake"][1]
     kernels = [{"name": "aa_snake", "route": "cuda", "source": "vocoder_tpu_torch/csrc/aa_snake.cu",
-                "replaces": "vocoder_tpu/ops/pallas/aa_snake.py:218", "launches": launches["aa_snake"],
-                "max_abs_err": errs["aa_snake"], "ms": k1["ms"], "plain_ms": k1["plain_ms"], "bound_ms": k1["bound_ms"],
+                "replaces": "vocoder_tpu/ops/pallas/aa_snake.py:218", **launches("aa_snake"),
+                "max_abs_err": errs["aa_snake"], "max_abs_err_masked": errs_masked["aa_snake"], "ms": k1["ms"],
+                "plain_ms": k1["plain_ms"], "bound_ms": k1["bound_ms"],
                 "bound_by": k1["bound_by"], "library_ms": None, "host_us_per_launch": k1["host_us_per_launch"],
                 "ms_b16": entries["aa_snake"][16]["ms"], "bound_ms_b16": entries["aa_snake"][16]["bound_ms"]}]
     for name, dtype in ((FP32_K2, "fp32"), (BF16_K2, "bf16")):
         k2, k2_b16 = entries[name][1], entries[name][16]
         kernels.append({"name": name, "route": "cuda", "source": "vocoder_tpu_torch/csrc/amp_conv_mma.cu",
-                        "replaces": "vocoder_tpu/ops/pallas/amp_block.py:590", "launches": launches[name],
-                        "max_abs_err": errs[name], "dtype": dtype, "ms": k2["ms"], "plain_ms": k2["plain_ms"],
+                        "replaces": "vocoder_tpu/ops/pallas/amp_block.py:590", **launches(name),
+                        "max_abs_err": errs[name], "max_abs_err_masked": errs_masked[name], "dtype": dtype,
+                        "ms": k2["ms"], "plain_ms": k2["plain_ms"],
                         "bound_ms": k2["bound_ms"], "bound_by": k2["bound_by"], "library_ms": None,
                         "bound_ms_cuda_cores": k2["bound_ms_cuda_cores"], "conv_library_ms": k2["conv_library_ms"],
                         "design_floor_ms": k2["design_floor_ms"], "host_us_per_launch": k2["host_us_per_launch"],

@@ -194,3 +194,102 @@ def test_generator_kernel_path_matches_plain_path(cuda_device):
         got, want = model(mel), model.forward_plain(mel)
     assert got.shape == (2, 1, 640)
     assert _rel_l2(got, want) <= 1e-4
+
+
+def _lengths_past_zero(got, lengths):
+    for i, n in enumerate(lengths):
+        assert not got[i, :, n:].any(), (i, n)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_aa_snake_kernel_with_lengths_matches_masked_plain(cuda_device, dtype):
+    """K1 with per-item lengths: 0, 1, under the 12-sample halo, one below and one above the
+    3968-output tile (a bulk-copied tile whose window would cross L takes the clamped loads), T; the
+    padding holds values the kernel must not read.  Exactly 0 past each length."""
+    lengths = [8000, 0, 1, 7, 3967, 3969, 7936 + 9]
+    gen = torch.Generator(device=cuda_device).manual_seed(1)
+    x = torch.randn(len(lengths), 16, 8000, device=cuda_device, generator=gen).to(dtype)
+    alpha = (0.3 * torch.randn(16, device=cuda_device, generator=gen)).to(dtype)
+    beta = (0.3 * torch.randn(16, device=cuda_device, generator=gen)).to(dtype)
+    lens = torch.tensor(lengths, device=cuda_device)
+    before = aa_snake.launches
+    got = aa_snake(x, alpha, beta, True, lens)
+    assert aa_snake.launches == before + 1
+    want = aa_snake_plain(x, *snake_params(alpha, beta, True), lens)
+    _lengths_past_zero(got, lengths)
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
+    else:
+        assert _rel_l2(got.float(), want.float()) <= 2e-2
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("stage", [0, 1])
+def test_amp_stage_kernel_with_lengths_matches_masked_plain(cuda_device, stage, dtype):
+    """K2, both routes, with per-item lengths: 0, 1, under the halo, one below and one above the time
+    tile, T; blocks past an item's length write zeros without their main loop."""
+    from vocoder_tpu_torch.ops.amp_block import launch_shape
+
+    model = _model(NARROW, cuda_device, dtype)
+    blocks = list(model.resblocks[3 * stage : 3 * stage + 3])
+    c, t = NARROW.upsample_initial_channel // 2 ** (stage + 1), 900
+    tile, _ = launch_shape(dtype, c, 6, t)
+    lengths = [t, 0, 1, 7, tile - 1, tile + 1]
+    x = torch.randn(len(lengths), c, t, device=cuda_device).to(dtype)
+    lens = torch.tensor(lengths, device=cuda_device, dtype=torch.int32)
+    counter = "launches" if dtype == torch.float32 else "mma_launches"
+    before = getattr(amp_stage, counter)
+    with torch.inference_mode():
+        got = amp_stage(blocks, x, NARROW.snake_logscale, lens)
+    assert getattr(amp_stage, counter) == before + 18
+    want = amp_stage_plain(blocks, x, NARROW.snake_logscale, lens)
+    _lengths_past_zero(got, lengths)
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-5)
+    else:
+        assert _rel_l2(got.float(), want.float()) <= K2_BF16_REL_L2
+
+
+def test_generator_padded_batch_equals_per_item_runs(cuda_device):
+    """A narrow BigVGAN's padded batch on the kernels: row i, cut to its frames, is item i's own
+    forward (rel L2 1e-5, fp32 sums in other orders), and 0 after."""
+    model = _model(NARROW, cuda_device)
+    lengths = [40, 3, 1, 17, 33]
+    mel = torch.from_numpy(np.random.default_rng(2).standard_normal((5, 8, 40)).astype(np.float32) - 3.0)
+    for i, n in enumerate(lengths):
+        mel[i, :, n:] = 0.0
+    mel = mel.to(cuda_device)
+    with torch.inference_mode():
+        out = model(mel, torch.tensor(lengths, device=cuda_device))
+        for i, n in enumerate(lengths):
+            alone = model(mel[i : i + 1, :, :n])
+            assert _rel_l2(out[i : i + 1, :, : n * 16], alone) <= 1e-5, i
+        _lengths_past_zero(out, [n * 16 for n in lengths])
+
+
+def test_cli_at_pytorch_tf32_defaults_equals_tf32_off(cuda_device, tmp_path, monkeypatch):
+    """cli.infer.main turns TF32 off itself: with PyTorch's default flags (cuDNN TF32 on) it writes
+    the WAVs it writes with both flags off."""
+    from vocoder_tpu_torch.cli import infer
+    from vocoder_tpu_torch.config import TaskConfig
+    from vocoder_tpu_torch.data.audio_io import read_wav
+
+    task = TaskConfig(sampling_rate=8000, n_fft=64, hop_length=16, win_length=64, num_mels=8,
+                      generator_name="bigvgan", generator=NARROW)
+    monkeypatch.setattr(infer, "build_task_config", lambda model, resolution: task)
+    torch.save({"state_dict": {f"generator.{k}": v for k, v in random_state_dict(NARROW, 0).items()}},
+               tmp_path / "g.ckpt")
+    (tmp_path / "in").mkdir()
+    rng = np.random.default_rng(3)
+    for n in (30, 47):
+        np.save(tmp_path / "in" / f"m{n}.npy", (rng.standard_normal((8, n)) - 3.0).astype(np.float32))
+    wavs = {}
+    for name, flags in (("default", (True, False)), ("off", (False, False))):
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = flags
+        infer.main(["--model", "bigvgan", "--resolution", "tiny", "--ckpt", str(tmp_path / "g.ckpt"), "--input",
+                    str(tmp_path / "in"), "--output", str(tmp_path / name), "--batch", "2"])
+        assert not torch.backends.cudnn.allow_tf32 and not torch.backends.cuda.matmul.allow_tf32
+        wavs[name] = {p.name: read_wav(p)[0] for p in sorted((tmp_path / name).iterdir())}
+    assert list(wavs["default"]) == ["m30.wav", "m47.wav"]
+    for key, wav in wavs["default"].items():
+        np.testing.assert_array_equal(wav, wavs["off"][key])

@@ -1,18 +1,26 @@
 """Inference CLI: mel or audio -> waveform, on the card.
 
-Counterpart of ``vocoder_tpu/cli/infer.py`` for per-file synthesis: load a
-reference-layout torch checkpoint (``generator.`` prefix), fold weight norm,
-then for each ``.wav`` (log-mel computed here) or ``.npy`` mel input
-synthesise under ``torch.inference_mode()`` and write a 16-bit WAV.  Files
-longer than ``--chunk-frames`` mel frames go through overlap-chunked
-synthesis.
+Counterpart of ``vocoder_tpu/cli/infer.py``: load a reference-layout torch
+checkpoint (``generator.`` prefix), fold weight norm, then for each ``.wav``
+(log-mel computed here, after an optional ``--pitch-shift``) or ``.npy`` /
+``.pt`` mel input synthesise under ``torch.inference_mode()`` and write a
+16-bit WAV.  Library convs and matmuls run in full fp32 (no TF32), as the
+JAX package runs them at ``Precision.HIGHEST``.
 
-    python -m vocoder_tpu_torch.cli.infer --model bigvgan --resolution 44100_512_2048 \\
-        --ckpt G.ckpt --input in_dir --output out_dir [--device cuda|cpu] [--chunk-frames N]
+    python -m vocoder_tpu_torch.cli.infer --model bigvgan|hifigan|vocos --resolution 44100_512_2048 \\
+        --ckpt G.ckpt --input in_dir --output out_dir [--device cuda|cpu] [--chunk-frames N] \\
+        [--batch N] [--pitch-shift SEMITONES]
+
+``--batch N`` synthesises N items per forward (hifigan, vocos, bigvgan): the
+items (one per channel of each file) are sorted by length, each group is
+padded to its longest item and run with ``frame_lengths``, whose per-layer
+masking makes every row equal to that item's own forward.  Files longer than
+``--chunk-frames`` mel frames go through overlap-chunked synthesis, one file
+at a time, as every file does at ``--batch 1``.
 
 Runs on ``cuda`` unless ``--device cpu`` is given; it never falls back to the
-CPU by itself.  ``--batch``, f0 templates, pitch shift, Orbax checkpoints and
-FLAC/Ogg/MP3 input are not yet ported.
+CPU by itself.  f0 templates, Orbax checkpoints and FLAC/Ogg/MP3 input are
+not yet ported.
 """
 
 from __future__ import annotations
@@ -29,9 +37,13 @@ from vocoder_tpu_torch.convert import load_reference_state_dict
 from vocoder_tpu_torch.data.audio_io import AUDIO_EXTENSIONS, read_audio, write_wav
 from vocoder_tpu_torch.data.resample import resample
 from vocoder_tpu_torch.models.registry import get_generator
-from vocoder_tpu_torch.nn import fold_weight_norm
+from vocoder_tpu_torch.nn import fold_weight_norm, set_full_precision
 from vocoder_tpu_torch.ops.spectral import log_mel_spectrogram
 from vocoder_tpu_torch.parallel.streaming import chunked_synthesis
+
+MEL_SUFFIXES = {".npy", ".pt", ".pth"}
+# Families whose forward takes frame_lengths (vocoder_tpu/cli/infer.py's batchable rule).
+BATCHABLE = ("hifigan", "vocos", "bigvgan")
 
 
 def resolve_device(name: str) -> torch.device:
@@ -44,14 +56,21 @@ def resolve_device(name: str) -> torch.device:
 def load_generator(ckpt: str | Path, task: TaskConfig, device: torch.device) -> torch.nn.Module:
     """The generator with the checkpoint's weights, weight norm folded, in eval mode on device."""
     model = get_generator(task.generator_name).module_cls(task.generator)
-    model.load_state_dict(load_reference_state_dict(ckpt))
+    model.load_state_dict(load_reference_state_dict(ckpt, keys=model.state_dict().keys()))
     return fold_weight_norm(model).to(device).eval()
 
 
-def load_mel(f: Path, task: TaskConfig, device: torch.device) -> torch.Tensor:
-    """One input file -> mel (channels, num_mels, F) float32 on device."""
-    if f.suffix.lower() == ".npy":
-        mel = np.load(f)
+def load_mel_item(f: Path, task: TaskConfig, device: torch.device, pitch_shift: float = 0.0) -> torch.Tensor:
+    """One input file -> mel (channels, num_mels, F) float32 on device.
+
+    The per-file and the batched paths share it, so their preprocessing (mel
+    auto-transpose, pitch shift, hop padding, log-mel) cannot drift apart."""
+    suffix = f.suffix.lower()
+    if suffix in MEL_SUFFIXES:
+        if suffix == ".npy":
+            mel = np.load(f)
+        else:
+            mel = torch.load(f, map_location="cpu", weights_only=True).float().numpy()
         if mel.ndim == 2:
             mel = mel[None]
         if mel.shape[-1] == task.num_mels:  # (C, F, num_mels) -> (C, num_mels, F)
@@ -59,6 +78,9 @@ def load_mel(f: Path, task: TaskConfig, device: torch.device) -> torch.Tensor:
         return torch.as_tensor(np.asarray(mel, np.float32), device=device)
     audio, sr = read_audio(f)
     audio = resample(audio, sr, task.sampling_rate)
+    if pitch_shift:  # a resample from a shifted rate, rounded down to a multiple of 100 Hz
+        step = round(task.sampling_rate * 2 ** (pitch_shift / 12))
+        audio = resample(audio, step - step % 100, task.sampling_rate)
     audio = np.pad(audio, ((0, 0), (0, (-audio.shape[-1]) % task.hop_length)))
     return log_mel_spectrogram(
         torch.as_tensor(audio, device=device),
@@ -83,39 +105,113 @@ def synthesize(model: torch.nn.Module, mel: torch.Tensor, task: TaskConfig, chun
     return model(mel)
 
 
+def batchable(task: TaskConfig, batch: int) -> bool:
+    """Whether ``--batch`` can run masked batches for this generator: a family with
+    ``frame_lengths``, no f0 template, and an even (kernel - rate) at every upsample
+    stage (an odd one would shift each item's output length by a sample a stage)."""
+    gen = task.generator
+    if batch <= 1 or task.generator_name not in BATCHABLE or getattr(gen, "use_template", False):
+        return False
+    ups = zip(getattr(gen, "upsample_rates", ()), getattr(gen, "upsample_kernel_sizes", ()))
+    return not any((k - u) % 2 for u, k in ups)
+
+
+def min_batch_frames(task: TaskConfig) -> int:
+    """The shortest file the batched path takes; shorter ones go per file.  BigVGAN's is
+    ceil(32 / rates[0]) frames, as in the JAX package's CLI, so both CLIs batch the same files."""
+    if task.generator_name == "bigvgan":
+        return -(-32 // max(task.generator.upsample_rates[0], 1))
+    return 1
+
+
+def _write(out_root: Path, in_root: Path, f: Path, audio: np.ndarray, task: TaskConfig) -> Path:
+    out_path = out_root / f.relative_to(in_root).with_suffix(".wav")
+    out_path.parent.mkdir(parents=True, exist_ok=True)
+    write_wav(out_path, audio, task.sampling_rate)
+    return out_path
+
+
+def batched_synthesis(model, files: list[Path], task: TaskConfig, device: torch.device, args,
+                      in_root: Path, out_root: Path) -> list[Path]:
+    """Length-sorted exact batched synthesis of ``files``; returns the files deferred to
+    the per-file path (longer than ``--chunk-frames``, or shorter than ``min_batch_frames``).
+
+    Each channel of each file is one item.  Items are sorted by frame count and
+    taken ``args.batch`` at a time; each group is padded to its longest item and
+    runs in one forward with ``frame_lengths``, and row j, cut to its item's
+    frames, is that item's audio."""
+    min_frames = min_batch_frames(task)
+    items, outs, deferred = [], {}, []  # items: (file, channel, mel (num_mels, F))
+    for f in files:
+        mel = load_mel_item(f, task, device, args.pitch_shift)
+        frames = mel.shape[2]
+        if (args.chunk_frames and frames > args.chunk_frames) or frames < min_frames:
+            deferred.append(f)
+            continue
+        outs[f] = [None] * mel.shape[0]
+        items += [(f, c, mel[c]) for c in range(mel.shape[0])]
+    items.sort(key=lambda it: it[2].shape[1])
+
+    start, total_s = time.perf_counter(), 0.0
+    for g0 in range(0, len(items), args.batch):
+        group = items[g0 : g0 + args.batch]
+        frames = [m.shape[1] for _, _, m in group]
+        mel_b = torch.zeros(len(group), task.num_mels, max(frames), device=device)
+        for j, (_, _, m) in enumerate(group):
+            mel_b[j, :, : frames[j]] = m
+        lens = torch.tensor(frames, dtype=torch.int32, device=device)
+        audio = model(mel_b, frame_lengths=lens)[:, 0].float().cpu().numpy()
+        for j, (f, c, _) in enumerate(group):
+            outs[f][c] = audio[j, : frames[j] * task.hop_length]
+            total_s += frames[j] * task.hop_length / task.sampling_rate
+    if items:
+        print(f"batched synthesis: {len(items)} items, {total_s:.2f}s audio in "
+              f"{time.perf_counter() - start:.2f}s", flush=True)
+    for f, chans in outs.items():
+        print(f"{f.name}: -> {_write(out_root, in_root, f, np.stack(chans), task)}", flush=True)
+    return deferred
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description="Vocoder inference (PyTorch + CUDA)")
-    ap.add_argument("--model", default="bigvgan")
+    ap.add_argument("--model", default="bigvgan", help="bigvgan, hifigan, vocos, vocos_small or vocos_huge")
     ap.add_argument("--resolution", default="44100_512_2048")
     ap.add_argument("--ckpt", required=True, help="reference-layout .ckpt/.pt with a generator. state_dict")
     ap.add_argument("--input", required=True, help="audio/mel file or directory")
     ap.add_argument("--output", required=True, help="output directory")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    ap.add_argument("--pitch-shift", type=float, default=0.0, help="semitones, applied to audio inputs")
     ap.add_argument(
         "--chunk-frames", type=int, default=2048,
         help="mel frames per synthesis chunk for long files (0 = single pass); bounds device memory",
+    )
+    ap.add_argument(
+        "--batch", type=int, default=1,
+        help="synthesise N items per forward (length-sorted, padded, exact by per-layer length masking; "
+        "hifigan/vocos/bigvgan)",
     )
     args = ap.parse_args(argv)
 
     task = build_task_config(args.model, args.resolution)
     device = resolve_device(args.device)
+    set_full_precision()
     model = load_generator(args.ckpt, task, device)
 
     input_path = Path(args.input)
     files = [input_path] if input_path.is_file() else sorted(input_path.rglob("*"))
+    files = [f for f in files if f.suffix.lower() in MEL_SUFFIXES | AUDIO_EXTENSIONS]
     in_root = input_path.parent if input_path.is_file() else input_path
     out_root = Path(args.output)
     with torch.inference_mode():
+        if batchable(task, args.batch):
+            files = batched_synthesis(model, files, task, device, args, in_root, out_root)
+        elif args.batch > 1:
+            print(f"--batch: falling back to per-file synthesis for {task.generator_name}", flush=True)
         for f in files:
-            suffix = f.suffix.lower()
-            if suffix != ".npy" and suffix not in AUDIO_EXTENSIONS:
-                continue
             start = time.perf_counter()
-            mel = load_mel(f, task, device)
+            mel = load_mel_item(f, task, device, args.pitch_shift)
             fake = synthesize(model, mel, task, args.chunk_frames)[:, 0, :].float().cpu().numpy()
-            out_path = out_root / f.relative_to(in_root).with_suffix(".wav")
-            out_path.parent.mkdir(parents=True, exist_ok=True)
-            write_wav(out_path, fake, task.sampling_rate)
+            out_path = _write(out_root, in_root, f, fake, task)
             dur = fake.shape[-1] / task.sampling_rate
             print(f"{f.name}: {dur:.2f}s audio in {time.perf_counter() - start:.2f}s -> {out_path}", flush=True)
 

@@ -1,14 +1,17 @@
 """Resolution and generator presets, and the inference task config.
 
 A copy of the presets in ``vocoder_tpu/config.py`` (resolutions, upsample
-factorizations, the BigVGAN generator preset); that module imports the JAX
-models, so the port keeps its own.  ``tests/test_torch_models.py`` holds the
-two equal field by field.
+factorizations, the generator presets of the ported families: hifigan,
+vocos, vocos_small, vocos_huge and bigvgan); that module imports the JAX
+models, so the port keeps its own.  Each preset maps a resolution to the
+generator's registry name and its config.  ``tests/test_torch_models.py``
+and ``tests/test_torch_hifigan_vocos.py`` hold them equal field by field.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any
 
 from vocoder_tpu_torch.models.registry import get_generator
@@ -44,9 +47,10 @@ def upsample_rates_for_hop(hop: int) -> tuple[tuple, tuple]:
     return tuple(rates), tuple(2 * r for r in rates)
 
 
-def _gen_bigvgan(res: dict):
+def _gen_upsampler(name: str, res: dict):
+    """hifigan and bigvgan: the hop's upsample factorization, no template."""
     rates, kernels = upsample_rates_for_hop(res["hop_length"])
-    return get_generator("bigvgan").config_cls(
+    return name, get_generator(name).config_cls(
         hop_length=res["hop_length"],
         upsample_rates=rates,
         upsample_kernel_sizes=kernels,
@@ -55,7 +59,28 @@ def _gen_bigvgan(res: dict):
     )
 
 
-GENERATOR_PRESETS = {"bigvgan": _gen_bigvgan}
+def _gen_vocos(size: str, res: dict):
+    from vocoder_tpu_torch.models.convnext import ConvNeXtConfig
+    from vocoder_tpu_torch.models.vocos import ISTFTHeadConfig, VocosConfig
+
+    stft = dict(n_fft=res["n_fft"], hop_length=res["hop_length"], win_length=res["win_length"])
+    if size == "small":
+        # The reference's vocos-small.yaml cannot instantiate; this is its intent, as the JAX
+        # package builds it: one depth-8, dim-512 ConvNeXt stage and an iSTFT head.
+        return "vocos", VocosConfig(
+            backbone=ConvNeXtConfig(input_channels=res["num_mels"], depths=(8,), dims=(512,), drop_path_rate=0.1),
+            head=ISTFTHeadConfig(dim=512, **stft),
+        )
+    return "vocos", getattr(VocosConfig, size)(num_mels=res["num_mels"], **stft)
+
+
+GENERATOR_PRESETS = {
+    "hifigan": functools.partial(_gen_upsampler, "hifigan"),
+    "vocos": functools.partial(_gen_vocos, "base"),
+    "vocos_small": functools.partial(_gen_vocos, "small"),
+    "vocos_huge": functools.partial(_gen_vocos, "huge"),
+    "bigvgan": functools.partial(_gen_upsampler, "bigvgan"),
+}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -72,16 +97,21 @@ class TaskConfig:
 
 
 def build_task_config(model: str = "bigvgan", resolution: str = "44100_512_2048") -> TaskConfig:
+    """The inference config of a generator preset (``vocos-huge`` reads as ``vocos_huge``) at a resolution."""
+    model = model.replace("-", "_")
     if resolution not in RESOLUTIONS:
         raise KeyError(f"unknown resolution {resolution!r}; available: {sorted(RESOLUTIONS)}")
-    get_generator(model)  # raises for a generator that is not yet ported
+    if model not in GENERATOR_PRESETS:
+        get_generator(model)  # raises "not yet ported" for the JAX package's other generators
+        raise KeyError(f"unknown generator preset {model!r}; available: {sorted(GENERATOR_PRESETS)}")
     res = RESOLUTIONS[resolution]
+    generator_name, generator = GENERATOR_PRESETS[model](res)
     return TaskConfig(
         sampling_rate=res["sampling_rate"],
         n_fft=res["n_fft"],
         hop_length=res["hop_length"],
         win_length=res["win_length"],
         num_mels=res["num_mels"],
-        generator_name=model,
-        generator=GENERATOR_PRESETS[model](res),
+        generator_name=generator_name,
+        generator=generator,
     )

@@ -1,14 +1,18 @@
 """Weights bridge: JAX parameter trees and reference checkpoints -> port state_dicts.
 
-``bigvgan_state_dict_from_jax`` is the inverse of the JAX package's
-``from_torch_state_dict`` for BigVGAN: it takes that package's parameter tree
-(leaves as numpy arrays, or torch tensors, including ``meta`` ones for a
-shape-only check) and returns the state_dict ``models.bigvgan.BigVGAN``
+``bigvgan_state_dict_from_jax``, ``hifigan_state_dict_from_jax`` and
+``vocos_state_dict_from_jax`` are the inverses of the JAX package's
+``from_torch_state_dict`` for those families: each takes that package's
+parameter tree (leaves as numpy arrays, or torch tensors, including ``meta``
+ones for a shape-only check) and returns the state_dict the port's model
 loads.  Layouts:
 
     conv:            JAX v (K, I, O), g (1, 1, O)  -> original1 (O, I, K), original0 (O, 1, 1)
+                     JAX w (K, I/groups, O)        -> weight (O, I/groups, K)   (no weight norm)
     transposed conv: JAX v (K, I, O) time-flipped, g (1, I, 1)
                                                    -> original1 (I, O, K), original0 (I, 1, 1)
+    linear:          JAX w (I, O)                  -> weight (O, I)
+    layer norm:      JAX scale, bias               -> weight, bias
 
 ``load_reference_state_dict`` reads a reference ``.ckpt``/``.pt`` file and
 keeps the generator's entries (``generator.`` prefix) under the port's names.
@@ -31,12 +35,27 @@ def _norm_except_dim0(w: torch.Tensor) -> torch.Tensor:
 
 
 def _conv(sd: dict, prefix: str, p: dict, transposed: bool = False) -> None:
-    v = _t(p["v"])
-    sd[f"{prefix}.parametrizations.weight.original0"] = _t(p["g"]).reshape(-1, 1, 1)
-    v = v.permute(1, 2, 0).flip(2) if transposed else v.permute(2, 1, 0)
-    sd[f"{prefix}.parametrizations.weight.original1"] = v.contiguous()
+    def layout(v):
+        return v.permute(1, 2, 0).flip(2) if transposed else v.permute(2, 1, 0)
+
+    if "w" in p:  # no weight norm, or folded
+        sd[f"{prefix}.weight"] = layout(_t(p["w"])).contiguous()
+    else:
+        sd[f"{prefix}.parametrizations.weight.original0"] = _t(p["g"]).reshape(-1, 1, 1)
+        sd[f"{prefix}.parametrizations.weight.original1"] = layout(_t(p["v"])).contiguous()
     if "b" in p:
         sd[f"{prefix}.bias"] = _t(p["b"])
+
+
+def _linear(sd: dict, prefix: str, p: dict) -> None:
+    sd[f"{prefix}.weight"] = _t(p["w"]).T.contiguous()
+    if "b" in p:
+        sd[f"{prefix}.bias"] = _t(p["b"])
+
+
+def _layer_norm(sd: dict, prefix: str, p: dict) -> None:
+    sd[f"{prefix}.weight"] = _t(p["scale"])
+    sd[f"{prefix}.bias"] = _t(p["bias"])
 
 
 def _snake(sd: dict, prefix: str, p: dict) -> None:
@@ -71,27 +90,77 @@ def bigvgan_state_dict_from_jax(params: dict) -> dict[str, torch.Tensor]:
     return sd
 
 
-def load_reference_state_dict(path: str | Path, prefix: str = "generator.") -> dict[str, torch.Tensor]:
+def hifigan_state_dict_from_jax(params: dict) -> dict[str, torch.Tensor]:
+    """The JAX HiFiGAN parameter tree -> ``HiFiGAN.state_dict()`` layout."""
+    if "noise_convs" in params:
+        raise NotImplementedError("HiFiGAN with an f0 template is not yet ported")
+    sd: dict[str, torch.Tensor] = {}
+    _conv(sd, "conv_pre", params["conv_pre"])
+    for i, up in enumerate(params["ups"]):
+        _conv(sd, f"ups.{i}", up, transposed=True)
+    for i, stage in enumerate(params["resblocks"]):
+        for j, block in enumerate(stage["blocks"]):
+            for name in ("convs1", "convs2"):
+                for l, conv in enumerate(block[name]):
+                    _conv(sd, f"resblocks.{i}.blocks.{j}.{name}.{l}", conv)
+    _conv(sd, "conv_post", params["conv_post"])
+    return sd
+
+
+def convnext_state_dict_from_jax(params: dict, prefix: str = "") -> dict[str, torch.Tensor]:
+    """The JAX ConvNeXt encoder's parameter tree -> ``ConvNeXtEncoder.state_dict()`` layout."""
+    sd: dict[str, torch.Tensor] = {}
+    for i, down in enumerate(params["downsample"]):
+        conv, norm = (0, 1) if i == 0 else (1, 0)
+        _conv(sd, f"{prefix}downsample_layers.{i}.{conv}", down["conv"])
+        _layer_norm(sd, f"{prefix}downsample_layers.{i}.{norm}", down["norm"])
+    for i, stage in enumerate(params["stages"]):
+        for j, block in enumerate(stage):
+            bp = f"{prefix}stages.{i}.{j}"
+            _conv(sd, f"{bp}.dwconv", block["dwconv"])
+            _layer_norm(sd, f"{bp}.norm", block["norm"])
+            _linear(sd, f"{bp}.pwconv1", block["pwconv1"])
+            _linear(sd, f"{bp}.pwconv2", block["pwconv2"])
+            if "gamma" in block:
+                sd[f"{bp}.gamma"] = _t(block["gamma"])
+    _layer_norm(sd, f"{prefix}norm", params["norm"])
+    return sd
+
+
+def vocos_state_dict_from_jax(params: dict) -> dict[str, torch.Tensor]:
+    """The JAX Vocos parameter tree -> ``Vocos.state_dict()`` layout."""
+    sd = convnext_state_dict_from_jax(params["backbone"], prefix="backbone.")
+    _conv(sd, "head.out", params["head"]["out"])
+    return sd
+
+
+def load_reference_state_dict(path: str | Path, prefix: str = "generator.", keys=None) -> dict[str, torch.Tensor]:
     """A reference checkpoint's generator entries, renamed to the port's keys.
 
     Accepts ``{"state_dict": {...}}`` or a bare state_dict, with weight norm
     as parametrizations, as legacy ``weight_g``/``weight_v``, or folded
-    ``weight``.  The anti-aliasing FIR buffers (``*.filter``) are dropped:
-    the port computes those taps.  Loads tensors only (``weights_only``).
+    ``weight``.  ``keys``, the state_dict keys of the model that will load the
+    result, tells a folded weight-normed ``weight`` (split back into gain and
+    direction) from a plain one (kept); without it every ``weight`` is taken
+    as weight-normed, as in BigVGAN and HiFiGAN.  The anti-aliasing FIR
+    buffers (``*.filter``) and the iSTFT window (``*.window``) are dropped:
+    the port computes those.  Loads tensors only (``weights_only``).
     """
     ckpt = torch.load(path, map_location="cpu", weights_only=True)
     sd = ckpt.get("state_dict", ckpt)
+    keys = None if keys is None else set(keys)
     out: dict[str, torch.Tensor] = {}
     for key, val in sd.items():
-        if not key.startswith(prefix) or key.endswith(".filter"):
+        if not key.startswith(prefix) or key.endswith((".filter", ".window")):
             continue
         key = key[len(prefix) :]
+        wn = key[: -len("weight")] + "parametrizations.weight.original0"
         if key.endswith(".weight_g"):
             key = key[: -len("weight_g")] + "parametrizations.weight.original0"
         elif key.endswith(".weight_v"):
             key = key[: -len("weight_v")] + "parametrizations.weight.original1"
-        elif key.endswith(".weight"):
-            out[key[: -len("weight")] + "parametrizations.weight.original0"] = _norm_except_dim0(val.float()).to(val.dtype)
+        elif key.endswith(".weight") and (keys is None or wn in keys):
+            out[wn] = _norm_except_dim0(val.float()).to(val.dtype)
             key = key[: -len("weight")] + "parametrizations.weight.original1"
         out[key] = val
     if not out:

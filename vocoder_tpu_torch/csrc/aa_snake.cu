@@ -27,6 +27,11 @@
 //   tile whose halo leaves [0, T), or whose row is not 16-byte aligned, is
 //   filled by clamped loads instead, and only its runs at a sequence end take
 //   the clamped path (aa::Run's kEdge).
+// - A row of a padded batch has its own length L <= T (`lens`, per item): L
+//   takes T's place in every clamp, outputs at or past L are 0, a tile that
+//   starts at or past L writes its zeros and reads nothing, and only a tile
+//   whose staged window lies inside [0, L) takes the bulk copy (elsewhere the
+//   clamp must replicate x[L - 1] where the copy would stage padding).
 // - The outputs are staged in shared memory as fp32 and leave in 16-byte
 //   stores along the row, in x's dtype.
 // - The grid is 1-D over (row, tile), so any B * C fits; a 3968-output tile
@@ -70,7 +75,7 @@ struct StagedOut {
 template <typename TX>
 __global__ void __launch_bounds__(kThreads)
 aa_snake_kernel(const TX* __restrict__ x, TX* __restrict__ z, const void* alpha, const void* beta, int pdtype,
-                int logscale, int C, int T, int tiles, int bulk_ok) {
+                int logscale, int C, int T, int tiles, int bulk_ok, const int* __restrict__ lens) {
   __shared__ __align__(16) float outs[kTile];
   __shared__ __align__(16) TX xs[kTile + 2 * kHalo];
   __shared__ __align__(8) uint64_t bar;
@@ -79,10 +84,15 @@ aa_snake_kernel(const TX* __restrict__ x, TX* __restrict__ z, const void* alpha,
   const int64_t row = blockIdx.x / tiles;  // b * C + c
   const int p0 = (blockIdx.x - row * tiles) * kTile;
   const int W = min(kTile, T - p0);
+  const int L = lens ? aa::clampi(lens[row / C], 0, T) : T;  // the row's length
+  if (p0 >= L) {  // the tile lies in the row's padding
+    for (int i = threadIdx.x; i < W; i += kThreads) aa::st(z + row * T + p0, i, 0.0f);
+    return;
+  }
   const TX* xrow = x + row * T;
   const int s0 = threadIdx.x * kRun, len = min(kRun, W - s0);
 
-  const bool bulk = bulk_ok && p0 >= kHalo && p0 + kTile + kHalo <= T;
+  const bool bulk = bulk_ok && p0 >= kHalo && p0 + kTile + kHalo <= L;
   if (threadIdx.x == 0) {
     ab_s = Arith::params(alpha, beta, pdtype, logscale, static_cast<int>(row % C));
     if (bulk) {
@@ -90,8 +100,8 @@ aa_snake_kernel(const TX* __restrict__ x, TX* __restrict__ z, const void* alpha,
       asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
     }
   }
-  if (!bulk)  // clamped loads: xs[i] = x[clamp(p0 - kHalo + i)]
-    for (int i = threadIdx.x; i < W + 2 * kHalo; i += kThreads) xs[i] = xrow[aa::clampi(p0 - kHalo + i, 0, T - 1)];
+  if (!bulk)  // clamped loads: xs[i] = x[clamp(p0 - kHalo + i, 0, L - 1)]
+    for (int i = threadIdx.x; i < W + 2 * kHalo; i += kThreads) xs[i] = xrow[aa::clampi(p0 - kHalo + i, 0, L - 1)];
   __syncthreads();
   if (bulk) {
     constexpr uint32_t bytes = (kTile + 2 * kHalo) * sizeof(TX);
@@ -112,16 +122,18 @@ aa_snake_kernel(const TX* __restrict__ x, TX* __restrict__ z, const void* alpha,
     }
   }
 
-  if (len > 0) {
+  const int pb = p0 + s0;
+  const int n = min(len, L - pb);  // the run's outputs before L; the rest are 0
+  if (n > 0) {
     const Arith::Params ab = ab_s;
-    const int pb = p0 + s0;
     const SharedX<TX> src{xs, p0 - kHalo, xrow};
-    if (!aa::run_at_edge(pb, len, T)) {
-      aa::Run<Arith, SharedX<TX>, StagedOut, false>{src, {outs + s0}, pb, T, ab}.rows(len);
+    if (!aa::run_at_edge(pb, n, L)) {
+      aa::Run<Arith, SharedX<TX>, StagedOut, false>{src, {outs + s0}, pb, L, ab}.rows(n);
     } else {
-      aa::Run<Arith, SharedX<TX>, StagedOut, true>{src, {outs + s0}, pb, T, ab}.rows(len);
+      aa::Run<Arith, SharedX<TX>, StagedOut, true>{src, {outs + s0}, pb, L, ab}.rows(n);
     }
   }
+  for (int r = max(n, 0); r < len; ++r) outs[s0 + r] = 0.0f;
   __syncthreads();
 
   // outs -> z along the row, 16 bytes a thread where the row segment is aligned.
@@ -147,9 +159,10 @@ aa_snake_kernel(const TX* __restrict__ x, TX* __restrict__ z, const void* alpha,
 }  // namespace
 
 // x, z: (B, C, T) of dtype x_dtype (0 fp32, 1 bf16); alpha/beta: (C,) of
-// p_dtype.  Returns cudaGetLastError() after the launch.
+// p_dtype; lens: the device int32 (B,) length of each item, clamped to [0, T],
+// or nullptr for every row T long.  Returns cudaGetLastError() after the launch.
 extern "C" int aa_snake_fwd(const void* x, void* z, int x_dtype, const void* alpha, const void* beta, int p_dtype,
-                            int logscale, int B, int C, int T, void* stream) {
+                            int logscale, int B, int C, int T, const int* lens, void* stream) {
   if (B <= 0 || C <= 0 || T <= 0) return static_cast<int>(cudaErrorInvalidValue);
   const int64_t tiles = (T + kTile - 1) / kTile;
   const int64_t blocks = static_cast<int64_t>(B) * C * tiles;
@@ -160,11 +173,11 @@ extern "C" int aa_snake_fwd(const void* x, void* z, int x_dtype, const void* alp
   if (x_dtype == aa::BF16) {
     aa_snake_kernel<__nv_bfloat16><<<static_cast<unsigned>(blocks), kThreads, 0, s>>>(
         static_cast<const __nv_bfloat16*>(x), static_cast<__nv_bfloat16*>(z), alpha, beta, p_dtype, logscale, C, T,
-        static_cast<int>(tiles), bulk_ok);
+        static_cast<int>(tiles), bulk_ok, lens);
   } else {
     aa_snake_kernel<float><<<static_cast<unsigned>(blocks), kThreads, 0, s>>>(
         static_cast<const float*>(x), static_cast<float*>(z), alpha, beta, p_dtype, logscale, C, T,
-        static_cast<int>(tiles), bulk_ok);
+        static_cast<int>(tiles), bulk_ok, lens);
   }
   return static_cast<int>(cudaGetLastError());
 }

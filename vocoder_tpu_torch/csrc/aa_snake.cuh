@@ -223,7 +223,8 @@ __device__ __forceinline__ float y2_at(const TX* xrow, int T, int n) {
 // six pairs and six x values are live.  Src reads x at a position (Src::at) and holds the row in
 // device memory (Src::row); a run near a sequence edge (kEdge) reads x clamped to [0, T), takes
 // y2[0] and y2[2T - 1], read from the row, for 2x-rate indices past the ends, and puts 0 for
-// positions outside [0, T): the same arithmetic as inside, a few selects more.
+// positions outside [0, T): the same arithmetic as inside, a few selects more.  T is the row's
+// length: a row of a padded batch passes its own, and its padding is never read.
 template <class A, class Src, class Out, bool kEdge>
 struct Run {
   Src x;

@@ -6,10 +6,13 @@
 //
 //   int amp_conv_fwd(const AmpConvParams* p, const void* x, int x_dtype, int B, int T,
 //                    const void* res, int res_dtype, float* out, const float* acc_in,
-//                    float* acc_out, void* fin, int fin_dtype, void* stream);
+//                    float* acc_out, void* fin, int fin_dtype, const int* lens, void* stream);
 //
-//   out[b, o, t] = bias[o] + sum_{i, j} w[o, i, j] * a[b, i, t + j*dil - pad] (+ res)
-//   a = aa_snake(x) on [0, T), 0 outside (the conv zero-pads the activation)
+//   out[b, o, t] = bias[o] + sum_{i, j} w[o, i, j] * a[b, i, t + j*dil - pad] (+ res)   t < L_b
+//   out[b, o, t] = 0                                                                    L_b <= t < T
+//   a = aa_snake(x[b, :, :L_b]) on [0, L_b), 0 outside (the conv zero-pads the activation)
+//
+// L_b = lens[b] (a device int32 (B,) array, clamped to [0, T]), or T where lens is nullptr.
 //
 // res (nullable) is added after the bias; out (nullable) takes the fp32
 // value; acc_out (nullable) takes acc_in + value (acc_in nullable: 0); fin

@@ -64,6 +64,17 @@
 //   bias / residual / block-sum epilogue reads and writes (B, C, T) along T,
 //   four values a thread (16-byte fp32 accesses) when T % 4 == 0.
 //
+// - An item of a padded batch has its own length L <= T (`lens`): the act
+//   tile is aa_snake(x) clamped to [0, L) and 0 outside it, the epilogue
+//   writes 0 at L <= t < T (a quad that straddles L zeros its lanes past L),
+//   and a block whose time tile starts at or past L writes its zeros without
+//   loading weights or x: every output it owns lies in the padding.  That
+//   code is compiled only into amp_conv_mma_masked_kernel; a call without
+//   lengths runs amp_conv_mma_kernel, which has none of it, so its machine
+//   code stays that of the kernel before lengths (compiled into one kernel,
+//   the length code cost the large tiles more spills at their register cap
+//   and 3-5% of K2's b16 time on the H100).
+//
 // fp32 doubles the act tile and the ring, so the fp32 route picks its own
 // tiles per channel class (with_configs).  When the large tile leaves the grid
 // under two blocks per SM (b1 at the wider stages), the host takes a variant
@@ -281,10 +292,45 @@ struct CallArgs {
   float* acc_out;
   void* fin;
   int fin_dtype;
+  const int* lens;  // (B,) item lengths, or nullptr: every item is T long
 };
 
-template <class Op, class Cf>
-__global__ void __launch_bounds__(kThreads, Cf::kMinBlocks) amp_conv_mma_kernel(AmpConvParams p, CallArgs c) {
+// Item b's length, clamped to [0, T].  The load is volatile so that the epilogue reads it again
+// rather than holding it in a register across the main loop, where the large tiles sit at their
+// register cap.
+__device__ __forceinline__ int item_length(const CallArgs& c, int64_t b) {
+  return c.lens ? aa::clampi(*static_cast<const volatile int*>(c.lens + b), 0, c.T) : c.T;
+}
+
+// v with the lanes from `keep` on (times at or past an item's length) set to 0.
+__device__ __forceinline__ float4 keep4(float4 v, int keep) {
+  return make_float4(v.x, keep > 1 ? v.y : 0.0f, keep > 2 ? v.z : 0.0f, keep > 3 ? v.w : 0.0f);
+}
+
+// The vectorised epilogue's quad at times t .. t + 3 of output row o when it reaches item b's length
+// (keep = L - t < 4): the fp32 values of the lanes before L, 0 from L on, in every output.
+__device__ __forceinline__ void masked_quad(const AmpConvParams& p, const CallArgs& c, const float* e, float bo,
+                                            int64_t gi, int keep) {
+  float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f), s = v;
+  if (keep > 0) {
+    v = make_float4(e[0] + bo, keep > 1 ? e[1] + bo : 0.0f, keep > 2 ? e[2] + bo : 0.0f, 0.0f);
+    if (c.res) v = add4(v, keep4(ld4(c.res, c.res_dtype, gi), keep));
+    if (c.acc_in) s = add4(keep4(ld4(c.acc_in, aa::F32, gi), keep), v);
+    else s = v;
+  }
+  if (c.out) st4(c.out, aa::F32, gi, v);
+  if (c.fin) {
+    const float n = p.n_blocks;
+    st4(c.fin, c.fin_dtype, gi, make_float4(s.x / n, s.y / n, s.z / n, s.w / n));
+  } else if (c.acc_out) {
+    st4(c.acc_out, aa::F32, gi, s);
+  }
+}
+
+// One block of a conv: the kernels below.  kMasked takes item lengths from c.lens; without it every
+// item is T long and none of the length code is compiled in.
+template <class Op, class Cf, bool kMasked>
+__device__ __forceinline__ void amp_conv_block(AmpConvParams p, CallArgs c) {
   using T = typename Op::T;
   extern __shared__ __align__(16) unsigned char smem[];
   const int C = p.C, K = p.K, dil = p.dil, T_len = c.T;
@@ -298,6 +344,21 @@ __global__ void __launch_bounds__(kThreads, Cf::kMinBlocks) amp_conv_mma_kernel(
   const int n_out = C - n0 < Cf::kCout ? C - n0 : Cf::kCout;  // its output channels
   const int p0 = t0 - dil * (K - 1) / 2;  // activation position of act row 0
   const T* w = static_cast<const T*>(p.w);
+  [[maybe_unused]] int L = T_len;  // item b's length
+  if constexpr (kMasked) {
+    L = item_length(c, b);
+    if (t0 >= L) {  // every output of the block lies in item b's padding
+      for (int idx = threadIdx.x; idx < n_out * Cf::kTime; idx += kThreads) {
+        const int o = idx / Cf::kTime, t = t0 + idx % Cf::kTime;
+        if (t >= T_len) continue;
+        const int64_t gi = (b * C + n0 + o) * T_len + t;
+        if (c.out) c.out[gi] = 0.0f;
+        if (c.fin) aa::st_any(c.fin, c.fin_dtype, gi, 0.0f);
+        else if (c.acc_out) c.acc_out[gi] = 0.0f;
+      }
+      return;
+    }
+  }
 
   // Weight chunk q = (tap j, channels i0 .. i0 + kc) -> ring slot q % kRing.
   const int per_tap = C / g.kc, n_chunks = K * per_tap, pieces = g.kc / Op::kVec;
@@ -316,7 +377,7 @@ __global__ void __launch_bounds__(kThreads, Cf::kMinBlocks) amp_conv_mma_kernel(
     cp_async_commit();
   }
 
-  // Prologue: act[s][i] = aa_snake(x)[b, i, p0 + s] in T, 0 outside [0, T).  Each thread takes
+  // Prologue: act[s][i] = aa_snake(x)[b, i, p0 + s] in T, 0 outside [0, L).  Each thread takes
   // one channel and an equal share of its W rows; neighbouring threads take neighbouring channels.
   const int n_seg = C >= kThreads ? 1 : kThreads / C;
   const int seg_len = (g.W + n_seg - 1) / n_seg;
@@ -327,10 +388,21 @@ __global__ void __launch_bounds__(kThreads, Cf::kMinBlocks) amp_conv_mma_kernel(
       const aa::Exact::Params ab = aa::Exact::params(p.alpha, p.beta, Op::kDtype, p.logscale, ch);
       const int64_t row = (b * C + ch) * T_len;
       T* col = act + s0 * g.lda + ch;
-      if (c.x_dtype == aa::BF16)
-        act_rows<Op>(static_cast<const __nv_bfloat16*>(c.x) + row, T_len, p0 + s0, len, ab, col, g.lda);
-      else
-        act_rows<Op>(static_cast<const float*>(c.x) + row, T_len, p0 + s0, len, ab, col, g.lda);
+      if constexpr (kMasked) {
+        const int n = min(len, L - (p0 + s0));  // rows before L; the rest are 0
+        if (n > 0) {
+          if (c.x_dtype == aa::BF16)
+            act_rows<Op>(static_cast<const __nv_bfloat16*>(c.x) + row, L, p0 + s0, n, ab, col, g.lda);
+          else
+            act_rows<Op>(static_cast<const float*>(c.x) + row, L, p0 + s0, n, ab, col, g.lda);
+        }
+        for (int r = max(n, 0); r < len; ++r) col[r * g.lda] = Op::store(0.0f);
+      } else {
+        if (c.x_dtype == aa::BF16)
+          act_rows<Op>(static_cast<const __nv_bfloat16*>(c.x) + row, T_len, p0 + s0, len, ab, col, g.lda);
+        else
+          act_rows<Op>(static_cast<const float*>(c.x) + row, T_len, p0 + s0, len, ab, col, g.lda);
+      }
     }
   }
 
@@ -392,6 +464,7 @@ __global__ void __launch_bounds__(kThreads, Cf::kMinBlocks) amp_conv_mma_kernel(
     }
   __syncthreads();
   const T* bias = static_cast<const T*>(p.bias);
+  if constexpr (kMasked) L = item_length(c, b);  // read again: not held across the main loop
   const uintptr_t ptrs = reinterpret_cast<uintptr_t>(c.res) | reinterpret_cast<uintptr_t>(c.out) |
                          reinterpret_cast<uintptr_t>(c.acc_in) | reinterpret_cast<uintptr_t>(c.acc_out) |
                          reinterpret_cast<uintptr_t>(c.fin);
@@ -402,6 +475,12 @@ __global__ void __launch_bounds__(kThreads, Cf::kMinBlocks) amp_conv_mma_kernel(
       const int o = idx / kQuads, r = (idx % kQuads) * 4;
       if (t0 + r >= T_len) continue;
       const int64_t gi = (b * C + n0 + o) * T_len + t0 + r;
+      if constexpr (kMasked) {
+        if (t0 + r + 4 > L) {  // a quad at or across item b's length
+          masked_quad(p, c, eb + o * lde + r, aa::ld(bias, n0 + o), gi, L - (t0 + r));
+          continue;
+        }
+      }
       const float bo = aa::ld(bias, n0 + o);
       float4 v = *reinterpret_cast<const float4*>(eb + o * lde + r);
       v = make_float4(v.x + bo, v.y + bo, v.z + bo, v.w + bo);
@@ -424,6 +503,14 @@ __global__ void __launch_bounds__(kThreads, Cf::kMinBlocks) amp_conv_mma_kernel(
     const int t = t0 + r;
     if (t >= T_len) continue;
     const int64_t gi = (b * C + n0 + o) * T_len + t;
+    if constexpr (kMasked) {
+      if (t >= L) {  // item b's padding
+        if (c.out) c.out[gi] = 0.0f;
+        if (c.fin) aa::st_any(c.fin, c.fin_dtype, gi, 0.0f);
+        else if (c.acc_out) c.acc_out[gi] = 0.0f;
+        continue;
+      }
+    }
     float v = eb[o * lde + r] + aa::ld(bias, n0 + o);
     if (c.res) v += aa::ld_any(c.res, c.res_dtype, gi);
     if (c.out) c.out[gi] = v;
@@ -433,6 +520,17 @@ __global__ void __launch_bounds__(kThreads, Cf::kMinBlocks) amp_conv_mma_kernel(
       else c.acc_out[gi] = s;
     }
   }
+}
+
+template <class Op, class Cf>
+__global__ void __launch_bounds__(kThreads, Cf::kMinBlocks) amp_conv_mma_kernel(AmpConvParams p, CallArgs c) {
+  amp_conv_block<Op, Cf, false>(p, c);
+}
+
+// The same conv with per-item lengths (c.lens).
+template <class Op, class Cf>
+__global__ void __launch_bounds__(kThreads, Cf::kMinBlocks) amp_conv_mma_masked_kernel(AmpConvParams p, CallArgs c) {
+  amp_conv_block<Op, Cf, true>(p, c);
 }
 
 constexpr int kMaxDevices = 64;
@@ -448,11 +546,12 @@ int current_device() {
   return dev;
 }
 
-template <class Op, class Cf>
-cudaError_t launch(const AmpConvParams& p, const CallArgs& c, int B, cudaStream_t stream) {
+template <class Op, class Cf, bool kMasked>
+cudaError_t launch_kernel(const AmpConvParams& p, const CallArgs& c, int B, cudaStream_t stream) {
   const Geometry g = geometry<Op, Cf>(p.C, p.K, p.dil);
-  auto kernel = amp_conv_mma_kernel<Op, Cf>;
-  // The dynamic shared-memory cap (a cap, not a reservation) is raised only when a launch needs more.
+  auto kernel = kMasked ? amp_conv_mma_masked_kernel<Op, Cf> : amp_conv_mma_kernel<Op, Cf>;
+  // The dynamic shared-memory cap (a cap, not a reservation) of this kernel is raised only when a
+  // launch needs more.
   static int cap[kMaxDevices] = {};
   const int dev = current_device();
   const int need = static_cast<int>(g.smem_bytes);
@@ -464,6 +563,11 @@ cudaError_t launch(const AmpConvParams& p, const CallArgs& c, int B, cudaStream_
   dim3 grid((c.T + Cf::kTime - 1) / Cf::kTime, B, groups<Cf>(p.C));
   kernel<<<grid, kThreads, g.smem_bytes, stream>>>(p, c);
   return cudaGetLastError();
+}
+
+template <class Op, class Cf>
+cudaError_t launch(const AmpConvParams& p, const CallArgs& c, int B, cudaStream_t stream) {
+  return c.lens ? launch_kernel<Op, Cf, true>(p, c, B, stream) : launch_kernel<Op, Cf, false>(p, c, B, stream);
 }
 
 // The (large, small) tile configurations of each channel class and route.
@@ -530,17 +634,18 @@ void launch_shape(int C, int B, int T, int* shape) {
 
 // One conv of an AMP chain (amp_conv.cuh), w packed as (K, C, C).  bf16 parameters take x in bf16
 // or fp32 (the bf16 route); fp32 parameters take fp32 x (the 3xTF32 route).  C must be a multiple
-// of 16 and at most 256, K odd.
+// of 16 and at most 256, K odd.  lens: the device int32 (B,) item lengths, clamped to [0, T], or
+// nullptr for every item T long.
 extern "C" int amp_conv_fwd(const AmpConvParams* p, const void* x, int x_dtype, int B, int T, const void* res,
                             int res_dtype, float* out, const float* acc_in, float* acc_out, void* fin, int fin_dtype,
-                            void* stream) {
+                            const int* lens, void* stream) {
   const bool bf16 = p->param_dtype == aa::BF16;
   const bool dtypes = bf16 ? (x_dtype == aa::BF16 || x_dtype == aa::F32)
                            : (p->param_dtype == aa::F32 && x_dtype == aa::F32);
   if (!dtypes || B <= 0 || B > 65535 || p->C <= 0 || p->C % 16 != 0 || p->C > 256 || T <= 0 || p->K <= 0 ||
       p->K % 2 == 0 || p->dil <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  const CallArgs c{x, x_dtype, T, res, res_dtype, out, acc_in, acc_out, fin, fin_dtype};
+  const CallArgs c{x, x_dtype, T, res, res_dtype, out, acc_in, acc_out, fin, fin_dtype, lens};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   return static_cast<int>(bf16 ? dispatch<Bf16Op>(*p, c, B, s) : dispatch<Tf32x3Op>(*p, c, B, s));
 }

@@ -1,7 +1,7 @@
 """BigVGAN generator as a ``torch.nn.Module``.
 
-Counterpart of ``vocoder_tpu/models/bigvgan.py`` (``apply`` for
-``frame_lengths=None`` and no template): the HiFiGAN upsample skeleton with
+Counterpart of ``vocoder_tpu/models/bigvgan.py`` (``apply`` without a
+template, with or without ``frame_lengths``): the HiFiGAN upsample skeleton with
 Snake/SnakeBeta activations, each wrapped in the anti-aliased 2x up / 2x down
 FIRs, AMP resblocks averaged per upsample stage, then a post activation, a
 conv and ``tanh``.  Submodule names follow the reference, so the state_dict
@@ -12,6 +12,12 @@ Every AMP stage runs through ``ops.amp_block.amp_stage`` (kernel K2 on the
 card) and ``activation_post`` through ``ops.aa_snake.aa_snake`` (kernel K1);
 the pre/post convs and the transposed-conv upsamples are ``torch.nn``
 layers, as the JAX package left them to XLA.
+
+``frame_lengths`` (B,) makes a right-padded batch exact: every time-mixing
+layer's output is masked past each item's length (scaled by each upsample
+rate), and the kernels clamp each item's anti-aliased activations at its own
+end, so row i equals item i's forward over its first ``frame_lengths[i]``
+frames, followed by zeros.  The lengths stay on the device.
 """
 
 from __future__ import annotations
@@ -23,7 +29,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from vocoder_tpu_torch.nn import conv1d, conv_transpose1d, get_padding
+from vocoder_tpu_torch.nn import conv1d, conv_transpose1d, get_padding, length_mask
 from vocoder_tpu_torch.ops.aa_snake import aa_snake
 from vocoder_tpu_torch.ops.amp_block import amp_stage, amp_stage_plain
 from vocoder_tpu_torch.ops.antialias import aa_snake_plain, snake_params
@@ -72,8 +78,8 @@ class Activation1d(nn.Module):
         self.activation = activation
         self.logscale = logscale
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return aa_snake(x, self.activation.alpha, self.activation.beta, self.logscale)
+    def forward(self, x: torch.Tensor, lengths=None) -> torch.Tensor:
+        return aa_snake(x, self.activation.alpha, self.activation.beta, self.logscale, lengths)
 
 
 class AMPBlock(nn.Module):
@@ -128,28 +134,33 @@ class BigVGAN(nn.Module):
             ch, 1, cfg.post_conv_kernel_size, padding=get_padding(cfg.post_conv_kernel_size), device=device
         )
 
-    def forward(self, mel: torch.Tensor) -> torch.Tensor:
-        return self._forward(mel, plain=False)
+    def forward(self, mel: torch.Tensor, frame_lengths=None) -> torch.Tensor:
+        """mel (B, num_mels, F) -> (B, 1, F * hop); ``frame_lengths`` (B,): each item's frames."""
+        return self._forward(mel, frame_lengths, plain=False)
 
-    def forward_plain(self, mel: torch.Tensor) -> torch.Tensor:
+    def forward_plain(self, mel: torch.Tensor, frame_lengths=None) -> torch.Tensor:
         """The same function through the kernels' plain versions on any device:
         what the kernel path is held against on the card."""
-        return self._forward(mel, plain=True)
+        return self._forward(mel, frame_lengths, plain=True)
 
-    def _forward(self, mel: torch.Tensor, plain: bool) -> torch.Tensor:
+    def _forward(self, mel: torch.Tensor, frame_lengths, plain: bool) -> torch.Tensor:
         cfg = self.cfg
         n_k = len(cfg.resblock_kernel_sizes)
         stage = amp_stage_plain if plain else amp_stage
-        x = self.conv_pre(mel.to(self.conv_post.bias.dtype))
-        for i, up in enumerate(self.ups):
+        lens = None if frame_lengths is None else torch.as_tensor(frame_lengths, device=mel.device)
+        x = length_mask(self.conv_pre(mel.to(self.conv_post.bias.dtype)), lens)
+        for i, (up, u) in enumerate(zip(self.ups, cfg.upsample_rates)):
             x = up(x)
-            x = stage(list(self.resblocks[i * n_k : (i + 1) * n_k]), x, cfg.snake_logscale)
+            if lens is not None:
+                lens = lens * u
+                x = length_mask(x, lens)
+            x = stage(list(self.resblocks[i * n_k : (i + 1) * n_k]), x, cfg.snake_logscale, lens)
         if plain:
             post = self.activation_post.activation
-            x = aa_snake_plain(x, *snake_params(post.alpha, post.beta, True))
+            x = aa_snake_plain(x, *snake_params(post.alpha, post.beta, True), lens)
         else:
-            x = self.activation_post(x)
-        return torch.tanh(self.conv_post(x))
+            x = self.activation_post(x, lens)
+        return length_mask(torch.tanh(self.conv_post(x)), lens)
 
 
 def random_state_dict(cfg: BigVGANConfig, seed: int) -> dict[str, torch.Tensor]:

@@ -1,0 +1,148 @@
+"""1-D ConvNeXt encoder as a ``torch.nn.Module``.
+
+Counterpart of ``vocoder_tpu/models/convnext.py`` (the reference's
+ConvNeXtEncoder): a stem conv + LayerNorm, per later stage a LayerNorm + 1x1
+conv transition, and ConvNeXt blocks (depthwise conv k=7 -> LayerNorm ->
+pointwise x mlp_ratio -> exact GELU -> pointwise -> layer scale gamma ->
+residual), then a final LayerNorm.  LayerNorm's eps is 1e-6 (the
+reference's, not torch's default 1e-5).  Activations are channels-last
+(B, T, C) inside, as the JAX package keeps them, so the LayerNorms and the
+pointwise layers act on the last axis and only the convs transpose.
+Submodule names are the reference's (``downsample_layers.{i}.{0,1}``,
+``stages.{i}.{j}.{dwconv,norm,pwconv1,pwconv2,gamma}``, ``norm``).
+
+``frame_lengths`` (B,) makes a right-padded batch exact: only the convs mix
+time, so a mask after each stage entry and after every block restores each
+item's zero padding before the next depthwise conv sees it.  Stochastic
+depth is a training knob and does nothing here.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from vocoder_tpu_torch.nn import length_mask
+
+LN_EPS = 1e-6  # vocoder_tpu/nn.py::layer_norm
+
+
+@dataclasses.dataclass(frozen=True)
+class ConvNeXtConfig:
+    input_channels: int = 3
+    depths: tuple = (3, 3, 9, 3)
+    dims: tuple = (96, 192, 384, 768)
+    drop_path_rate: float = 0.0
+    layer_scale_init_value: float = 1e-6
+    kernel_size: int = 7
+    mlp_ratio: float = 4.0
+    dilation: int = 1
+
+    def __post_init__(self):
+        if len(self.depths) != len(self.dims):
+            raise ValueError(f"depths {self.depths} and dims {self.dims} differ in length")
+
+
+class LayerNorm(nn.Module):
+    """LayerNorm over the last axis with eps 1e-6 (``weight``, ``bias``)."""
+
+    def __init__(self, dim: int, device=None):
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(dim, device=device))
+        self.bias = nn.Parameter(torch.zeros(dim, device=device))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.layer_norm(x, self.weight.shape, self.weight, self.bias, LN_EPS)
+
+
+def conv_time(conv: nn.Conv1d, x: torch.Tensor) -> torch.Tensor:
+    """A Conv1d on a channels-last (B, T, C) tensor."""
+    return conv(x.transpose(1, 2)).transpose(1, 2)
+
+
+def pointwise(conv: nn.Conv1d, x: torch.Tensor) -> torch.Tensor:
+    """A kernel-size-1 Conv1d on (B, T, C) as the matmul it is."""
+    return F.linear(x, conv.weight[:, :, 0], conv.bias)
+
+
+class ConvNeXtBlock(nn.Module):
+    def __init__(self, dim: int, cfg: ConvNeXtConfig, device=None):
+        super().__init__()
+        hidden = int(cfg.mlp_ratio * dim)
+        pad = cfg.dilation * (cfg.kernel_size - 1) // 2
+        self.dwconv = nn.Conv1d(dim, dim, cfg.kernel_size, padding=pad, dilation=cfg.dilation, groups=dim,
+                                device=device)
+        self.norm = LayerNorm(dim, device)
+        self.pwconv1 = nn.Linear(dim, hidden, device=device)
+        self.pwconv2 = nn.Linear(hidden, dim, device=device)
+        if cfg.layer_scale_init_value > 0:
+            self.gamma = nn.Parameter(torch.full((dim,), cfg.layer_scale_init_value, device=device))
+        else:
+            self.register_parameter("gamma", None)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = self.norm(conv_time(self.dwconv, x))
+        y = self.pwconv2(F.gelu(self.pwconv1(y)))  # exact (erf) GELU, torch's default
+        if self.gamma is not None:
+            y = self.gamma * y
+        return x + y
+
+
+class ConvNeXtEncoder(nn.Module):
+    """(B, input_channels, T) -> (B, T, dims[-1])."""
+
+    def __init__(self, cfg: ConvNeXtConfig, device=None):
+        super().__init__()
+        self.cfg = cfg
+        stem = nn.ModuleList([
+            nn.Conv1d(cfg.input_channels, cfg.dims[0], cfg.kernel_size, padding=cfg.kernel_size // 2, device=device),
+            LayerNorm(cfg.dims[0], device),
+        ])
+        transitions = [
+            nn.ModuleList([LayerNorm(cfg.dims[i], device), nn.Conv1d(cfg.dims[i], cfg.dims[i + 1], 1, device=device)])
+            for i in range(len(cfg.dims) - 1)
+        ]
+        self.downsample_layers = nn.ModuleList([stem, *transitions])
+        self.stages = nn.ModuleList(
+            [nn.ModuleList([ConvNeXtBlock(dim, cfg, device) for _ in range(depth)])
+             for depth, dim in zip(cfg.depths, cfg.dims)]
+        )
+        self.norm = LayerNorm(cfg.dims[-1], device)
+
+    def forward(self, x: torch.Tensor, frame_lengths=None) -> torch.Tensor:
+        lens = None if frame_lengths is None else torch.as_tensor(frame_lengths, device=x.device)
+        for i, (down, stage) in enumerate(zip(self.downsample_layers, self.stages)):
+            if i == 0:
+                x = down[1](down[0](x).transpose(1, 2))  # the stem takes (B, C, T)
+            else:
+                x = pointwise(down[1], down[0](x))
+            x = length_mask(x, lens, time_dim=1)  # LN and the 1x1 conv put their biases in the padding
+            for block in stage:
+                x = length_mask(block(x), lens, time_dim=1)
+        return self.norm(x)
+
+
+def random_state_dict(cfg: ConvNeXtConfig, seed: int, prefix: str = "") -> dict[str, torch.Tensor]:
+    """fp32 CPU weights for ``ConvNeXtEncoder(cfg)`` from a numpy seed: conv and linear
+    weights normal with variance 1 / fan_in (each layer keeps its input's scale),
+    LayerNorm gains near 1, small biases, and layer scales of 0.1 so that every
+    block adds to its residual (the 1e-6 init would leave the blocks silent)."""
+    rng = np.random.default_rng(seed)
+    sd = {}
+    for key, val in ConvNeXtEncoder(cfg, device="meta").state_dict().items():
+        shape = tuple(val.shape)
+        name = key.rsplit(".", 1)[-1]
+        if name == "gamma":
+            arr = 0.1 * (1.0 + 0.1 * rng.standard_normal(shape))
+        elif len(shape) > 1:
+            arr = rng.standard_normal(shape) / np.sqrt(np.prod(shape[1:]))
+        elif name == "weight":  # LayerNorm
+            arr = 1.0 + 0.1 * rng.standard_normal(shape)
+        else:
+            arr = 0.05 * rng.standard_normal(shape)
+        sd[prefix + key] = torch.from_numpy(np.asarray(arr, np.float32))
+    return sd

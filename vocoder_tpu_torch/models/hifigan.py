@@ -1,0 +1,148 @@
+"""HiFiGAN generator as a ``torch.nn.Module``.
+
+Counterpart of ``vocoder_tpu/models/hifigan.py`` (``apply`` without a
+template, with or without ``frame_lengths``), the reference's SiLU MRF
+variant: conv_pre -> per upsample stage (SiLU -> weight-normed transposed
+conv -> the mean of the parallel resblocks) -> SiLU -> conv_post -> tanh.
+Each resblock runs, per dilation d, SiLU -> conv(k, d) -> SiLU -> conv(k)
+-> + x.  Submodule names follow the reference, so the state_dict keys are
+the reference's (``conv_pre``, ``ups.{i}``,
+``resblocks.{i}.blocks.{j}.convs{1,2}.{l}``, ``conv_post``).
+
+``frame_lengths`` (B,) makes a right-padded batch exact: every conv output
+is masked past each item's length (scaled by each upsample rate), so row i
+equals item i's forward over its first ``frame_lengths[i]`` frames.
+
+The model has no kernel of its own: the JAX package left its convs to XLA
+and no Pallas kernel, so here they are ``torch.nn`` layers (cuDNN on the
+card).  The f0-template path (``use_template=True``) is not yet ported.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from math import prod
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from vocoder_tpu_torch.nn import conv1d, conv_transpose1d, get_padding, length_mask
+
+
+@dataclasses.dataclass(frozen=True)
+class HiFiGANConfig:
+    hop_length: int = 512
+    upsample_rates: tuple = (8, 8, 2, 2, 2)
+    upsample_kernel_sizes: tuple = (16, 16, 8, 2, 2)
+    resblock_kernel_sizes: tuple = (3, 7, 11)
+    resblock_dilation_sizes: tuple = ((1, 3, 5), (1, 3, 5), (1, 3, 5))
+    num_mels: int = 128
+    upsample_initial_channel: int = 512
+    use_template: bool = False
+    pre_conv_kernel_size: int = 7
+    post_conv_kernel_size: int = 7
+
+    def __post_init__(self):
+        if prod(self.upsample_rates) != self.hop_length:
+            raise ValueError(f"upsample rates {self.upsample_rates} do not multiply to hop {self.hop_length}")
+
+
+class ResBlock(nn.Module):
+    """Per dilation d: SiLU -> conv(k, d) -> mask -> SiLU -> conv(k) -> mask -> + x."""
+
+    def __init__(self, channels: int, kernel_size: int, dilations: tuple, device=None):
+        super().__init__()
+        self.kernel_size = kernel_size
+        self.dilations = tuple(dilations)
+        k = kernel_size
+        self.convs1 = nn.ModuleList(
+            [conv1d(channels, channels, k, dilation=d, padding=get_padding(k, d), device=device) for d in dilations]
+        )
+        self.convs2 = nn.ModuleList(
+            [conv1d(channels, channels, k, padding=get_padding(k), device=device) for _ in dilations]
+        )
+
+    def forward(self, x: torch.Tensor, lens=None) -> torch.Tensor:
+        for c1, c2 in zip(self.convs1, self.convs2):
+            xt = F.silu(length_mask(c1(F.silu(x)), lens))
+            x = x + length_mask(c2(xt), lens)
+        return x
+
+
+class ParallelBlock(nn.Module):
+    """The mean of one resblock per (kernel size, dilations) pair."""
+
+    def __init__(self, channels: int, cfg: HiFiGANConfig, device=None):
+        super().__init__()
+        self.blocks = nn.ModuleList(
+            [ResBlock(channels, k, d, device) for k, d in zip(cfg.resblock_kernel_sizes, cfg.resblock_dilation_sizes)]
+        )
+
+    def forward(self, x: torch.Tensor, lens=None) -> torch.Tensor:
+        return sum(blk(x, lens) for blk in self.blocks) / len(self.blocks)
+
+
+class HiFiGAN(nn.Module):
+    """mel (B, num_mels, F) -> waveform (B, 1, F * hop)."""
+
+    def __init__(self, cfg: HiFiGANConfig, device=None):
+        super().__init__()
+        if cfg.use_template:
+            raise NotImplementedError("HiFiGAN with an f0 template is not yet ported")
+        self.cfg = cfg
+        uic = cfg.upsample_initial_channel
+        self.conv_pre = conv1d(
+            cfg.num_mels, uic, cfg.pre_conv_kernel_size, padding=get_padding(cfg.pre_conv_kernel_size), device=device
+        )
+        self.ups = nn.ModuleList(
+            [
+                conv_transpose1d(uic // 2**i, uic // 2 ** (i + 1), k, stride=u, padding=(k - u) // 2, device=device)
+                for i, (u, k) in enumerate(zip(cfg.upsample_rates, cfg.upsample_kernel_sizes))
+            ]
+        )
+        self.resblocks = nn.ModuleList(
+            [ParallelBlock(uic // 2 ** (i + 1), cfg, device) for i in range(len(cfg.upsample_rates))]
+        )
+        ch = uic // 2 ** len(cfg.upsample_rates)
+        self.conv_post = conv1d(
+            ch, 1, cfg.post_conv_kernel_size, padding=get_padding(cfg.post_conv_kernel_size), device=device
+        )
+
+    def forward(self, mel: torch.Tensor, frame_lengths=None) -> torch.Tensor:
+        """mel (B, num_mels, F) -> (B, 1, F * hop); ``frame_lengths`` (B,): each item's frames."""
+        lens = None if frame_lengths is None else torch.as_tensor(frame_lengths, device=mel.device)
+        x = length_mask(self.conv_pre(mel.to(self.conv_post.bias.dtype)), lens)
+        for up, block, u in zip(self.ups, self.resblocks, self.cfg.upsample_rates):
+            x = up(F.silu(x))
+            if lens is not None:
+                lens = lens * u
+                x = length_mask(x, lens)
+            x = block(x, lens)
+        return length_mask(torch.tanh(self.conv_post(F.silu(x))), lens)
+
+
+def random_state_dict(cfg: HiFiGANConfig, seed: int) -> dict[str, torch.Tensor]:
+    """fp32 CPU weights for ``HiFiGAN(cfg)`` made from a numpy seed, as
+    ``models/bigvgan.py::random_state_dict`` makes BigVGAN's: weight-norm directions
+    standard normal, gains that keep the signal's scale, small biases.  The
+    transposed convs' gains are sqrt(rate), against BigVGAN's sqrt(rate / 2), for
+    the SiLU before each; 0.5 in the resblocks, 0.2 at conv_pre for a log-mel's
+    offset, 0.5 at conv_post (a log-mel at 44.1 kHz gives audio of rms ~0.07)."""
+    rng = np.random.default_rng(seed)
+    sd = {}
+    for key, val in HiFiGAN(cfg, device="meta").state_dict().items():
+        shape = tuple(val.shape)
+        if key.endswith("original0"):
+            top = key.split(".")[0]
+            gain = {"conv_pre": 0.2, "resblocks": 0.5, "conv_post": 0.5}.get(top, 1.0)
+            if top == "ups":
+                gain = cfg.upsample_rates[int(key.split(".")[1])] ** 0.5
+            arr = gain * (1.0 + 0.1 * rng.standard_normal(shape))
+        elif key.endswith("original1"):
+            arr = rng.standard_normal(shape)
+        else:  # bias
+            arr = 0.01 * rng.standard_normal(shape)
+        sd[key] = torch.from_numpy(np.asarray(arr, np.float32))
+    return sd

@@ -1,0 +1,121 @@
+"""Vocos generator: ConvNeXt backbone + iSTFT head, as a ``torch.nn.Module``.
+
+Counterpart of ``vocoder_tpu/models/vocos.py`` (the reference's
+UnifyGenerator with a ConvNeXtEncoder backbone and an ISTFTHead).  The head
+projects to 2 * n_fft channels as the reference does (its checkpoints carry
+that width), of which only the first n_fft // 2 + 1 of each half feed the
+iSTFT: log-magnitudes, exponentiated and clipped at 1e2, and phases.
+State_dict keys are the reference's (``backbone.*``, ``head.out``).
+
+The model has no kernel of its own: the JAX package left it to XLA, so its
+convs, matmuls and FFTs are the library's (cuDNN, cuBLAS and cuFFT on the
+card).  cuFFT has no bf16 inverse real FFT, so the head leaves the model's
+dtype after its projection: the exp, the iSTFT and the overlap-add run in
+fp32 and the audio is cast back to the model's dtype.
+
+``frame_lengths`` (B,) makes a right-padded batch exact: the backbone masks
+each item's padding, and the iSTFT drops the padded frames and divides by
+each item's own window envelope.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+from torch import nn
+
+from vocoder_tpu_torch.models.convnext import ConvNeXtConfig, ConvNeXtEncoder, pointwise
+from vocoder_tpu_torch.models.convnext import random_state_dict as convnext_random_state_dict
+from vocoder_tpu_torch.ops.spectral import istft_same
+
+MAG_CLIP = 1e2  # the reference's exp clip (vocos.py:58-61)
+
+
+@dataclasses.dataclass(frozen=True)
+class ISTFTHeadConfig:
+    dim: int
+    n_fft: int
+    hop_length: int
+    win_length: int
+    padding: str = "same"
+
+
+@dataclasses.dataclass(frozen=True)
+class VocosConfig:
+    """UnifyGenerator(backbone=ConvNeXtEncoder, head=ISTFTHead)."""
+
+    backbone: ConvNeXtConfig
+    head: ISTFTHeadConfig
+
+    @staticmethod
+    def base(num_mels=128, n_fft=2048, hop_length=512, win_length=2048) -> "VocosConfig":
+        # configs/model/generator/vocos.yaml
+        return VocosConfig(
+            backbone=ConvNeXtConfig(
+                input_channels=num_mels, depths=(3, 3, 27, 3), dims=(128, 256, 512, 1024), drop_path_rate=0.4
+            ),
+            head=ISTFTHeadConfig(dim=1024, n_fft=n_fft, hop_length=hop_length, win_length=win_length),
+        )
+
+    @staticmethod
+    def huge(num_mels=128, n_fft=2048, hop_length=512, win_length=2048) -> "VocosConfig":
+        # configs/model/generator/vocos-huge.yaml
+        return VocosConfig(
+            backbone=ConvNeXtConfig(
+                input_channels=num_mels, depths=(3, 3, 27, 3), dims=(352, 704, 1408, 2816), drop_path_rate=0.4
+            ),
+            head=ISTFTHeadConfig(dim=2816, n_fft=n_fft, hop_length=hop_length, win_length=win_length),
+        )
+
+
+class ISTFTHead(nn.Module):
+    """(B, T, dim) -> audio (B, T * hop): the 2 * n_fft projection, then the "same" iSTFT in fp32."""
+
+    def __init__(self, cfg: ISTFTHeadConfig, device=None):
+        super().__init__()
+        if cfg.padding != "same":
+            raise NotImplementedError("only the 'same' iSTFT padding is supported (the shipped configs')")
+        self.cfg = cfg
+        self.out = nn.Conv1d(cfg.dim, 2 * cfg.n_fft, 1, device=device)
+
+    def forward(self, x: torch.Tensor, frame_lengths=None) -> torch.Tensor:
+        cfg = self.cfg
+        bins = cfg.n_fft // 2 + 1
+        x = pointwise(self.out, x).float()  # (B, T, 2 n_fft)
+        mag = torch.clamp(torch.exp(x[..., :bins]), max=MAG_CLIP)
+        phase = x[..., cfg.n_fft : cfg.n_fft + bins]
+        re, im = (mag * torch.cos(phase)).transpose(1, 2), (mag * torch.sin(phase)).transpose(1, 2)
+        return istft_same(re, im, n_fft=cfg.n_fft, hop_length=cfg.hop_length, win_length=cfg.win_length,
+                          frame_lengths=frame_lengths)
+
+
+class Vocos(nn.Module):
+    """mel (B, num_mels, F) -> waveform (B, 1, F * hop)."""
+
+    def __init__(self, cfg: VocosConfig, device=None):
+        super().__init__()
+        self.cfg = cfg
+        self.backbone = ConvNeXtEncoder(cfg.backbone, device)
+        self.head = ISTFTHead(cfg.head, device)
+
+    def forward(self, mel: torch.Tensor, frame_lengths=None) -> torch.Tensor:
+        """mel (B, num_mels, F) -> (B, 1, F * hop); ``frame_lengths`` (B,): each item's frames."""
+        dtype = self.head.out.weight.dtype
+        x = self.backbone(mel.to(dtype), frame_lengths)
+        return self.head(x, frame_lengths)[:, None, :].to(dtype)
+
+
+def random_state_dict(cfg: VocosConfig, seed: int) -> dict[str, torch.Tensor]:
+    """fp32 CPU weights for ``Vocos(cfg)`` from a numpy seed: the backbone's as
+    ``convnext.random_state_dict`` makes them; the head's projection at 0.5 /
+    sqrt(dim), so that the log-magnitudes of the unit-scale features stay
+    mostly under the exp clip."""
+    sd = convnext_random_state_dict(cfg.backbone, seed, prefix="backbone.")
+    rng = np.random.default_rng(seed + 1)
+    n = 2 * cfg.head.n_fft
+    sd["head.out.weight"] = torch.from_numpy(
+        (0.5 / np.sqrt(cfg.head.dim) * rng.standard_normal((n, cfg.head.dim, 1))).astype(np.float32))
+    sd["head.out.bias"] = torch.from_numpy((0.05 * rng.standard_normal(n)).astype(np.float32))
+    return sd

@@ -10,11 +10,13 @@ computes a run of consecutive outputs in registers, with the FIR taps and the
 sin polynomial as FMAs (within a few ulps of the plain version, not bit-equal
 to it), from a tile of x that one bulk copy stages in shared memory; the
 sequence edges are exact by index clamping, so no edge splice follows it.
+With ``lengths`` (a padded batch) each row is clamped at its item's own
+length and zero past it, so it equals the activation of that item alone.
 
 ``aa_snake`` takes a CPU tensor to the plain version
 (``antialias.aa_snake_plain``) and launches the kernel for a CUDA tensor, or
-raises.  ``aa_snake.launches`` counts kernel launches.  The backward kernel
-waits for the training slice.
+raises.  ``aa_snake.launches`` counts kernel launches, with lengths or
+without.  The backward kernel waits for the training slice.
 """
 
 from __future__ import annotations
@@ -50,15 +52,17 @@ def _lib() -> ctypes.CDLL:
     """The K1 library with its C entries' types set, once."""
     lib = build.load("aa_snake")
     fn = lib.aa_snake_fwd
-    fn.argtypes = [_C_VOID, _C_VOID, _C_INT, _C_VOID, _C_VOID, _C_INT, _C_INT, _C_INT, _C_INT, _C_INT, _C_VOID]
+    fn.argtypes = [_C_VOID, _C_VOID, _C_INT, _C_VOID, _C_VOID, _C_INT, _C_INT, _C_INT, _C_INT, _C_INT, _C_VOID, _C_VOID]
     fn.restype = _C_INT
     lib.error_string.argtypes = [_C_INT]
     lib.error_string.restype = ctypes.c_char_p
     return lib
 
 
-def aa_snake_kernel(x: torch.Tensor, alpha: torch.Tensor, beta: torch.Tensor | None, logscale: bool) -> torch.Tensor:
-    """Launch K1 on a CUDA (B, C, T) tensor; alpha/beta are the raw (C,) parameters."""
+def aa_snake_kernel(x: torch.Tensor, alpha: torch.Tensor, beta: torch.Tensor | None, logscale: bool,
+                    lengths=None) -> torch.Tensor:
+    """Launch K1 on a CUDA (B, C, T) tensor; alpha/beta are the raw (C,) parameters, ``lengths``
+    the (B,) item lengths of a padded batch (None: every item is T long)."""
     if x.dim() != 3 or not x.is_contiguous():
         raise ValueError(f"aa_snake: expected a contiguous (B, C, T) tensor, got shape {tuple(x.shape)}")
     b, c, t = x.shape
@@ -70,12 +74,13 @@ def aa_snake_kernel(x: torch.Tensor, alpha: torch.Tensor, beta: torch.Tensor | N
         raise TypeError("aa_snake: alpha and beta must share a dtype")
     if torch.is_grad_enabled() and any(t.requires_grad for t in (x, alpha, beta)):
         raise RuntimeError("aa_snake: the kernel is forward only; run it under torch.inference_mode()")
+    lens = build.lengths_arg(lengths, x)
     lib = _lib()
     z = torch.empty_like(x)
     err = lib.aa_snake_fwd(
         x.data_ptr(), z.data_ptr(), build.dtype_code(x, "aa_snake x"),
         alpha.data_ptr(), beta.data_ptr(), build.dtype_code(alpha, "aa_snake alpha"),
-        int(logscale), b, c, t, build.stream_ptr(x.device),
+        int(logscale), b, c, t, build.ptr(lens), build.stream_ptr(x.device),
     )
     if err:
         raise RuntimeError(f"aa_snake: launch failed: {lib.error_string(err).decode()}")
@@ -83,13 +88,15 @@ def aa_snake_kernel(x: torch.Tensor, alpha: torch.Tensor, beta: torch.Tensor | N
     return z
 
 
-def aa_snake(x: torch.Tensor, alpha: torch.Tensor, beta: torch.Tensor | None, logscale: bool) -> torch.Tensor:
-    """Anti-aliased Snake on (B, C, T): the kernel for CUDA, the plain version for the CPU."""
+def aa_snake(x: torch.Tensor, alpha: torch.Tensor, beta: torch.Tensor | None, logscale: bool,
+             lengths=None) -> torch.Tensor:
+    """Anti-aliased Snake on (B, C, T), each item clamped at its length where ``lengths`` is given:
+    the kernel for CUDA, the plain version for the CPU."""
     if x.is_cuda:
-        return aa_snake_kernel(x, alpha, beta, logscale)
+        return aa_snake_kernel(x, alpha, beta, logscale, lengths)
     if x.device.type != "cpu":
         raise RuntimeError(f"aa_snake: no kernel for device {x.device}")
-    return aa_snake_plain(x, *snake_params(alpha, beta, logscale))
+    return aa_snake_plain(x, *snake_params(alpha, beta, logscale), lengths)
 
 
 aa_snake.launches = 0

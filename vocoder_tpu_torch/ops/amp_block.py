@@ -24,6 +24,12 @@ bf16) beside the aa-snake prologue on the fp32 CUDA cores; the kernel computes
 the aa-snake once per tile and streams each conv's packed weights through a
 ``cp.async`` ring (the source's header has the design).
 
+With per-item ``lengths`` (a right-padded batch, BigVGAN's ``frame_lengths``
+scaled to the stage) every launch clamps each item's aa-snake at its own
+length and writes 0 past it, so each row equals that item's stage alone
+(``vocoder_tpu/models/bigvgan.py::_amp_apply`` with ``lens``); the lengths
+stay on the card.
+
 Each conv's kernel arguments (the packed weights and the parameter
 pointers) are built once per model into a ``StagePlan``, cached outside the
 modules and rebuilt when a parameter is replaced or changed in place;
@@ -44,9 +50,9 @@ import weakref
 import torch
 import torch.nn.functional as F
 
-from vocoder_tpu_torch.nn import get_padding
+from vocoder_tpu_torch.nn import get_padding, length_mask
 from vocoder_tpu_torch.ops import build
-from vocoder_tpu_torch.ops.antialias import aa_snake_plain, snake_params
+from vocoder_tpu_torch.ops.antialias import aa_snake_plain, item_lengths, snake_params
 
 _C_VOID = ctypes.c_void_p
 _C_INT = ctypes.c_int
@@ -74,7 +80,7 @@ def _lib() -> ctypes.CDLL:
         fn.argtypes = [
             _C_VOID, _C_VOID, _C_INT, _C_INT, _C_INT,  # params, x, x_dtype, B, T
             _C_VOID, _C_INT, _C_VOID, _C_VOID, _C_VOID,  # res, res_dtype, out, acc_in, acc_out
-            _C_VOID, _C_INT, _C_VOID,  # fin, fin_dtype, stream
+            _C_VOID, _C_INT, _C_VOID, _C_VOID,  # fin, fin_dtype, lens, stream
         ]
         fn.restype = _C_INT
         lib.error_string.argtypes = [_C_INT]
@@ -97,17 +103,22 @@ def _snake(act) -> tuple[torch.Tensor, torch.Tensor | None]:
     return act.activation.alpha, act.activation.beta
 
 
-def amp_stage_plain(blocks, x: torch.Tensor, logscale: bool, conv=F.conv1d) -> torch.Tensor:
+def amp_stage_plain(blocks, x: torch.Tensor, logscale: bool, lengths=None, conv=F.conv1d) -> torch.Tensor:
     """mean_k(AMP block k (x)) with the plain aa-snake and ``conv`` (F.conv1d), fp32 inside.
 
     Each conv input is rounded to x's dtype first, as the TPU kernel rounds its
     matmul operands to ``mm_dtype = x.dtype``; for fp32 x that changes nothing.
-    ``conv`` is a test hook: the CPU tests pass an emulation of the fp32 route's
-    3xTF32 products through it."""
+    ``lengths`` (B,): each item's aa-snake is clamped at its length and every conv
+    output masked past it, as the JAX package's ``_amp_apply`` with ``lens``, and
+    so is the stage output.  ``conv`` is a test hook: the CPU tests pass an
+    emulation of the fp32 route's 3xTF32 products through it."""
     xf = x.float()
+    lens = None
+    if lengths is not None:
+        lens = torch.tensor(item_lengths(lengths, x.shape[0], x.shape[-1]), device=x.device)
 
     def act(h, a):
-        return aa_snake_plain(h, *snake_params(*_snake(a), logscale)).to(x.dtype).float()
+        return aa_snake_plain(h, *snake_params(*_snake(a), logscale), lens).to(x.dtype).float()
 
     outs = []
     for blk in blocks:
@@ -116,10 +127,11 @@ def amp_stage_plain(blocks, x: torch.Tensor, logscale: bool, conv=F.conv1d) -> t
         for i, (c1, c2, d) in enumerate(zip(blk.convs1, blk.convs2, blk.dilations)):
             a1, a2 = blk.activations[2 * i], blk.activations[2 * i + 1]
             t = conv(act(h, a1), c1.weight.float(), c1.bias.float(), padding=get_padding(k, d), dilation=d)
+            t = length_mask(t, lens)
             t = conv(act(t, a2), c2.weight.float(), c2.bias.float(), padding=get_padding(k))
-            h = h + t
+            h = h + length_mask(t, lens)
         outs.append(h)
-    return (sum(outs) / len(outs)).to(x.dtype)
+    return length_mask(sum(outs) / len(outs), lens).to(x.dtype)
 
 
 def pack_conv_weight(w: torch.Tensor) -> torch.Tensor:
@@ -202,8 +214,9 @@ def _build_plan(blocks, logscale: bool, ids, slots, key) -> StagePlan:
                      [ctypes.addressof(p) for p in params], weights)
 
 
-def amp_stage_kernel(blocks, x: torch.Tensor, logscale: bool) -> torch.Tensor:
-    """The stage on a CUDA (B, C, T) tensor: one K2 launch per conv."""
+def amp_stage_kernel(blocks, x: torch.Tensor, logscale: bool, lengths=None) -> torch.Tensor:
+    """The stage on a CUDA (B, C, T) tensor: one K2 launch per conv; ``lengths``: the (B,) item
+    lengths of a padded batch (None: every item is T long)."""
     if x.dim() != 3 or not x.is_contiguous():
         raise ValueError(f"amp_stage: expected a contiguous (B, C, T) tensor, got shape {tuple(x.shape)}")
     if x.shape[1] % 16:
@@ -217,6 +230,8 @@ def amp_stage_kernel(blocks, x: torch.Tensor, logscale: bool) -> torch.Tensor:
     if x.dtype == torch.bfloat16 and plan.dtype != torch.bfloat16:
         raise ValueError("amp_stage: a bf16 input needs a bf16 model; cast the model with the input")
     xd = build.dtype_code(x, "amp_stage x")
+    lens = build.lengths_arg(lengths, x)
+    lens_p = build.ptr(lens)
     lib = _lib()
     fn = lib.amp_conv_fwd
     fp32 = plan.dtype == torch.float32
@@ -233,7 +248,7 @@ def amp_stage_kernel(blocks, x: torch.Tensor, logscale: bool) -> torch.Tensor:
     addrs = iter(plan.addrs)
 
     def launch(src, src_dt, res_p, res_dt, out=None, acc_in=None, acc_out=None, fin=None):
-        err = fn(next(addrs), src, src_dt, b, t, res_p, res_dt, out, acc_in, acc_out, fin, xd, stream)
+        err = fn(next(addrs), src, src_dt, b, t, res_p, res_dt, out, acc_in, acc_out, fin, xd, lens_p, stream)
         if err:
             raise RuntimeError(f"amp_stage: launch failed: {lib.error_string(err).decode()}")
         if fp32:
@@ -256,13 +271,14 @@ def amp_stage_kernel(blocks, x: torch.Tensor, logscale: bool) -> torch.Tensor:
     return z
 
 
-def amp_stage(blocks, x: torch.Tensor, logscale: bool) -> torch.Tensor:
-    """mean over AMP blocks of (B, C, T): the kernels for CUDA, the plain version for the CPU."""
+def amp_stage(blocks, x: torch.Tensor, logscale: bool, lengths=None) -> torch.Tensor:
+    """mean over AMP blocks of (B, C, T), each item masked at its length where ``lengths`` is given:
+    the kernels for CUDA, the plain version for the CPU."""
     if x.is_cuda:
-        return amp_stage_kernel(blocks, x, logscale)
+        return amp_stage_kernel(blocks, x, logscale, lengths)
     if x.device.type != "cpu":
         raise RuntimeError(f"amp_stage: no kernel for device {x.device}")
-    return amp_stage_plain(blocks, x, logscale)
+    return amp_stage_plain(blocks, x, logscale, lengths)
 
 
 amp_stage.launches = 0

@@ -13,6 +13,10 @@ composition has a closed form with clamped indices (x (B, C, T), f the
 ``aa_snake_plain`` evaluates exactly that; it equals the JAX package's
 polyphase interior plus its edge splice (``aa_snake_poly4``) at every
 sample, and it is what the CUDA kernels (``csrc/aa_snake.cuh``) compute.
+With per-item ``lengths`` (a right-padded batch) row b is that function of
+``x[b, :, :L_b]`` alone, edge-replicated at its own end, then zeros: the
+JAX package's ``aa_snake_poly4_masked``, which needs L_b >= 32, while this
+one is exact at every length, 0 and 1 included.
 Arithmetic is fp32 whatever the input dtype; the result is cast back once.
 """
 
@@ -165,12 +169,27 @@ def snake_params(alpha: torch.Tensor, beta: torch.Tensor | None, logscale: bool)
     return alpha, beta
 
 
-def aa_snake_plain(x: torch.Tensor, alpha: torch.Tensor, beta: torch.Tensor) -> torch.Tensor:
+def item_lengths(lengths, b: int, t: int) -> list[int]:
+    """Per-item lengths read back to the host and clamped to [0, t], as the kernels clamp them."""
+    values = torch.as_tensor(lengths).reshape(-1).tolist()
+    if len(values) != b:
+        raise ValueError(f"lengths: expected {b} values, got {len(values)}")
+    return [min(max(int(v), 0), t) for v in values]
+
+
+def aa_snake_plain(x: torch.Tensor, alpha: torch.Tensor, beta: torch.Tensor, lengths=None) -> torch.Tensor:
     """Anti-aliased snake on (B, C, T) by the clamped closed form above.
 
     alpha/beta are the (C,) fp32 parameters, already exp'ed under logscale.
+    ``lengths`` (B,): each item alone over its first L_b samples, zeros after.
     """
     t = x.shape[-1]
+    if lengths is not None:
+        z = torch.zeros_like(x)
+        for i, n in enumerate(item_lengths(lengths, x.shape[0], t)):
+            if n:
+                z[i, :, :n] = aa_snake_plain(x[i : i + 1, :, :n], alpha, beta)[0]
+        return z
     f_e, f_o, g_o, g_e = (v.tolist() for v in polyphase_taps())
     xp = F.pad(x.float(), (6, 6), mode="replicate")  # xp[q] = x[clamp(q - 6)]
     even = sum(f_e[j] * xp[..., 3 + j : 3 + j + t] for j in range(6))  # y2[2v] / 2

@@ -99,3 +99,20 @@ def dtype_code(t: torch.Tensor, what: str) -> int:
 
 def stream_ptr(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
+
+
+def lengths_arg(lengths, x: torch.Tensor) -> torch.Tensor | None:
+    """Per-item lengths as the kernels take them: a contiguous int32 (B,) tensor on x's device, or None.
+
+    The values are not read back to the host: the kernels clamp each to [0, T]."""
+    if lengths is None:
+        return None
+    lengths = torch.as_tensor(lengths)
+    if lengths.shape != (x.shape[0],) or lengths.is_floating_point() or lengths.is_complex():
+        raise ValueError(f"lengths: expected {x.shape[0]} integer lengths, got {lengths.dtype} {tuple(lengths.shape)}")
+    return lengths.to(device=x.device, dtype=torch.int32).contiguous()
+
+
+def ptr(t: torch.Tensor | None) -> int | None:
+    """A tensor's device address for ctypes, None (a null pointer) for None."""
+    return None if t is None else t.data_ptr()

@@ -1,12 +1,16 @@
-"""Log-mel front end on ``torch.stft``.
+"""Log-mel front end on ``torch.stft``, and the Vocos "same" iSTFT.
 
-Counterpart of ``mel_filterbank`` and ``log_mel_spectrogram`` in
-``vocoder_tpu/ops/spectral.py`` (the reference's LinearSpectrogram ->
-slaney MelScale -> log): reflect padding of (win - hop) / 2 per side
-("same_win"), a periodic Hann window of ``win_length`` centred in
-``n_fft``, ``sqrt(power + 1e-6)``, the slaney filterbank and
-``log(clamp(mel, 1e-5))``.  The JAX package computes this outside any Pallas
-kernel, so the FFT here is the library's.
+Counterpart of ``mel_filterbank``, ``log_mel_spectrogram``, ``overlap_add``
+and ``istft_same`` in ``vocoder_tpu/ops/spectral.py``.  The log-mel is the
+reference's LinearSpectrogram -> slaney MelScale -> log: reflect padding of
+(win - hop) / 2 per side ("same_win"), a periodic Hann window of
+``win_length`` centred in ``n_fft``, ``sqrt(power + 1e-6)``, the slaney
+filterbank and ``log(clamp(mel, 1e-5))``.  The iSTFT is an inverse real FFT
+per frame (``torch.fft.irfft``; not ``torch.istft``, which pads and
+normalises otherwise), the Hann window, an explicit overlap-add and the
+division by the window-square envelope.  The JAX package computes both
+outside any Pallas kernel, so the FFTs here are the library's; cuFFT has no
+bf16 transform, so both run in fp32.
 """
 
 from __future__ import annotations
@@ -17,6 +21,13 @@ import math
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+
+@functools.lru_cache(maxsize=None)
+def hann_window(win_length: int) -> np.ndarray:
+    """Periodic Hann window, fp32, computed in float64 as the JAX package computes it."""
+    n = np.arange(win_length, dtype=np.float64)
+    return (0.5 * (1.0 - np.cos(2.0 * np.pi * n / win_length))).astype(np.float32)
 
 
 def _hz_to_mel_slaney(f: np.ndarray) -> np.ndarray:
@@ -87,3 +98,47 @@ def log_mel_spectrogram(
     fb = torch.as_tensor(mel_filterbank(sample_rate, n_fft, n_mels, f_min, f_max), device=x.device)
     mel = torch.einsum("bft,fm->bmt", mag, fb)
     return torch.log(torch.clamp(mel, min=1e-5))
+
+
+def overlap_add(frames: torch.Tensor, hop_length: int) -> torch.Tensor:
+    """Overlap-add (B, F, N) frames at ``hop_length`` -> (B, (F - 1) * hop + N).
+
+    Each frame is cut into ceil(N / hop) hop-long parts; part j of every frame
+    lands j hops later, so the sum is ceil(N / hop) shifted adds."""
+    b, f, n = frames.shape
+    r = -(-n // hop_length)
+    parts = F.pad(frames, (0, r * hop_length - n)).reshape(b, f, r, hop_length)
+    total = frames.new_zeros(b, (f - 1 + r) * hop_length)
+    for j in range(r):
+        total[:, j * hop_length : (j + f) * hop_length] += parts[:, :, j, :].reshape(b, f * hop_length)
+    return total[:, : (f - 1) * hop_length + n]
+
+
+def istft_same(re: torch.Tensor, im: torch.Tensor, *, n_fft: int, hop_length: int, win_length: int,
+               frame_lengths=None) -> torch.Tensor:
+    """Vocos-style "same"-padding iSTFT: (B, n_fft // 2 + 1, F) real and imaginary parts -> (B, F * hop), fp32.
+
+    irfft per frame, times the Hann window, overlap-add, divided by the
+    window-square envelope, trimmed by (win - hop) // 2 at both ends.
+    ``frame_lengths`` (B,): frames past each item's count are zeroed and its
+    envelope sums its own frames only, so row i equals the iSTFT of its first
+    ``frame_lengths[i]`` frames alone over those frames' samples."""
+    if win_length != n_fft:
+        raise NotImplementedError("istft_same requires win_length == n_fft")
+    b, bins, f = re.shape
+    im = im.float().clone()
+    im[:, 0] = 0.0  # the imaginary parts of the DC and Nyquist bins take no part, as in irfft's basis
+    if n_fft % 2 == 0:
+        im[:, -1] = 0.0
+    frames = torch.fft.irfft(torch.complex(re.float(), im), n=n_fft, dim=1).transpose(1, 2)  # (B, F, n_fft)
+    win = torch.as_tensor(hann_window(win_length), device=re.device)
+    frames = frames * win
+    win_sq = (win * win).expand(1, f, n_fft)
+    if frame_lengths is not None:
+        lens = torch.as_tensor(frame_lengths, device=re.device)
+        fmask = (torch.arange(f, device=re.device)[None, :] < lens[:, None]).float()[..., None]
+        frames = frames * fmask
+        win_sq = win_sq * fmask
+    y = overlap_add(frames, hop_length) / torch.clamp(overlap_add(win_sq.contiguous(), hop_length), min=1e-11)
+    pad = (win_length - hop_length) // 2
+    return y[:, pad : pad + (f - 1) * hop_length + win_length - 2 * pad]

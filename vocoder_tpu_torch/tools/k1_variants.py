@@ -39,10 +39,10 @@ from vocoder_tpu_torch.tools.timing import build_variants, card_line, device_tim
 VARIANTS = {
     "global_x": [
         ("__shared__ __align__(16) TX xs[kTile + 2 * kHalo];", "__shared__ __align__(16) TX xs[1];"),
-        ("const bool bulk = bulk_ok && p0 >= kHalo && p0 + kTile + kHalo <= T;", "const bool bulk = false;"),
+        ("const bool bulk = bulk_ok && p0 >= kHalo && p0 + kTile + kHalo <= L;", "const bool bulk = false;"),
         ("if (!bulk)  // clamped loads", "if (false)  // clamped loads"),
-        ("<Arith, SharedX<TX>, StagedOut, false>{src,", "<Arith, aa::GlobalX<TX, false>, StagedOut, false>{{xrow, T},"),
-        ("<Arith, SharedX<TX>, StagedOut, true>{src,", "<Arith, aa::GlobalX<TX, true>, StagedOut, true>{{xrow, T},"),
+        ("<Arith, SharedX<TX>, StagedOut, false>{src,", "<Arith, aa::GlobalX<TX, false>, StagedOut, false>{{xrow, L},"),
+        ("<Arith, SharedX<TX>, StagedOut, true>{src,", "<Arith, aa::GlobalX<TX, true>, StagedOut, true>{{xrow, L},"),
     ],
     "exact": [("using Arith = aa::Fma;", "using Arith = aa::Exact;")],
 }
