@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's inference (BigVGAN, HiFiGAN, Vocos) on one CUDA card and check it.
+"""Drive the PyTorch port's inference (BigVGAN, HiFiGAN, Vocos) and training on one CUDA card and check it.
 
     python3 chip_smoke.py          # from the repository root; needs one NVIDIA H100
 
@@ -38,7 +38,22 @@ Phases, in order; any failure exits non-zero:
      the card's alone (`device_time`, vocoder_tpu_torch/tools/timing.py).
      Then BigVGAN's masked b16 forward against the unmasked one at the same
      padded shape, HiFiGAN's and Vocos' forwards at b1 and b16 in both
-     dtypes, and the CLI's seconds at --batch 1 and --batch 16 over 32 WAVs.
+     dtypes, and the CLI's seconds at --batch 1 and --batch 16 over 32 WAVs;
+  8. K1 under autograd (`AASnakeFunction`: the kernel forward, the plain VJP)
+     against autograd through the plain version, fp32, at C = 16, 256, 512,
+     T = K1's tile edge +- 1, under the halo and 65,536, B = 1 and 4: dx,
+     d alpha and d beta;
+  9. one full-width training step (`train.gan.make_train_step`, 44.1 kHz
+     presets, b2 x 65,536 samples, fp32, TF32 off) with the kernels against
+     the same step through the plain versions, from the same weights, batch
+     and crop start: every loss, the grad norms and every generator gradient,
+     for BigVGAN (K1 launched 91 times in the step) and HiFiGAN;
+ 10. `cli.train.main --model bigvgan` at the preset's batch 16 x 128 frames on
+     32 generated WAVs, 4 steps with validation every 2 (K2 in validation,
+     the blockwise AMP path in training only), then a resume to step 6, then
+     `cli.infer --ckpt <workdir>` from that run;
+ 11. the training step's ms by phase, audio-s/s, peak memory and the card-time
+     shares of its parts at b16 (vocoder_tpu_torch/tools/profile_train.py).
 
 Prints the card's name and power limit first, one JSON line per check and
 timing, a `{"kernels": [...]}` line and, last, `{"ok": true, "device": {...}}`.
@@ -52,6 +67,7 @@ from __future__ import annotations
 import copy
 import itertools
 import json
+import math
 import sys
 import tempfile
 import time
@@ -82,12 +98,24 @@ K2_BF16_REL_L2 = 1e-3
 GEN_BF16_REL_L2, GEN_BF16_CAP = 5e-3, 2e-2
 
 GEN_BATCH_REL_L2 = 1e-5  # a padded batch against per-item runs, fp32: the same kernels, other sum orders in cuDNN
+# Training.  K1's VJP takes sin(2 a v) from the sine polynomial, autograd through the plain version the
+# derivative of the sin^2 polynomial: ~1e-7 apart; the parameter gradients are sums over B * T.
+K1_GRAD_DX_REL_L2, K1_GRAD_PARAM_REL_L2 = 1e-5, 1e-4
+# A step with K1 (fp32 FMAs, ~1e-6 from the plain version) against the plain step.
+STEP_LOSS_REL, STEP_NORM_REL, STEP_GRAD_REL_L2 = 1e-5, 1e-4, 1e-3
+# The plain step's autograd keeps every intermediate of the plain aa-snake (~25 tensors of 2T samples
+# an activation): ~30 GB at b2, so the step checks run at b2; the CLI and the timing run the preset's b16.
+TRAIN_CHECK_BATCH = 2
+K1_PER_BIGVGAN_FORWARD = 91  # 5 stages x 3 blocks x 3 dilations x 2, and activation_post
 WAV_TOL = 2.0 / 32768  # a WAV of the batched CLI against the per-file run's: two 16-bit steps
 
 # Names of K2's two routes (both csrc/amp_conv_mma.cu) in the kernels line and the launch counts.
 FP32_K2, BF16_K2 = "amp_conv_mma_3xtf32", "amp_conv_mma"
 K1_TILE = 3968  # csrc/aa_snake.cu: kThreads * kRun outputs a block
 HALO = 12  # the aa-snake's reach in x at the 1x rate, both sides together
+# (C, T, B) of the K1 autograd checks: BigVGAN's widths up to the 512 of a wide config, T at K1's tile
+# edges, under the halo and at the 65,536 samples of a training crop.
+K1_AUTOGRAD_SHAPES = list(itertools.product((16, 256, 512), (K1_TILE - 1, K1_TILE + 1, HALO - 5, 65536), (1, 4)))
 
 
 def log(obj) -> None:
@@ -289,26 +317,34 @@ def run_cli(infer, argv: list[str]) -> float:
 
 
 def launch_counts() -> dict[str, int]:
+    """Each kernel's launches, and the AMP stages run block by block (not a kernel)."""
+    from vocoder_tpu_torch.models.bigvgan import BigVGAN
     from vocoder_tpu_torch.ops.aa_snake import aa_snake
     from vocoder_tpu_torch.ops.amp_block import amp_stage
 
-    return {"aa_snake": aa_snake.launches, FP32_K2: amp_stage.launches, BF16_K2: amp_stage.mma_launches}
+    return {"aa_snake": aa_snake.launches, FP32_K2: amp_stage.launches, BF16_K2: amp_stage.mma_launches,
+            "blockwise_stages": BigVGAN.blockwise_stages}
 
 
-def drive_path(name: str, fn, need: tuple[str, ...], paths: dict):
-    """Drive one main path with every launch count set to 0 just before and read just after; record
-    the counts under `name` and fail if a kernel in `need` was not launched."""
+def drive_path(name: str, fn, need: tuple[str, ...], paths: dict, blockwise: int = 0):
+    """Drive one main path with every count set to 0 just before and read just after; record the
+    counts under `name` and fail if a kernel in `need` was not launched, or if other than `blockwise`
+    AMP stages ran block by block (0 on every preset's inference path: K2 takes every stage)."""
     import torch
 
+    from vocoder_tpu_torch.models.bigvgan import BigVGAN
     from vocoder_tpu_torch.ops.aa_snake import aa_snake
     from vocoder_tpu_torch.ops.amp_block import amp_stage
 
-    aa_snake.launches = amp_stage.launches = amp_stage.mma_launches = 0
+    aa_snake.launches = amp_stage.launches = amp_stage.mma_launches = BigVGAN.blockwise_stages = 0
     out = fn()
     torch.cuda.synchronize()
     paths[name] = launch_counts()
     if any(paths[name][k] <= 0 for k in need):
         raise SystemExit(f"path {name} did not launch every kernel it runs: {paths[name]}")
+    if paths[name]["blockwise_stages"] != blockwise:
+        raise SystemExit(f"path {name} ran {paths[name]['blockwise_stages']} AMP stages block by block, "
+                         f"expected {blockwise}")
     return out
 
 
@@ -613,6 +649,249 @@ def time_cli(infer, root: Path, ckpt: Path, task, rng, stamp: dict) -> None:
              "audio_s": audio_s, "seconds": seconds, "audio_s_per_s": audio_s / seconds, **stamp})
 
 
+def rel(a, b) -> float:
+    a, b = float(a), float(b)
+    return abs(a - b) / max(abs(b), 1e-30)
+
+
+def check_k1_autograd(dev) -> dict:
+    """K1 under autograd against autograd through the plain version, from the same upstream gradient;
+    the worst of each of dx, d alpha, d beta and the forward."""
+    import numpy as np
+    import torch
+
+    from vocoder_tpu_torch.ops.aa_snake import aa_snake
+    from vocoder_tpu_torch.ops.antialias import aa_snake_plain, snake_params
+
+    rng = np.random.default_rng(SEED + 8)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 8)
+    worst = {"dx_rel_l2": 0.0, "d_alpha_rel_l2": 0.0, "d_beta_rel_l2": 0.0, "forward_max_abs": 0.0}
+    for c, t, b in K1_AUTOGRAD_SHAPES:
+        alpha = torch.tensor(0.3 * rng.standard_normal(c), dtype=torch.float32, device=dev, requires_grad=True)
+        beta = torch.tensor(0.3 * rng.standard_normal(c), dtype=torch.float32, device=dev, requires_grad=True)
+        x = torch.randn(b, c, t, device=dev, generator=gen).requires_grad_(True)
+        gz = torch.randn(b, c, t, device=dev, generator=gen)
+        z = aa_snake(x, alpha, beta, True)
+        got = torch.autograd.grad(z, (x, alpha, beta), gz)
+        z_plain = aa_snake_plain(x, *snake_params(alpha, beta, True))
+        want = torch.autograd.grad(z_plain, (x, alpha, beta), gz)
+        rec = {"dx_rel_l2": rel_l2(got[0], want[0]), "d_alpha_rel_l2": rel_l2(got[1], want[1]),
+               "d_beta_rel_l2": rel_l2(got[2], want[2]), "forward_max_abs": float((z - z_plain).detach().abs().max())}
+        ok = (rec["dx_rel_l2"] <= K1_GRAD_DX_REL_L2 and rec["d_alpha_rel_l2"] <= K1_GRAD_PARAM_REL_L2
+              and rec["d_beta_rel_l2"] <= K1_GRAD_PARAM_REL_L2 and rec["forward_max_abs"] <= K1_FP32_MAX_ABS
+              and all(bool(torch.isfinite(g).all()) for g in got))
+        log({"phase": "k1_autograd_check", "shape": [b, c, t], **rec, "ok": ok})
+        if not ok:
+            raise SystemExit(f"K1 under autograd disagrees with autograd through its plain version at {(b, c, t)}")
+        worst = {k: max(worst[k], rec[k]) for k in worst}
+        del x, z, z_plain, got, want, gz
+    log({"phase": "k1_autograd_worst", **worst,
+         "limits": {"dx_rel_l2": K1_GRAD_DX_REL_L2, "d_param_rel_l2": K1_GRAD_PARAM_REL_L2}})
+    return worst
+
+
+def check_eval_after_step(state, task, batch: dict, fake_before) -> None:
+    """Validation (K2 stages, eval mode) on the weights a training step has just updated in place
+    (AdamW on the weight-norm parameters), against the plain forward on the same weights: K2's packed
+    weights, built before the step, must follow the update.  The step must have moved the fake by
+    more than 10 times that distance, so that a stale pack would show."""
+    import torch
+
+    from vocoder_tpu_torch.ops.amp_block import amp_stage
+    from vocoder_tpu_torch.train import gan
+
+    launches = amp_stage.launches
+    metrics, fake = gan.make_eval_step(task)(state, batch)
+    launched = amp_stage.launches - launches
+    with torch.no_grad():
+        mask = gan.sequence_mask(batch["lengths"], batch["audio"].shape[2])
+        want = gan.generator_forward(state.generator, batch["audio"], task, plain=True) * mask
+    err, moved = rel_l2(fake, want), rel_l2(fake, fake_before)
+    val_mel = float(metrics["val/metrics/mel"])
+    ok = launched > 0 and err <= GEN_FP32_REL_L2 and moved > 10 * err and math.isfinite(val_mel)
+    log({"phase": "eval_after_train_step", "model": "bigvgan", "batch": TRAIN_CHECK_BATCH, "k2_launches": launched,
+         "rel_l2_vs_plain": err, "limit": GEN_FP32_REL_L2, "rel_l2_moved_by_step": moved,
+         "val_mel": val_mel, "ok": ok})
+    if not ok:
+        raise SystemExit("validation after a training step disagrees with the plain forward on the updated weights")
+
+
+def check_train_steps(dev, paths: dict) -> int:
+    """One training step of each ported family at its 44.1 kHz preset, b2 x 65,536 samples: the kernel
+    path (BigVGAN: K1 under autograd) against the plain path from the same weights (numpy seed 0), batch
+    (one item shorter, so the mask counts) and crop start.  K1's launches in the BigVGAN step.  BigVGAN's
+    validation runs before and after its kernel-path step (``check_eval_after_step``)."""
+    import torch
+
+    from vocoder_tpu_torch.config import build_task_config
+    from vocoder_tpu_torch.models import bigvgan, hifigan
+    from vocoder_tpu_torch.tools.profile_train import synthetic_batch
+    from vocoder_tpu_torch.train import gan
+
+    k1_step = 0
+    for name, weights in (("bigvgan", bigvgan.random_state_dict), ("hifigan", hifigan.random_state_dict)):
+        task = build_task_config(name, "44100_512_2048")
+        t = task.hop_length * task.num_frames
+        batch = synthetic_batch(TRAIN_CHECK_BATCH, t, task.sampling_rate, SEED, dev)
+        batch["lengths"][1] = t * 4 // 5
+        batch["audio"][1, :, t * 4 // 5 :] = 0.0
+        runs = {}
+        for plain in (False, True):
+            state = gan.create_train_state(task, SEED, dev)
+            state.generator.load_state_dict(weights(task.generator, SEED))
+            start = gan.draw_crop_start(state, task, t)
+            step = gan.make_train_step(task, plain=plain)
+            if plain:
+                metrics = step(state, batch, start)
+            else:
+                need = ("aa_snake",) if name == "bigvgan" else ()
+                blockwise = len(task.generator.upsample_rates) if name == "bigvgan" else 0
+                if name == "bigvgan":
+                    _, fake_before = gan.make_eval_step(task)(state, batch)  # builds K2's packed weights
+                metrics = drive_path(f"train_step_{name}", lambda: step(state, batch, start), need, paths, blockwise)
+            grads = {n: p.grad.detach().clone() for n, p in state.generator.named_parameters()}
+            runs[plain] = ({k: float(v) for k, v in metrics.items()}, grads)
+            if name == "bigvgan" and not plain:
+                check_eval_after_step(state, task, batch, fake_before)
+                del fake_before
+            del state
+        (mk, gk), (mp, gp) = runs[False], runs[True]
+        norms = [k for k in mk if "grad_norm" in k]
+        losses = [k for k in mk if k not in norms and k != "lr"]
+        loss_rel = {k: rel(mk[k], mp[k]) for k in losses}
+        norm_rel = {k: rel(mk[k], mp[k]) for k in norms}
+        grad_rel = {n: rel_l2(gk[n], gp[n]) for n in gk}
+        worst_grad = max(grad_rel, key=grad_rel.get)
+        launches = paths[f"train_step_{name}"]
+        ok = (max(loss_rel.values()) <= STEP_LOSS_REL and max(norm_rel.values()) <= STEP_NORM_REL
+              and grad_rel[worst_grad] <= STEP_GRAD_REL_L2
+              and all(map(math.isfinite, list(mk.values()) + list(mp.values()))))
+        if name == "bigvgan":
+            k1_step = launches["aa_snake"]
+            ok = ok and k1_step == K1_PER_BIGVGAN_FORWARD
+        log({"phase": "train_step_check", "model": name, "batch": TRAIN_CHECK_BATCH, "samples": t,
+             "crop_start": start, "metrics_kernel": mk, "metrics_plain": mp, "loss_rel": loss_rel,
+             "grad_norm_rel": norm_rel, "max_grad_rel_l2": grad_rel[worst_grad], "worst_grad": worst_grad,
+             "grad_tensors": len(grad_rel), "launches": launches,
+             "limits": {"loss_rel": STEP_LOSS_REL, "grad_norm_rel": STEP_NORM_REL, "grad_rel_l2": STEP_GRAD_REL_L2},
+             "ok": ok})
+        if not ok:
+            raise SystemExit(f"{name}: the training step with the kernels disagrees with the plain step")
+        torch.cuda.empty_cache()
+    return k1_step
+
+
+def write_train_corpus(root: Path, sr: int, rng) -> None:
+    """32 training WAVs of 1-4 s and 2 validation WAVs: sines with a vibrato, plus noise."""
+    import numpy as np
+
+    from vocoder_tpu_torch.data.audio_io import write_wav
+
+    for sub, n in (("train", 32), ("val", 2)):
+        (root / sub).mkdir(parents=True)
+        for i, seconds in enumerate(rng.uniform(1.0, 4.0, n)):
+            t = np.arange(int(sr * seconds)) / sr
+            f0 = rng.uniform(100.0, 400.0)
+            audio = 0.3 * np.sin(2 * np.pi * f0 * t + 2.0 * np.sin(2 * np.pi * 5.0 * t))
+            write_wav(root / sub / f"{i:02d}.wav", (audio + 0.01 * rng.standard_normal(t.size)).astype(np.float32), sr)
+
+
+def run_train_cli(argv: list[str]) -> tuple[object, str]:
+    """`cli.train.main(argv)` with its log captured (and echoed): (final state, log)."""
+    import contextlib
+    import io
+
+    from vocoder_tpu_torch.cli import train as train_cli
+
+    buf = io.StringIO()
+    try:
+        with contextlib.redirect_stderr(buf):
+            state = train_cli.main(argv)
+    finally:
+        print(buf.getvalue(), end="", flush=True)
+    return state, buf.getvalue()
+
+
+def check_cli_train(root: Path, infer, paths: dict) -> None:
+    """cli.train at the BigVGAN preset's batch 16 x 128 frames: 4 steps with validation every 2 and a
+    checkpoint every 2, then a resume to 6, then cli.infer from the run's workdir."""
+    import numpy as np
+    import torch
+
+    from vocoder_tpu_torch.config import build_task_config
+    from vocoder_tpu_torch.data.audio_io import read_wav
+
+    task = build_task_config("bigvgan", "44100_512_2048")
+    write_train_corpus(root, task.sampling_rate, np.random.default_rng(SEED + 9))
+    work = root / "run"
+    base = ["--model", "bigvgan", "--device", "cuda", f"data.train_roots=('{root / 'train'}',)",
+            f"data.val_root={root / 'val'}", "run.log_interval=1", "run.val_interval=2", "run.ckpt_interval=2",
+            "run.val_pesq=False", f"run.workdir={work}"]
+    steps = 4
+    tf32_defaults()
+    state, _ = drive_path("cli_train_bigvgan", lambda: run_train_cli([*base, f"run.max_steps={steps}"]),
+                          ("aa_snake", FP32_K2), paths, blockwise=steps * len(task.generator.upsample_rates))
+    counts = paths["cli_train_bigvgan"]
+    records = [json.loads(line) for line in (work / "metrics.jsonl").read_text().splitlines()]
+    train_recs = [r for r in records if "train/generator/all" in r]
+    val_recs = [r for r in records if "val/metrics/mel" in r]
+    finite = all(math.isfinite(v) for r in records for v in r.values())
+    ckpts = sorted(p.name for p in (work / "checkpoints").iterdir())
+    ok = (state.step == steps and finite and [r["step"] for r in train_recs] == [2, 3, 4]
+          and [r["step"] for r in val_recs] == [2, 4] and {"2.pt", "4.pt"} <= set(ckpts)
+          and counts["aa_snake"] >= K1_PER_BIGVGAN_FORWARD * steps and counts[FP32_K2] > 0
+          and not (torch.backends.cudnn.allow_tf32 or torch.backends.cuda.matmul.allow_tf32))
+    log({"phase": "cli_train", "model": "bigvgan", "batch": 16, "frames": 128, "steps": steps,
+         "launches": counts, "k1_launches_per_step": counts["aa_snake"] / steps, "checkpoints": ckpts,
+         "train_records": train_recs, "val_records": val_recs, "finite": finite, "ok": ok})
+    if not ok:
+        raise SystemExit("cli.train: the run did not train, validate and checkpoint as asked")
+
+    tf32_defaults()
+    state, text = drive_path("cli_train_resume", lambda: run_train_cli([*base, "run.max_steps=6"]),
+                             ("aa_snake", FP32_K2), paths, blockwise=2 * len(task.generator.upsample_rates))
+    ok = state.step == 6 and "auto-resumed from step 4" in text and (work / "checkpoints" / "6.pt").is_file()
+    log({"phase": "cli_train_resume", "step": state.step, "launches": paths["cli_train_resume"], "ok": ok})
+    if not ok:
+        raise SystemExit("cli.train did not resume from step 4 and end at step 6")
+
+    wav = root / "val" / "00.wav"
+    n = read_wav(wav)[0].shape[-1]
+    argv = ["--model", "bigvgan", "--ckpt", str(work), "--input", str(wav), "--output", str(root / "synth")]
+    run_cli(infer, argv)
+    tf32_off()
+    audio, sr = read_wav(root / "synth" / "00.wav")
+    want = -(-n // task.hop_length) * task.hop_length
+    ok = sr == task.sampling_rate and audio.shape == (1, want) and bool(np.isfinite(audio).all())
+    log({"phase": "cli_infer_from_training", "samples": audio.shape[-1], "expected": want,
+         "peak": float(np.abs(audio).max()), "ok": ok})
+    if not ok:
+        raise SystemExit("cli.infer did not synthesise from the trained checkpoint")
+
+
+def time_train_step(dev, stamp: dict) -> dict:
+    """The BigVGAN preset's training step at b16 x 65,536 samples, fp32, TF32 off: ms by phase, rate,
+    peak memory and card-time shares (tools/profile_train.py)."""
+    import torch
+
+    from vocoder_tpu_torch.config import build_task_config
+    from vocoder_tpu_torch.models.bigvgan import random_state_dict
+    from vocoder_tpu_torch.tools.profile_train import measure_step, synthetic_batch
+    from vocoder_tpu_torch.train import gan
+
+    tf32_off()
+    task = build_task_config("bigvgan", "44100_512_2048")
+    state = gan.create_train_state(task, SEED, dev)
+    state.generator.load_state_dict(random_state_dict(task.generator, SEED))
+    batch = synthetic_batch(16, task.hop_length * task.num_frames, task.sampling_rate, SEED, dev)
+    rec = {"metric": "train_step_ms", "model": "bigvgan", "batch": 16, "samples": task.hop_length * task.num_frames,
+           "dtype": "fp32", **measure_step(state, gan.make_train_step(task), batch, task, 8), **stamp}
+    log(rec)
+    del state
+    torch.cuda.empty_cache()
+    return rec
+
+
 def main() -> int:
     import torch
 
@@ -837,6 +1116,14 @@ def main() -> int:
         torch.save({"state_dict": {f"generator.{k}": v for k, v in sd.items()}}, ckpt)
         time_cli(infer, Path(tmp), ckpt, task, np.random.default_rng(SEED + 7), stamp)
 
+    # 8-11. Training.
+    k1_grad = check_k1_autograd(dev)
+    k1_train_step = check_train_steps(dev, paths)
+    tf32_off()
+    with tempfile.TemporaryDirectory() as tmp:
+        check_cli_train(Path(tmp), infer, paths)
+    train_rec = time_train_step(dev, stamp)
+
     def launches(name):  # over the main paths' runs; each path's count beside it
         by_path = {path: c[name] for path, c in paths.items() if c[name]}
         return {"launches": sum(by_path.values()), "launches_by_path": by_path}
@@ -847,7 +1134,9 @@ def main() -> int:
                 "max_abs_err": errs["aa_snake"], "max_abs_err_masked": errs_masked["aa_snake"], "ms": k1["ms"],
                 "plain_ms": k1["plain_ms"], "bound_ms": k1["bound_ms"],
                 "bound_by": k1["bound_by"], "library_ms": None, "host_us_per_launch": k1["host_us_per_launch"],
-                "ms_b16": entries["aa_snake"][16]["ms"], "bound_ms_b16": entries["aa_snake"][16]["bound_ms"]}]
+                "ms_b16": entries["aa_snake"][16]["ms"], "bound_ms_b16": entries["aa_snake"][16]["bound_ms"],
+                "launches_train_step": k1_train_step, "autograd_worst": k1_grad,
+                "train_step_share_of_busy": (train_rec["shares_of_busy"] or {}).get("k1_forward")}]
     for name, dtype in ((FP32_K2, "fp32"), (BF16_K2, "bf16")):
         k2, k2_b16 = entries[name][1], entries[name][16]
         kernels.append({"name": name, "route": "cuda", "source": "vocoder_tpu_torch/csrc/amp_conv_mma.cu",

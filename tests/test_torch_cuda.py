@@ -169,13 +169,15 @@ def test_packed_weight_cache_follows_in_place_changes(cuda_device, dtype):
 
 
 def test_kernels_refuse_autograd(cuda_device):
-    """Forward only: with gradients on, the wrappers raise instead of returning a tensor without a graph."""
+    """The kernels are forward only: with gradients on, K2's wrapper and a direct K1 launch raise instead of
+    returning a tensor without a graph.  K1 under autograd goes through ``AASnakeFunction`` (tests below)."""
     model = _model(NARROW, cuda_device).requires_grad_(True)
     x = torch.randn(1, 32, 64, device=cuda_device)
     with pytest.raises(RuntimeError, match="forward only"):
         amp_stage(list(model.resblocks[:3]), x, True)
+    post = model.activation_post.activation
     with pytest.raises(RuntimeError, match="forward only"):
-        model.activation_post(torch.randn(1, 16, 64, device=cuda_device))
+        aa_snake_kernel(torch.randn(1, 16, 64, device=cuda_device), post.alpha, post.beta, True)
 
 
 def test_amp_stage_refuses_bf16_input_with_fp32_model(cuda_device):
@@ -271,11 +273,11 @@ def test_cli_at_pytorch_tf32_defaults_equals_tf32_off(cuda_device, tmp_path, mon
     """cli.infer.main turns TF32 off itself: with PyTorch's default flags (cuDNN TF32 on) it writes
     the WAVs it writes with both flags off."""
     from vocoder_tpu_torch.cli import infer
-    from vocoder_tpu_torch.config import TaskConfig
+    from vocoder_tpu_torch.config import GANTaskConfig
     from vocoder_tpu_torch.data.audio_io import read_wav
 
-    task = TaskConfig(sampling_rate=8000, n_fft=64, hop_length=16, win_length=64, num_mels=8,
-                      generator_name="bigvgan", generator=NARROW)
+    task = GANTaskConfig(sampling_rate=8000, n_fft=64, hop_length=16, win_length=64, num_mels=8,
+                         generator_name="bigvgan", generator=NARROW)
     monkeypatch.setattr(infer, "build_task_config", lambda model, resolution: task)
     torch.save({"state_dict": {f"generator.{k}": v for k, v in random_state_dict(NARROW, 0).items()}},
                tmp_path / "g.ckpt")
@@ -293,3 +295,110 @@ def test_cli_at_pytorch_tf32_defaults_equals_tf32_off(cuda_device, tmp_path, mon
     assert list(wavs["default"]) == ["m30.wav", "m47.wav"]
     for key, wav in wavs["default"].items():
         np.testing.assert_array_equal(wav, wavs["off"][key])
+
+
+@pytest.mark.parametrize("batch", [1, 4])
+@pytest.mark.parametrize("t", [3967, 3969, 7, 65536])  # K1's 3968-output tile +- 1, under the halo, a training crop
+@pytest.mark.parametrize("c", [16, 256, 512])
+def test_k1_under_autograd_matches_plain_autograd(cuda_device, c, t, batch):
+    """``aa_snake`` with gradients on runs K1 forward (one launch) and the plain VJP backward: dx within
+    rel L2 1e-5 and the parameter gradients (sums over B * T) within 1e-4 of autograd through the plain
+    version, from the same upstream gradient."""
+    gen = torch.Generator(device=cuda_device).manual_seed(c + t + batch)
+    alpha = (0.3 * torch.randn(c, device=cuda_device, generator=gen)).requires_grad_(True)
+    beta = (0.3 * torch.randn(c, device=cuda_device, generator=gen)).requires_grad_(True)
+    x = torch.randn(batch, c, t, device=cuda_device, generator=gen).requires_grad_(True)
+    gz = torch.randn(batch, c, t, device=cuda_device, generator=gen)
+    before = aa_snake.launches
+    z = aa_snake(x, alpha, beta, True)
+    assert aa_snake.launches == before + 1
+    got = torch.autograd.grad(z, (x, alpha, beta), gz)
+    want = torch.autograd.grad(aa_snake_plain(x, *snake_params(alpha, beta, True)), (x, alpha, beta), gz)
+    assert _rel_l2(got[0], want[0]) <= 1e-5
+    assert _rel_l2(got[1], want[1]) <= 1e-4
+    assert _rel_l2(got[2], want[2]) <= 1e-4
+
+
+def _tiny_task(name):
+    from vocoder_tpu_torch.config import build_task_config
+    from vocoder_tpu_torch.models.mpd import MPDConfig
+    from vocoder_tpu_torch.models.mrd import MRDConfig
+
+    gen = dict(hop_length=16, upsample_rates=(4, 4), upsample_kernel_sizes=(8, 8), num_mels=8,
+               upsample_initial_channel=64, resblock_kernel_sizes=(3, 7), resblock_dilation_sizes=((1, 3), (1, 3)))
+    task = build_task_config(name)
+    res = ((64, 16, 64), (32, 8, 32))
+    return task.replace(sampling_rate=8000, n_fft=64, win_length=64, hop_length=16, num_mels=8, num_frames=32,
+                        crop_length=128, generator=type(task.generator)(**gen),
+                        mpd=MPDConfig(periods=(2, 3), channels=(1, 4, 8)), mrd=MRDConfig(resolutions=res),
+                        stft_resolutions=res)
+
+
+def test_train_step_kernel_path_matches_plain_path(cuda_device):
+    """A tiny BigVGAN training step with K1 under autograd against the same step through the plain
+    versions, from the same weights, batch and crop: every loss within rel 1e-5, the grad norms 1e-4,
+    every generator gradient rel L2 1e-3; K1 runs once per activation of the forward."""
+    from vocoder_tpu_torch.tools.profile_train import synthetic_batch
+    from vocoder_tpu_torch.train import gan
+
+    task = _tiny_task("bigvgan")
+    batch = synthetic_batch(2, 512, 8000, 0, cuda_device)
+    runs = []
+    for plain in (False, True):
+        state = gan.create_train_state(task, 0, cuda_device)
+        before = aa_snake.launches
+        metrics = gan.make_train_step(task, plain=plain)(state, batch, 100)
+        launched = aa_snake.launches - before
+        runs.append(({k: float(v) for k, v in metrics.items()},
+                     {n: p.grad.detach().clone() for n, p in state.generator.named_parameters()}, launched))
+    (mk, gk, nk), (mp, gp, npl) = runs
+    assert nk == 2 * 2 * 2 * 2 + 1 and npl == 0  # 2 stages x 2 blocks x 2 dilations x 2, and activation_post
+    for key in mk:
+        limit = 1e-4 if "grad_norm" in key else 1e-5
+        assert abs(mk[key] - mp[key]) <= limit * max(abs(mp[key]), 1e-30), key
+    for name in gk:
+        assert _rel_l2(gk[name], gp[name]) <= 1e-3, name
+
+
+def test_eval_step_follows_optimizer_updates(cuda_device):
+    """Validation after training steps: AdamW changes the weight-norm parameters
+    (``parametrizations.weight.original0/1``) in place, and K2's packed weights must follow.  The eval
+    step's fake (K2 stages, built into a plan before the updates) equals the plain forward on the
+    updated weights within rel L2 1e-4, and the updates (lr 1e-2) moved it by more than 1e-2."""
+    from vocoder_tpu_torch.tools.profile_train import synthetic_batch
+    from vocoder_tpu_torch.train import gan
+    from vocoder_tpu_torch.train.schedule import WarmupCosineConfig
+
+    task = _tiny_task("bigvgan").replace(schedule=WarmupCosineConfig(val_base=1e-2))
+    state = gan.create_train_state(task, 0, cuda_device)
+    batch = synthetic_batch(2, 512, 8000, 0, cuda_device)
+    eval_step = gan.make_eval_step(task)
+    _, before = eval_step(state, batch)
+    step = gan.make_train_step(task)
+    for _ in range(2):
+        step(state, batch, 100)
+    launches = amp_stage.launches
+    _, after = eval_step(state, batch)
+    assert amp_stage.launches - launches == 2 * 2 * 2 * 2  # 2 stages x 2 blocks x 2 dilations x 2 convs
+    with torch.no_grad():
+        want = gan.generator_forward(state.generator, batch["audio"], task, plain=True)
+    assert _rel_l2(after, want) <= 1e-4
+    assert _rel_l2(after, before) > 1e-2
+
+
+@pytest.mark.parametrize("upsample_initial_channel", [768])
+def test_bigvgan_stages_k2_does_not_take_run_blockwise(cuda_device, upsample_initial_channel):
+    """Stage widths 384, 192, 96, 48 and 24: K2 takes the middle three; the first (C > 256) and the last
+    (C % 16 != 0) run block by block on K1 and cuDNN, counted, and the forward matches its plain path."""
+    cfg = BigVGANConfig(upsample_initial_channel=upsample_initial_channel)
+    model = _model(cfg, cuda_device)
+    mel = torch.from_numpy(np.random.default_rng(4).standard_normal((2, 128, 12)).astype(np.float32) - 5.0)
+    mel = mel.to(cuda_device)
+    with torch.inference_mode():
+        BigVGAN.blockwise_stages, launches = 0, amp_stage.launches
+        got = model(mel)
+        assert BigVGAN.blockwise_stages == 2
+        assert amp_stage.launches - launches == 3 * 18
+        want = model.forward_plain(mel)
+    assert got.shape == (2, 1, 12 * 512) and bool(torch.isfinite(got).all())
+    assert _rel_l2(got, want) <= 1e-4

@@ -225,8 +225,8 @@ def test_batched_cli_equals_per_file_and_jax(tmp_path, monkeypatch, family):
     model, sd = _hifigan(7) if family == "hifigan" else _vocos(7)
     jcfg = jhifigan.HiFiGANConfig(**HIFI) if family == "hifigan" else _vocos_cfgs()[1]
     jmod = jhifigan if family == "hifigan" else jvocos
-    task = tconfig.TaskConfig(sampling_rate=8000, n_fft=64, hop_length=16, win_length=64, num_mels=8,
-                              generator_name=family, generator=model.cfg)
+    task = tconfig.GANTaskConfig(sampling_rate=8000, n_fft=64, hop_length=16, win_length=64, num_mels=8,
+                                 generator_name=family, generator=model.cfg)
     monkeypatch.setattr(infer, "build_task_config", lambda model, resolution: task)
     torch.save({"state_dict": {f"generator.{k}": v for k, v in sd.items()}}, tmp_path / "g.ckpt")
     (tmp_path / "in").mkdir()

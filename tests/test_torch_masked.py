@@ -14,7 +14,7 @@ import torch
 from vocoder_tpu.models import bigvgan as jbigvgan
 from vocoder_tpu.ops import antialias as jaa
 from vocoder_tpu_torch.cli import infer
-from vocoder_tpu_torch.config import TaskConfig
+from vocoder_tpu_torch.config import GANTaskConfig
 from vocoder_tpu_torch.convert import bigvgan_state_dict_from_jax
 from vocoder_tpu_torch.data.audio_io import read_wav, write_wav
 from vocoder_tpu_torch.models.bigvgan import BigVGAN, BigVGANConfig, random_state_dict
@@ -179,9 +179,9 @@ def test_bigvgan_padded_batch_equals_per_item_runs(dtype):
             assert not out[i, :, n * 16 :].any()
 
 
-def _tiny_task(kw) -> TaskConfig:
-    return TaskConfig(sampling_rate=8000, n_fft=64, hop_length=16, win_length=64, num_mels=8,
-                      generator_name="bigvgan", generator=BigVGANConfig(**kw))
+def _tiny_task(kw) -> GANTaskConfig:
+    return GANTaskConfig(sampling_rate=8000, n_fft=64, hop_length=16, win_length=64, num_mels=8,
+                         generator_name="bigvgan", generator=BigVGANConfig(**kw))
 
 
 def test_batched_cli_matches_jax_apply_per_file_and_batch_1(tmp_path, monkeypatch):

@@ -199,8 +199,8 @@ def test_infer_cli_on_cpu_matches_jax_apply(tmp_path, monkeypatch):
     from vocoder_tpu.parallel.streaming import chunked_synthesis as jchunked
 
     kw = dict(NARROW, resblock_kernel_sizes=(3,), resblock_dilation_sizes=((1, 3),))  # (3, 7, 11): test_bigvgan_matches_jax_apply
-    task = tconfig.TaskConfig(sampling_rate=8000, n_fft=64, hop_length=16, win_length=64, num_mels=8,
-                              generator_name="bigvgan", generator=BigVGANConfig(**kw))
+    task = tconfig.GANTaskConfig(sampling_rate=8000, n_fft=64, hop_length=16, win_length=64, num_mels=8,
+                                 generator_name="bigvgan", generator=BigVGANConfig(**kw))
     monkeypatch.setattr(infer, "build_task_config", lambda model, resolution: task)
     jcfg = jbigvgan.BigVGANConfig(**kw)
     rng = np.random.default_rng(11)

@@ -3,10 +3,13 @@
 This package stands beside the JAX package and imports nothing of it: the
 host-side pieces it needs (presets, WAV I/O, the resampler) are its own
 copies.  It currently carries inference for BigVGAN, HiFiGAN and Vocos end
-to end, per file or in exact padded batches:
+to end, per file or in exact padded batches, and GAN training of BigVGAN and
+HiFiGAN:
 
     python -m vocoder_tpu_torch.cli.infer --model bigvgan|hifigan|vocos \\
         --resolution 44100_512_2048 --ckpt G.ckpt --input in/ --output out/ [--batch 16]
+    python -m vocoder_tpu_torch.cli.train --model bigvgan|hifigan \\
+        "data.train_roots=('wavs/',)" run.workdir=logs/run
 
 Layout.  The generator keeps the JAX package's contract at its public
 function: mel ``(B, num_mels, F)`` in, waveform ``(B, 1, F * hop)`` out.

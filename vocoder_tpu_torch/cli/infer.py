@@ -1,15 +1,19 @@
 """Inference CLI: mel or audio -> waveform, on the card.
 
 Counterpart of ``vocoder_tpu/cli/infer.py``: load a reference-layout torch
-checkpoint (``generator.`` prefix), fold weight norm, then for each ``.wav``
+checkpoint (``generator.`` prefix; ``--trust-checkpoint`` for one that pickles
+objects besides tensors) or the latest generator of a port training run
+(``--ckpt <workdir>`` or ``<workdir>/checkpoints``, whose ``config.json``
+then sets the task config, as the JAX package's CLI does), fold weight norm,
+then for each ``.wav``
 (log-mel computed here, after an optional ``--pitch-shift``) or ``.npy`` /
 ``.pt`` mel input synthesise under ``torch.inference_mode()`` and write a
 16-bit WAV.  Library convs and matmuls run in full fp32 (no TF32), as the
 JAX package runs them at ``Precision.HIGHEST``.
 
-    python -m vocoder_tpu_torch.cli.infer --model bigvgan|hifigan|vocos --resolution 44100_512_2048 \\
-        --ckpt G.ckpt --input in_dir --output out_dir [--device cuda|cpu] [--chunk-frames N] \\
-        [--batch N] [--pitch-shift SEMITONES]
+    python -m vocoder_tpu_torch.cli.infer --model hifigan|bigvgan|vocos --resolution 44100_512_2048 \\
+        --ckpt G.ckpt|workdir --input in_dir --output out_dir [--device cuda|cpu] [--chunk-frames N] \\
+        [--batch N] [--pitch-shift SEMITONES] [--trust-checkpoint]
 
 ``--batch N`` synthesises N items per forward (hifigan, vocos, bigvgan): the
 items (one per channel of each file) are sorted by length, each group is
@@ -19,20 +23,21 @@ masking makes every row equal to that item's own forward.  Files longer than
 at a time, as every file does at ``--batch 1``.
 
 Runs on ``cuda`` unless ``--device cpu`` is given; it never falls back to the
-CPU by itself.  f0 templates, Orbax checkpoints and FLAC/Ogg/MP3 input are
-not yet ported.
+CPU by itself.  f0 templates, Orbax checkpoints (the JAX package's) and
+FLAC/Ogg/MP3 input are not yet ported.
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 import time
 from pathlib import Path
 
 import numpy as np
 import torch
 
-from vocoder_tpu_torch.config import TaskConfig, build_task_config
+from vocoder_tpu_torch.config import build_task_config, overlay_task_config
 from vocoder_tpu_torch.convert import load_reference_state_dict
 from vocoder_tpu_torch.data.audio_io import AUDIO_EXTENSIONS, read_audio, write_wav
 from vocoder_tpu_torch.data.resample import resample
@@ -40,6 +45,8 @@ from vocoder_tpu_torch.models.registry import get_generator
 from vocoder_tpu_torch.nn import fold_weight_norm, set_full_precision
 from vocoder_tpu_torch.ops.spectral import log_mel_spectrogram
 from vocoder_tpu_torch.parallel.streaming import chunked_synthesis
+from vocoder_tpu_torch.train.gan import GANTaskConfig
+from vocoder_tpu_torch.utils.checkpoint import CheckpointManager
 
 MEL_SUFFIXES = {".npy", ".pt", ".pth"}
 # Families whose forward takes frame_lengths (vocoder_tpu/cli/infer.py's batchable rule).
@@ -53,14 +60,39 @@ def resolve_device(name: str) -> torch.device:
     return device
 
 
-def load_generator(ckpt: str | Path, task: TaskConfig, device: torch.device) -> torch.nn.Module:
-    """The generator with the checkpoint's weights, weight norm folded, in eval mode on device."""
+def load_generator(ckpt: str | Path, task: GANTaskConfig, device: torch.device, trust: bool = False) -> torch.nn.Module:
+    """The generator with the checkpoint's weights, weight norm folded, in eval mode on device.
+
+    ``ckpt``: a reference-layout file (``trust``: see ``load_reference_state_dict``), or a port
+    training run's workdir or its ``checkpoints`` directory, whose latest checkpoint is read."""
     model = get_generator(task.generator_name).module_cls(task.generator)
-    model.load_state_dict(load_reference_state_dict(ckpt, keys=model.state_dict().keys()))
+    path = Path(ckpt)
+    if path.is_dir():
+        run = path / "checkpoints" if (path / "checkpoints").is_dir() else path
+        model.load_state_dict(CheckpointManager(run).load()["generator"])
+    else:
+        model.load_state_dict(load_reference_state_dict(path, keys=model.state_dict().keys(), trust=trust))
     return fold_weight_norm(model).to(device).eval()
 
 
-def load_mel_item(f: Path, task: TaskConfig, device: torch.device, pitch_shift: float = 0.0) -> torch.Tensor:
+def restore_task_config(task: GANTaskConfig, ckpt: str | Path) -> GANTaskConfig:
+    """For a training run's directory: the task config its ``config.json`` records, over the preset
+    (so overridden widths load), refusing another generator than ``--model`` names."""
+    path = Path(ckpt)
+    if not path.is_dir():
+        return task
+    for cand in (path / "config.json", path.parent / "config.json"):
+        if cand.is_file():
+            saved = json.loads(cand.read_text()).get("task", {})
+            if saved.get("generator_name", task.generator_name) != task.generator_name:
+                raise SystemExit(f"{cand} records generator {saved['generator_name']!r}; pass --model "
+                                 f"accordingly (got {task.generator_name!r})")
+            print(f"task config restored from {cand}", flush=True)
+            return overlay_task_config(task, saved)
+    return task
+
+
+def load_mel_item(f: Path, task: GANTaskConfig, device: torch.device, pitch_shift: float = 0.0) -> torch.Tensor:
     """One input file -> mel (channels, num_mels, F) float32 on device.
 
     The per-file and the batched paths share it, so their preprocessing (mel
@@ -93,7 +125,7 @@ def load_mel_item(f: Path, task: TaskConfig, device: torch.device, pitch_shift: 
     )
 
 
-def synthesize(model: torch.nn.Module, mel: torch.Tensor, task: TaskConfig, chunk_frames: int) -> torch.Tensor:
+def synthesize(model: torch.nn.Module, mel: torch.Tensor, task: GANTaskConfig, chunk_frames: int) -> torch.Tensor:
     """mel (C, num_mels, F) -> audio (C, 1, F * hop), chunked per channel past chunk_frames."""
     if chunk_frames and mel.shape[2] > chunk_frames:
         return torch.cat(
@@ -105,7 +137,7 @@ def synthesize(model: torch.nn.Module, mel: torch.Tensor, task: TaskConfig, chun
     return model(mel)
 
 
-def batchable(task: TaskConfig, batch: int) -> bool:
+def batchable(task: GANTaskConfig, batch: int) -> bool:
     """Whether ``--batch`` can run masked batches for this generator: a family with
     ``frame_lengths``, no f0 template, and an even (kernel - rate) at every upsample
     stage (an odd one would shift each item's output length by a sample a stage)."""
@@ -116,7 +148,7 @@ def batchable(task: TaskConfig, batch: int) -> bool:
     return not any((k - u) % 2 for u, k in ups)
 
 
-def min_batch_frames(task: TaskConfig) -> int:
+def min_batch_frames(task: GANTaskConfig) -> int:
     """The shortest file the batched path takes; shorter ones go per file.  BigVGAN's is
     ceil(32 / rates[0]) frames, as in the JAX package's CLI, so both CLIs batch the same files."""
     if task.generator_name == "bigvgan":
@@ -124,14 +156,14 @@ def min_batch_frames(task: TaskConfig) -> int:
     return 1
 
 
-def _write(out_root: Path, in_root: Path, f: Path, audio: np.ndarray, task: TaskConfig) -> Path:
+def _write(out_root: Path, in_root: Path, f: Path, audio: np.ndarray, task: GANTaskConfig) -> Path:
     out_path = out_root / f.relative_to(in_root).with_suffix(".wav")
     out_path.parent.mkdir(parents=True, exist_ok=True)
     write_wav(out_path, audio, task.sampling_rate)
     return out_path
 
 
-def batched_synthesis(model, files: list[Path], task: TaskConfig, device: torch.device, args,
+def batched_synthesis(model, files: list[Path], task: GANTaskConfig, device: torch.device, args,
                       in_root: Path, out_root: Path) -> list[Path]:
     """Length-sorted exact batched synthesis of ``files``; returns the files deferred to
     the per-file path (longer than ``--chunk-frames``, or shorter than ``min_batch_frames``).
@@ -174,9 +206,12 @@ def batched_synthesis(model, files: list[Path], task: TaskConfig, device: torch.
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description="Vocoder inference (PyTorch + CUDA)")
-    ap.add_argument("--model", default="bigvgan", help="bigvgan, hifigan, vocos, vocos_small or vocos_huge")
+    ap.add_argument("--model", default="hifigan", help="hifigan, bigvgan, vocos, vocos_small or vocos_huge")
     ap.add_argument("--resolution", default="44100_512_2048")
-    ap.add_argument("--ckpt", required=True, help="reference-layout .ckpt/.pt with a generator. state_dict")
+    ap.add_argument("--ckpt", required=True, help="reference-layout .ckpt/.pt with a generator. state_dict, "
+                    "or a training run's workdir (or its checkpoints directory)")
+    ap.add_argument("--trust-checkpoint", action="store_true",
+                    help="load a reference checkpoint that pickles objects besides tensors (runs its code)")
     ap.add_argument("--input", required=True, help="audio/mel file or directory")
     ap.add_argument("--output", required=True, help="output directory")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
@@ -192,10 +227,10 @@ def main(argv=None) -> None:
     )
     args = ap.parse_args(argv)
 
-    task = build_task_config(args.model, args.resolution)
+    task = restore_task_config(build_task_config(args.model, args.resolution), args.ckpt)
     device = resolve_device(args.device)
     set_full_precision()
-    model = load_generator(args.ckpt, task, device)
+    model = load_generator(args.ckpt, task, device, args.trust_checkpoint)
 
     input_path = Path(args.input)
     files = [input_path] if input_path.is_file() else sorted(input_path.rglob("*"))

@@ -1,20 +1,32 @@
-"""Resolution and generator presets, and the inference task config.
+"""Presets, the training config tree and its dotted overrides.
 
-A copy of the presets in ``vocoder_tpu/config.py`` (resolutions, upsample
-factorizations, the generator presets of the ported families: hifigan,
-vocos, vocos_small, vocos_huge and bigvgan); that module imports the JAX
-models, so the port keeps its own.  Each preset maps a resolution to the
-generator's registry name and its config.  ``tests/test_torch_models.py``
-and ``tests/test_torch_hifigan_vocos.py`` hold them equal field by field.
+A copy of what the port needs of ``vocoder_tpu/config.py`` (that module
+imports the JAX models, so the port keeps its own): the resolution presets
+and upsample factorizations, the generator presets of the ported families
+(hifigan, vocos, vocos_small, vocos_huge and bigvgan), ``build_task_config``
+(the "gan" family's ``GANTaskConfig``: MPD periods (3, 5, 7, 11, 17, 23,
+37), the MRD and MR-STFT resolutions, 128-frame crops, hop * 32 for the
+discriminators), ``DataConfig``, ``RunConfig``, ``TrainConfig``,
+``build_train_config``, the dotted overrides (``run.max_steps=4``) and
+``overlay_task_config``, which rebuilds a task config from a workdir's
+``config.json``.  Each preset maps a resolution to the generator's registry
+name and its config.  The tests hold them equal to the JAX package's field by
+field.  ``RunConfig`` drops the JAX package's mesh, profiler and split-step
+fields, which the port does not have yet (ROADMAP.md).
 """
 
 from __future__ import annotations
 
+import ast
 import dataclasses
 import functools
 from typing import Any
 
+from vocoder_tpu_torch.models.mpd import MPDConfig
+from vocoder_tpu_torch.models.mrd import MRDConfig
 from vocoder_tpu_torch.models.registry import get_generator
+from vocoder_tpu_torch.train.gan import GANTaskConfig
+from vocoder_tpu_torch.train.schedule import WarmupCosineConfig
 
 RESOLUTIONS: dict[str, dict] = {
     "44100_512_2048": dict(sampling_rate=44100, num_mels=128, n_fft=2048, hop_length=512, win_length=2048),
@@ -83,21 +95,14 @@ GENERATOR_PRESETS = {
 }
 
 
-@dataclasses.dataclass(frozen=True)
-class TaskConfig:
-    """What inference needs of the JAX package's GANTaskConfig."""
-
-    sampling_rate: int
-    n_fft: int
-    hop_length: int
-    win_length: int
-    num_mels: int
-    generator_name: str
-    generator: Any
+def _mrd_resolutions(res: dict) -> tuple:
+    """The MRD's and the MR-STFT loss's resolutions: the model's first, then the fixed set (gan.yaml)."""
+    return ((res["n_fft"], res["hop_length"], res["win_length"]),
+            (1024, 120, 600), (2048, 240, 1200), (4096, 480, 2400), (512, 50, 240))
 
 
-def build_task_config(model: str = "bigvgan", resolution: str = "44100_512_2048") -> TaskConfig:
-    """The inference config of a generator preset (``vocos-huge`` reads as ``vocos_huge``) at a resolution."""
+def build_task_config(model: str = "hifigan", resolution: str = "44100_512_2048") -> GANTaskConfig:
+    """The "gan" task config of a generator preset (``vocos-huge`` reads as ``vocos_huge``) at a resolution."""
     model = model.replace("-", "_")
     if resolution not in RESOLUTIONS:
         raise KeyError(f"unknown resolution {resolution!r}; available: {sorted(RESOLUTIONS)}")
@@ -106,7 +111,8 @@ def build_task_config(model: str = "bigvgan", resolution: str = "44100_512_2048"
         raise KeyError(f"unknown generator preset {model!r}; available: {sorted(GENERATOR_PRESETS)}")
     res = RESOLUTIONS[resolution]
     generator_name, generator = GENERATOR_PRESETS[model](res)
-    return TaskConfig(
+    mrd_res = _mrd_resolutions(res)
+    return GANTaskConfig(
         sampling_rate=res["sampling_rate"],
         n_fft=res["n_fft"],
         hop_length=res["hop_length"],
@@ -114,4 +120,120 @@ def build_task_config(model: str = "bigvgan", resolution: str = "44100_512_2048"
         num_mels=res["num_mels"],
         generator_name=generator_name,
         generator=generator,
+        mpd=MPDConfig(periods=(3, 5, 7, 11, 17, 23, 37)),
+        mrd=MRDConfig(resolutions=mrd_res),
+        stft_resolutions=mrd_res,
+        num_frames=128,
+        crop_length=res["hop_length"] * 32,
+        schedule=WarmupCosineConfig(val_base=1e-4, val_final=0.0, max_decay_steps=5_000_000),
     )
+
+
+@dataclasses.dataclass(frozen=True)
+class DataConfig:
+    """The reference's data/vocoder.yaml."""
+
+    train_roots: tuple = ()  # directories or filelists
+    train_probs: tuple = ()
+    val_root: str | None = None
+    batch_size: int = 16
+    val_batch_size: int = 2
+    val_crop_frames: int = 1000
+    num_workers: int = 4  # decode/augment worker threads
+
+
+@dataclasses.dataclass(frozen=True)
+class RunConfig:
+    """The reference's trainer/default.yaml and callbacks/default.yaml."""
+
+    max_steps: int = 10_000_000
+    val_interval: int = 5000
+    ckpt_interval: int = 20_000
+    log_interval: int = 100
+    seed: int = 594461
+    precision: str = "highest"  # "highest": fp32, TF32 off; "default": TF32 on
+    ckpt_path: str | None = None
+    resume_weights_only: bool = False
+    workdir: str = "logs/train"
+    early_stop_patience: int | None = None  # validations without a val mel-L1 improvement
+    val_pesq: bool = True  # PESQ is not yet ported: the trainer refuses True with a val_root
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    task: GANTaskConfig
+    data: DataConfig = DataConfig()
+    run: RunConfig = RunConfig()
+
+
+def build_train_config(model: str = "hifigan", resolution: str = "44100_512_2048", overrides=()) -> TrainConfig:
+    return apply_overrides(TrainConfig(task=build_task_config(model, resolution)), overrides)
+
+
+class _Leaf:
+    __slots__ = ("value",)
+
+    def __init__(self, value):
+        self.value = value
+
+
+def _parse_value(s: str) -> Any:
+    try:
+        return ast.literal_eval(s)
+    except (ValueError, SyntaxError):
+        return s
+
+
+def _apply_tree(obj, tree: dict):
+    """Apply a nested override tree with one replace per dataclass, so sibling fields change
+    together and invariants across fields (prod(upsample_rates) == hop_length) stay satisfiable."""
+    changes = {}
+    for key, node in tree.items():
+        if isinstance(node, _Leaf):
+            changes[key] = node.value
+        elif dataclasses.is_dataclass(obj):
+            changes[key] = _apply_tree(getattr(obj, key), node)
+        elif isinstance(obj, dict):
+            changes[key] = _apply_tree(obj[key], node)
+        else:
+            raise TypeError(f"cannot descend into {type(obj)} at {key!r}")
+    if dataclasses.is_dataclass(obj):
+        return dataclasses.replace(obj, **changes)
+    if isinstance(obj, dict):
+        return {**obj, **changes}
+    raise TypeError(f"cannot apply overrides {list(tree)} to {type(obj)}")
+
+
+def apply_overrides(cfg, overrides) -> Any:
+    """Dotted ``key.sub=value`` overrides; values parse as Python literals, else stay strings."""
+    tree: dict = {}
+    for ov in overrides:
+        key, eq, raw = ov.partition("=")
+        if eq != "=":
+            raise ValueError(f"override must be key=value, got {ov!r}")
+        parts = key.split(".")
+        node = tree
+        for part in parts[:-1]:
+            node = node.setdefault(part, {})
+            if not isinstance(node, dict):
+                raise ValueError(f"override {key!r} conflicts with an earlier leaf")
+        if isinstance(node.get(parts[-1]), dict):
+            raise ValueError(f"override {key!r} conflicts with an earlier deeper override")
+        node[parts[-1]] = _Leaf(_parse_value(raw))
+    return _apply_tree(cfg, tree) if tree else cfg
+
+
+def _tuplify(v):
+    return tuple(_tuplify(x) for x in v) if isinstance(v, list) else v
+
+
+def overlay_task_config(template, d: dict):
+    """``template`` with the values of a ``config.json`` asdict() tree: nested dataclasses recovered by
+    the template's types, lists back to tuples, keys the template does not know ignored."""
+    kw = {}
+    for f in dataclasses.fields(type(template)):
+        if f.name not in d:
+            continue
+        v, cur = d[f.name], getattr(template, f.name)
+        kw[f.name] = overlay_task_config(cur, v) if dataclasses.is_dataclass(cur) and isinstance(v, dict) else _tuplify(v)
+    return dataclasses.replace(template, **kw)

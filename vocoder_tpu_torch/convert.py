@@ -20,6 +20,7 @@ keeps the generator's entries (``generator.`` prefix) under the port's names.
 
 from __future__ import annotations
 
+import pickle
 from pathlib import Path
 
 import numpy as np
@@ -134,7 +135,8 @@ def vocos_state_dict_from_jax(params: dict) -> dict[str, torch.Tensor]:
     return sd
 
 
-def load_reference_state_dict(path: str | Path, prefix: str = "generator.", keys=None) -> dict[str, torch.Tensor]:
+def load_reference_state_dict(path: str | Path, prefix: str = "generator.", keys=None,
+                              trust: bool = False) -> dict[str, torch.Tensor]:
     """A reference checkpoint's generator entries, renamed to the port's keys.
 
     Accepts ``{"state_dict": {...}}`` or a bare state_dict, with weight norm
@@ -144,9 +146,21 @@ def load_reference_state_dict(path: str | Path, prefix: str = "generator.", keys
     direction) from a plain one (kept); without it every ``weight`` is taken
     as weight-normed, as in BigVGAN and HiFiGAN.  The anti-aliasing FIR
     buffers (``*.filter``) and the iSTFT window (``*.window``) are dropped:
-    the port computes those.  Loads tensors only (``weights_only``).
+    the port computes those.
+
+    Loads tensors and plain containers only (``weights_only``).  A checkpoint
+    that also pickles objects (a Lightning ``hyper_parameters`` namespace, say)
+    raises ``pickle.UnpicklingError`` naming ``--trust-checkpoint``; with
+    ``trust`` it loads with ``weights_only=False``, as the JAX package's CLI
+    does, which runs whatever code the pickle holds.
     """
-    ckpt = torch.load(path, map_location="cpu", weights_only=True)
+    try:
+        ckpt = torch.load(path, map_location="cpu", weights_only=not trust)
+    except pickle.UnpicklingError as e:
+        raise pickle.UnpicklingError(
+            f"{path}: the checkpoint pickles objects besides tensors, which loading would run as code; if you "
+            f"trust its source, pass --trust-checkpoint (load_reference_state_dict(..., trust=True)) ({e})"
+        ) from e
     sd = ckpt.get("state_dict", ckpt)
     keys = None if keys is None else set(keys)
     out: dict[str, torch.Tensor] = {}

@@ -1,7 +1,8 @@
-"""WAV read/write with the standard library and numpy.
+"""WAV read/write with the standard library and numpy, and the audio-file lister.
 
-A copy of the WAV codec in ``vocoder_tpu/data/audio_io.py`` (PCM 8/16/24/32
-and IEEE float in, 16-bit PCM out).  FLAC, Ogg and MP3 are not yet ported:
+A copy of the WAV codec and ``list_audio_files`` in
+``vocoder_tpu/data/audio_io.py`` (PCM 8/16/24/32 and IEEE float in, 16-bit
+PCM out).  FLAC, Ogg and MP3 are not yet ported:
 ``read_audio`` raises a clear error for any suffix but ``.wav``.
 """
 
@@ -96,3 +97,11 @@ def write_wav(path: str | Path, audio: np.ndarray, sample_rate: int) -> None:
         w.setsampwidth(2)
         w.setframerate(sample_rate)
         w.writeframes(pcm.tobytes())
+
+
+def list_audio_files(path: str | Path) -> list[Path]:
+    """Every file under ``path``, recursively, with a suffix of ``AUDIO_EXTENSIONS``, sorted."""
+    path = Path(path)
+    if not path.exists():
+        raise FileNotFoundError(f"Directory {path} does not exist.")
+    return sorted(p for p in path.rglob("*") if p.is_file() and p.suffix.lower() in AUDIO_EXTENSIONS)

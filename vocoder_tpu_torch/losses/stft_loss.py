@@ -1,0 +1,30 @@
+"""Multi-resolution STFT loss.
+
+Counterpart of ``vocoder_tpu/losses/stft_loss.py`` (the reference's
+kan-bayashi formulation): per resolution, a center reflect-padded Hann
+magnitude STFT with sqrt(max(power, 1e-6)); spectral convergence
+||y - x||_F / ||y||_F and log-magnitude L1, each averaged over resolutions.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from vocoder_tpu_torch.ops.spectral import stft_magnitude
+
+
+def stft_loss_single(x: torch.Tensor, y: torch.Tensor, res: tuple) -> tuple[torch.Tensor, torch.Tensor]:
+    """x, y: (B, T) predicted and ground truth -> (spectral convergence, log-magnitude L1)."""
+    n_fft, hop, win = res
+    kw = dict(n_fft=n_fft, hop_length=hop, win_length=win, padding="center", mag_mode="clamp_inside")
+    x_mag, y_mag = stft_magnitude(x, **kw), stft_magnitude(y, **kw)
+    sc = torch.linalg.vector_norm(y_mag - x_mag) / torch.linalg.vector_norm(y_mag)
+    mag = torch.mean(torch.abs(torch.log(y_mag) - torch.log(x_mag)))
+    return sc, mag
+
+
+def multi_resolution_stft_loss(x: torch.Tensor, y: torch.Tensor, resolutions: tuple):
+    """(spectral convergence, log-magnitude L1), each averaged over ``resolutions`` of (n_fft, hop, win)."""
+    losses = [stft_loss_single(x, y, res) for res in resolutions]
+    n = len(resolutions)
+    return sum(sc for sc, _ in losses) / n, sum(mag for _, mag in losses) / n

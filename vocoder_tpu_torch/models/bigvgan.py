@@ -8,10 +8,17 @@ conv and ``tanh``.  Submodule names follow the reference, so the state_dict
 keys are the reference's (``conv_pre``, ``ups``, ``resblocks``,
 ``activation_post``, ``conv_post``).
 
-Every AMP stage runs through ``ops.amp_block.amp_stage`` (kernel K2 on the
-card) and ``activation_post`` through ``ops.aa_snake.aa_snake`` (kernel K1);
-the pre/post convs and the transposed-conv upsamples are ``torch.nn``
-layers, as the JAX package left them to XLA.
+In eval mode every AMP stage runs through ``ops.amp_block.amp_stage``
+(kernel K2 on the card) and ``activation_post`` through
+``ops.aa_snake.aa_snake`` (kernel K1); the pre/post convs and the
+transposed-conv upsamples are ``torch.nn`` layers, as the JAX package left
+them to XLA.  A stage runs block by block instead (``AMPBlock.forward``:
+each activation K1, each conv ``torch.nn``), counted in
+``BigVGAN.blockwise_stages`` on the kernel path, when the module is in training mode (K2 is
+forward only, as the JAX package's fused stage runs only ``not training``)
+or when K2 does not take its width (``amp_block.kernel_takes``, decided from
+the shape before any launch, as the JAX package's ``amp_stage_supported``).
+In training, K1 runs under autograd (``ops.aa_snake.AASnakeFunction``).
 
 ``frame_lengths`` (B,) makes a right-padded batch exact: every time-mixing
 layer's output is masked past each item's length (scaled by each upsample
@@ -31,7 +38,7 @@ from torch import nn
 
 from vocoder_tpu_torch.nn import conv1d, conv_transpose1d, get_padding, length_mask
 from vocoder_tpu_torch.ops.aa_snake import aa_snake
-from vocoder_tpu_torch.ops.amp_block import amp_stage, amp_stage_plain
+from vocoder_tpu_torch.ops.amp_block import amp_stage, amp_stage_plain, kernel_takes
 from vocoder_tpu_torch.ops.antialias import aa_snake_plain, snake_params
 
 
@@ -78,15 +85,20 @@ class Activation1d(nn.Module):
         self.activation = activation
         self.logscale = logscale
 
-    def forward(self, x: torch.Tensor, lengths=None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, lengths=None, plain: bool = False) -> torch.Tensor:
+        """K1 (``aa_snake``), or with ``plain`` the plain version (under autograd: autograd through it)."""
+        if plain:
+            return aa_snake_plain(x, *snake_params(self.activation.alpha, self.activation.beta, self.logscale),
+                                  lengths)
         return aa_snake(x, self.activation.alpha, self.activation.beta, self.logscale, lengths)
 
 
 class AMPBlock(nn.Module):
     """One AMP resblock: per dilation d, act -> conv(k, d) -> act -> conv(k) -> + x.
 
-    Its forward is the stage-level ``amp_stage`` (the blocks of a stage run
-    together there); the block holds the parameters and the shape."""
+    In eval mode a stage's blocks run together in ``amp_stage``; ``forward`` is the
+    block alone, the JAX package's ``_amp_apply``, for training and for widths K2
+    does not take."""
 
     def __init__(self, channels: int, kernel_size: int, dilations: tuple, cfg: BigVGANConfig, device=None):
         super().__init__()
@@ -106,9 +118,20 @@ class AMPBlock(nn.Module):
             ]
         )
 
+    def forward(self, x: torch.Tensor, lens=None, plain: bool = False) -> torch.Tensor:
+        """x (B, C, T) -> x + the block's residual branches; ``lens`` masks each conv output past
+        each item's length; ``plain``: the activations' plain version."""
+        for i, (c1, c2) in enumerate(zip(self.convs1, self.convs2)):
+            xt = length_mask(c1(self.activations[2 * i](x, lens, plain)), lens)
+            xt = length_mask(c2(self.activations[2 * i + 1](xt, lens, plain)), lens)
+            x = x + xt
+        return x
+
 
 class BigVGAN(nn.Module):
     """mel (B, num_mels, F) -> waveform (B, 1, F * hop)."""
+
+    blockwise_stages = 0  # AMP stages the kernel path ran block by block, over every instance
 
     def __init__(self, cfg: BigVGANConfig, device=None):
         super().__init__()
@@ -154,12 +177,14 @@ class BigVGAN(nn.Module):
             if lens is not None:
                 lens = lens * u
                 x = length_mask(x, lens)
-            x = stage(list(self.resblocks[i * n_k : (i + 1) * n_k]), x, cfg.snake_logscale, lens)
-        if plain:
-            post = self.activation_post.activation
-            x = aa_snake_plain(x, *snake_params(post.alpha, post.beta, True), lens)
-        else:
-            x = self.activation_post(x, lens)
+            blocks = list(self.resblocks[i * n_k : (i + 1) * n_k])
+            if self.training or not kernel_takes(x.shape[1]):
+                if not plain:
+                    BigVGAN.blockwise_stages += 1
+                x = sum(blk(x, lens, plain) for blk in blocks) / n_k
+            else:
+                x = stage(blocks, x, cfg.snake_logscale, lens)
+        x = self.activation_post(x, lens, plain)
         return length_mask(torch.tanh(self.conv_post(x)), lens)
 
 

@@ -16,7 +16,17 @@ length and zero past it, so it equals the activation of that item alone.
 ``aa_snake`` takes a CPU tensor to the plain version
 (``antialias.aa_snake_plain``) and launches the kernel for a CUDA tensor, or
 raises.  ``aa_snake.launches`` counts kernel launches, with lengths or
-without.  The backward kernel waits for the training slice.
+without.
+
+Under autograd (grad enabled and an input that requires it) ``aa_snake``
+runs ``AASnakeFunction``: its forward is the kernel on a CUDA tensor (the
+plain version on the CPU), its backward ``antialias.aa_snake_plain_vjp`` in
+plain PyTorch, the exact VJP of the plain version's function.  It saves x
+and the exp'ed alpha and beta only, as the JAX package's ``custom_vjp`` of
+``fused_aa_snake`` saves its primals; ``exp``'s chain rule stays outside, with
+autograd.  The JAX package's backward is XLA, not a Pallas kernel, so there is
+no backward kernel to port; one waits until its share of the training step
+calls for it.  ``aa_snake_kernel`` itself stays forward only.
 """
 
 from __future__ import annotations
@@ -27,7 +37,7 @@ import functools
 import torch
 
 from vocoder_tpu_torch.ops import build
-from vocoder_tpu_torch.ops.antialias import aa_snake_plain, snake_params
+from vocoder_tpu_torch.ops.antialias import aa_snake_plain, aa_snake_plain_vjp, snake_params
 
 # Operations per output sample, for the roofline bound, an FMA counted as two.
 # The plain version's order (aa::Exact, K2's prologue): two 6-tap branch FIRs
@@ -88,10 +98,34 @@ def aa_snake_kernel(x: torch.Tensor, alpha: torch.Tensor, beta: torch.Tensor | N
     return z
 
 
+class AASnakeFunction(torch.autograd.Function):
+    """The anti-aliased Snake under autograd: (x (B, C, T), alpha, beta) with alpha/beta the (C,)
+    parameters already exp'ed.  Forward: K1 on a CUDA tensor, the plain version on the CPU.
+    Backward: ``aa_snake_plain_vjp``, from x, alpha and beta alone."""
+
+    @staticmethod
+    def forward(ctx, x, alpha, beta):
+        ctx.save_for_backward(x, alpha, beta)
+        if x.is_cuda:
+            return aa_snake_kernel(x, alpha, beta, False)
+        if x.device.type != "cpu":
+            raise RuntimeError(f"aa_snake: no kernel for device {x.device}")
+        return aa_snake_plain(x, alpha, beta)
+
+    @staticmethod
+    def backward(ctx, gz):
+        with torch.profiler.record_function("aa_snake_backward"):
+            return aa_snake_plain_vjp(*ctx.saved_tensors, gz)
+
+
 def aa_snake(x: torch.Tensor, alpha: torch.Tensor, beta: torch.Tensor | None, logscale: bool,
              lengths=None) -> torch.Tensor:
     """Anti-aliased Snake on (B, C, T), each item clamped at its length where ``lengths`` is given:
-    the kernel for CUDA, the plain version for the CPU."""
+    the kernel for CUDA, the plain version for the CPU; ``AASnakeFunction`` under autograd."""
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in (x, alpha, beta)):
+        if lengths is not None:
+            raise NotImplementedError("aa_snake: per-item lengths under autograd are not ported")
+        return AASnakeFunction.apply(x.contiguous(), *snake_params(alpha, beta, logscale))
     if x.is_cuda:
         return aa_snake_kernel(x, alpha, beta, logscale, lengths)
     if x.device.type != "cpu":

@@ -39,6 +39,11 @@ modules and rebuilt when a parameter is replaced or changed in place;
 kernel for a CUDA tensor, or raises.  ``amp_stage.launches`` counts
 launches of the fp32 (3xTF32) route, ``amp_stage.mma_launches`` those of the
 bf16 route.  Forward only, as on the TPU.
+
+``kernel_takes`` says, from the width alone and before any launch, whether
+the kernel takes a stage, as the JAX package's ``amp_stage_supported`` does;
+the generator runs a stage it does not take (and every stage in training)
+block by block, and counts it in ``BigVGAN.blockwise_stages``.
 """
 
 from __future__ import annotations
@@ -97,6 +102,11 @@ def launch_shape(dtype: torch.dtype, c: int, b: int, t: int) -> tuple[int, int]:
     if err:
         raise ValueError(f"amp_stage: no launch at C = {c}, B = {b}, T = {t}")
     return shape[0], shape[1]
+
+
+def kernel_takes(channels: int) -> bool:
+    """Whether K2 takes a stage of this width: C <= 256 and C % 16 == 0."""
+    return channels <= MMA_MAX_CHANNELS and channels % 16 == 0
 
 
 def _snake(act) -> tuple[torch.Tensor, torch.Tensor | None]:

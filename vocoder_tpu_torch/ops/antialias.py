@@ -17,7 +17,14 @@ With per-item ``lengths`` (a right-padded batch) row b is that function of
 ``x[b, :, :L_b]`` alone, edge-replicated at its own end, then zeros: the
 JAX package's ``aa_snake_poly4_masked``, which needs L_b >= 32, while this
 one is exact at every length, 0 and 1 included.
-Arithmetic is fp32 whatever the input dtype; the result is cast back once.
+Arithmetic is fp32 whatever the input dtype (fp64 for an fp64 input, for
+``torch.autograd.gradcheck``); the result is cast back once.
+
+``aa_snake_plain_vjp`` is the exact VJP of that function, edges included
+(the clamped indices fold their gradients back onto the first and last
+samples): the backward of K1 under autograd, in plain PyTorch.  It takes
+x, alpha and beta only and recomputes the pre-activations, as the JAX
+package's ``aa_snake_core_bwd`` does.
 """
 
 from __future__ import annotations
@@ -154,9 +161,9 @@ def fast_sin(w: torch.Tensor) -> torch.Tensor:
 
 
 def snake(v: torch.Tensor, alpha: torch.Tensor, beta: torch.Tensor) -> torch.Tensor:
-    """v + sin^2(alpha v) / (beta + 1e-9) on (B, C, T); alpha/beta (C,) already exp'ed."""
-    a = alpha.float()[:, None]
-    inv_b = 1.0 / (beta.float()[:, None] + 1e-9)
+    """v + sin^2(alpha v) / (beta + 1e-9) on (B, C, T) in v's dtype; alpha/beta (C,) already exp'ed."""
+    a = alpha.to(v.dtype)[:, None]
+    inv_b = 1.0 / (beta.to(v.dtype)[:, None] + 1e-9)
     return v + inv_b * sin_sq(v * a)
 
 
@@ -177,6 +184,20 @@ def item_lengths(lengths, b: int, t: int) -> list[int]:
     return [min(max(int(v), 0), t) for v in values]
 
 
+def _compute_dtype(x: torch.Tensor) -> torch.dtype:
+    return torch.float64 if x.dtype == torch.float64 else torch.float32
+
+
+def _upsampled(x: torch.Tensor) -> torch.Tensor:
+    """y2 (B, C, 2T): the 2x upsampled x by the clamped polyphase form, in the compute dtype."""
+    t = x.shape[-1]
+    f_e, f_o, _, _ = (v.tolist() for v in polyphase_taps())
+    xp = F.pad(x.to(_compute_dtype(x)), (6, 6), mode="replicate")  # xp[q] = x[clamp(q - 6)]
+    even = sum(f_e[j] * xp[..., 3 + j : 3 + j + t] for j in range(6))  # y2[2v] / 2
+    odd = sum(f_o[j] * xp[..., 4 + j : 4 + j + t] for j in range(6))  # y2[2v + 1] / 2
+    return 2.0 * torch.stack([even, odd], dim=-1).flatten(-2)
+
+
 def aa_snake_plain(x: torch.Tensor, alpha: torch.Tensor, beta: torch.Tensor, lengths=None) -> torch.Tensor:
     """Anti-aliased snake on (B, C, T) by the clamped closed form above.
 
@@ -190,13 +211,55 @@ def aa_snake_plain(x: torch.Tensor, alpha: torch.Tensor, beta: torch.Tensor, len
             if n:
                 z[i, :, :n] = aa_snake_plain(x[i : i + 1, :, :n], alpha, beta)[0]
         return z
-    f_e, f_o, g_o, g_e = (v.tolist() for v in polyphase_taps())
-    xp = F.pad(x.float(), (6, 6), mode="replicate")  # xp[q] = x[clamp(q - 6)]
-    even = sum(f_e[j] * xp[..., 3 + j : 3 + j + t] for j in range(6))  # y2[2v] / 2
-    odd = sum(f_o[j] * xp[..., 4 + j : 4 + j + t] for j in range(6))  # y2[2v + 1] / 2
-    y2 = 2.0 * torch.stack([even, odd], dim=-1).flatten(-2)  # (B, C, 2T)
+    _, _, g_o, g_e = (v.tolist() for v in polyphase_taps())
+    y2 = _upsampled(x)
     s = F.pad(snake(y2, alpha, beta), (5, 6), mode="replicate")  # s[i] = snake(y2[clamp(i - 5)])
     # z[t] = sum_m f[m] s[2t + m], with f[2a] = g_e[a] and f[2a + 1] = g_o[a].
     z = sum(g_e[a] * s[..., 2 * a : 2 * a + 2 * t : 2] + g_o[a] * s[..., 2 * a + 1 : 2 * a + 1 + 2 * t : 2]
             for a in range(6))
     return z.to(x.dtype)
+
+
+def aa_snake_plain_vjp(x: torch.Tensor, alpha: torch.Tensor, beta: torch.Tensor, gz: torch.Tensor):
+    """(dx, d alpha, d beta) of ``aa_snake_plain(x, alpha, beta)`` for the upstream gradient gz.
+
+    alpha/beta are the (C,) parameters as the snake uses them (already exp'ed);
+    the chain rule through ``exp`` stays with the caller's autograd.  With
+    s = snake(v) = v + sin^2(a v) / (b + 1e-9):
+        ds/dv = 1 + a sin(2 a v) / (b + 1e-9),   ds/da = v sin(2 a v) / (b + 1e-9),
+        ds/db = -sin^2(a v) / (b + 1e-9)^2,
+    and each FIR's adjoint is the correlation with its taps reversed.  Every
+    clamped index adds its gradient to the sample it copies: the snake outputs
+    past either end of y2 to y2[0] and y2[2T - 1], the x samples past either end
+    to x[0] and x[T - 1] (the JAX package's ``dx.at[:, 0]`` and ``[:, t - 1]`` adds).
+    """
+    b, c, t = x.shape
+    f_e, f_o, g_o, g_e = (v.tolist() for v in polyphase_taps())
+    y2 = _upsampled(x)
+    cdt = y2.dtype
+    # z[t] = sum_a g_e[a] s[2t + 2a] + g_o[a] s[2t + 2a + 1]  ->  ds over s's 2T + 11 samples.
+    gzp = F.pad(gz.to(cdt), (5, 6))  # gzp[q] = gz[q - 5], zero outside
+    ds_e = sum(g_e[a] * gzp[..., 5 - a : 11 - a + t] for a in range(6))  # ds[2u], u < T + 6
+    ds_o = sum(g_o[a] * gzp[..., 5 - a : 10 - a + t] for a in range(6))  # ds[2u + 1], u < T + 5
+    ds = torch.cat([torch.stack([ds_e[..., : t + 5], ds_o], dim=-1).flatten(-2), ds_e[..., t + 5 :]], dim=-1)
+    dv = ds[..., 5 : 2 * t + 5].clone()  # s[i] = snake(y2[clamp(i - 5, 0, 2T - 1)])
+    dv[..., 0] += ds[..., :5].sum(-1)
+    dv[..., -1] += ds[..., 2 * t + 5 :].sum(-1)
+
+    a = alpha.to(cdt)[:, None]
+    inv_b = 1.0 / (beta.to(cdt)[:, None] + 1e-9)
+    s2 = fast_sin(2.0 * a * y2)
+    d_alpha = inv_b[:, 0] * (dv * y2 * s2).sum(dim=(0, 2))
+    d_beta = -(inv_b[:, 0] ** 2) * (dv * sin_sq(a * y2)).sum(dim=(0, 2))
+    dy2 = (dv * (1.0 + a * inv_b * s2)).unflatten(-1, (t, 2))
+
+    # y2[2v] = 2 sum_j f_e[j] xp[v + 3 + j], y2[2v + 1] = 2 sum_j f_o[j] xp[v + 4 + j].
+    d_even, d_odd = 2.0 * dy2[..., 0], 2.0 * dy2[..., 1]
+    dxp = torch.zeros(b, c, t + 12, dtype=cdt, device=x.device)
+    for j in range(6):
+        dxp[..., 3 + j : 3 + j + t] += f_e[j] * d_even
+        dxp[..., 4 + j : 4 + j + t] += f_o[j] * d_odd
+    dx = dxp[..., 6 : t + 6].clone()  # xp[q] = x[clamp(q - 6, 0, T - 1)]
+    dx[..., 0] += dxp[..., :6].sum(-1)
+    dx[..., -1] += dxp[..., t + 6 :].sum(-1)
+    return dx.to(x.dtype), d_alpha.to(alpha.dtype), d_beta.to(beta.dtype)

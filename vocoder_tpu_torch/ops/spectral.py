@@ -1,11 +1,17 @@
-"""Log-mel front end on ``torch.stft``, and the Vocos "same" iSTFT.
+"""Magnitude STFT and log-mel on ``torch.stft``, and the Vocos "same" iSTFT.
 
-Counterpart of ``mel_filterbank``, ``log_mel_spectrogram``, ``overlap_add``
-and ``istft_same`` in ``vocoder_tpu/ops/spectral.py``.  The log-mel is the
-reference's LinearSpectrogram -> slaney MelScale -> log: reflect padding of
-(win - hop) / 2 per side ("same_win"), a periodic Hann window of
-``win_length`` centred in ``n_fft``, ``sqrt(power + 1e-6)``, the slaney
-filterbank and ``log(clamp(mel, 1e-5))``.  The iSTFT is an inverse real FFT
+Counterpart of ``stft_magnitude``, ``mel_filterbank``, ``log_mel_spectrogram``,
+``overlap_add`` and ``istft_same`` in
+``vocoder_tpu/ops/spectral.py``.  ``stft_magnitude`` takes the JAX package's
+padding modes, all reflect: "same_win" ((win - hop) / 2 per side, the
+log-mel's), "same_nfft" ((n_fft - hop) / 2, the MRD's) and "center" (n_fft / 2,
+the MR-STFT loss's); windows "hann" (periodic, ``win_length`` centred in
+``n_fft``) and "boxcar" (the MRD's torch.stft without a window); magnitudes
+"eps_inside" sqrt(power + 1e-6), "clamp_inside" sqrt(max(power, 1e-6)) and
+"plain" sqrt(power), whose subgradient at zero power is 0 as torch.norm's is
+(a plain sqrt would send inf, and NaN the generator's gradient).  The log-mel
+is the reference's LinearSpectrogram -> slaney MelScale -> log: "same_win",
+"eps_inside", the slaney filterbank and ``log(clamp(mel, 1e-5))``.  The iSTFT is an inverse real FFT
 per frame (``torch.fft.irfft``; not ``torch.istft``, which pads and
 normalises otherwise), the Hann window, an explicit overlap-add and the
 division by the window-square envelope.  The JAX package computes both
@@ -76,6 +82,38 @@ def mel_filterbank(
     return fb.astype(np.float32)
 
 
+_PADDING = {
+    "same_win": lambda n_fft, hop, win: ((win - hop) // 2, (win - hop + 1) // 2),
+    "same_nfft": lambda n_fft, hop, win: ((n_fft - hop) // 2, (n_fft - hop + 1) // 2),
+    "center": lambda n_fft, hop, win: (n_fft // 2, n_fft // 2),
+}
+
+
+def stft_magnitude(x: torch.Tensor, *, n_fft: int, hop_length: int, win_length: int, padding: str = "same_win",
+                   mag_mode: str = "eps_inside", window: str = "hann") -> torch.Tensor:
+    """Magnitude STFT of (B, T) audio -> (B, n_fft // 2 + 1, frames), fp32."""
+    if padding not in _PADDING:
+        raise ValueError(f"unknown padding mode {padding!r}")
+    if window == "hann":
+        win = torch.as_tensor(hann_window(win_length), device=x.device)
+    elif window == "boxcar":
+        win = torch.ones(win_length, device=x.device)
+    else:
+        raise ValueError(f"unknown window {window!r}")
+    x = F.pad(x.float()[:, None, :], _PADDING[padding](n_fft, hop_length, win_length), mode="reflect")[:, 0, :]
+    spec = torch.stft(x, n_fft, hop_length=hop_length, win_length=win_length, window=win, center=False,
+                      return_complex=True)
+    power = spec.real.square() + spec.imag.square()
+    if mag_mode == "eps_inside":
+        return torch.sqrt(power + 1e-6)
+    if mag_mode == "clamp_inside":
+        return torch.sqrt(torch.clamp(power, min=1e-6))
+    if mag_mode == "plain":
+        nonzero = power > 0
+        return torch.where(nonzero, torch.sqrt(torch.where(nonzero, power, 1.0)), 0.0)
+    raise ValueError(f"unknown mag_mode {mag_mode!r}")
+
+
 def log_mel_spectrogram(
     x: torch.Tensor,
     *,
@@ -88,13 +126,7 @@ def log_mel_spectrogram(
     f_max: float | None = None,
 ) -> torch.Tensor:
     """Log-mel features of (B, T) audio -> (B, n_mels, frames), fp32."""
-    pads = ((win_length - hop_length) // 2, (win_length - hop_length + 1) // 2)
-    x = F.pad(x.float()[:, None, :], pads, mode="reflect")[:, 0, :]
-    window = torch.hann_window(win_length, periodic=True, device=x.device)
-    spec = torch.stft(
-        x, n_fft, hop_length=hop_length, win_length=win_length, window=window, center=False, return_complex=True
-    )
-    mag = torch.sqrt(spec.real.square() + spec.imag.square() + 1e-6)  # (B, bins, frames)
+    mag = stft_magnitude(x, n_fft=n_fft, hop_length=hop_length, win_length=win_length)
     fb = torch.as_tensor(mel_filterbank(sample_rate, n_fft, n_mels, f_min, f_max), device=x.device)
     mel = torch.einsum("bft,fm->bmt", mag, fb)
     return torch.log(torch.clamp(mel, min=1e-5))

@@ -1,0 +1,333 @@
+"""The GAN training step: generator, then discriminators, on one random crop.
+
+Counterpart of ``vocoder_tpu/train/gan.py`` (the "gan" family) and the
+reference's GANModel with manual optimization: per step the generator loss
+
+    2.5 * (spectral convergence + log-mag MR-STFT) + 45 * mel-L1
+        + mean over {mpd, mrd} of (LSGAN adversarial + feature matching)
+
+is computed on the masked audio, with the log-mel input made on the card and
+a random crop of ``crop_length`` samples before the discriminators; the
+generator takes an AdamW(0.8, 0.99, eps 1e-6, weight decay 0.01) step on the
+warmup-cosine lr, then the discriminators take theirs on the same crop, with
+the pre-update generator's fake detached.  Metrics carry the JAX package's
+names (``train/generator/*``, ``train/discriminator/*``, ``grad_norm*``,
+``lr``) and stay on the card as 0-d tensors until the caller reads them.
+
+Three places where PyTorch differs from the JAX program, each handled here:
+- The generator's backward would also fill the discriminators' ``.grad``
+  (JAX differentiates the generator loss w.r.t. the generator's parameters
+  only).  The generator phase runs the discriminators with
+  ``requires_grad`` off, so no gradient reaches them and the discriminator
+  step sees its own gradients alone.
+- The crop start comes from the state's ``torch.Generator``, which cannot
+  reproduce ``jax.random``; ``make_train_step``'s step takes an optional
+  ``crop_start`` so that a parity test can pass the JAX program's start.
+- Adam's first step moves each parameter by about lr * sign(g): where a
+  gradient is near 0, a rounding difference flips the sign of the update.
+  Compare gradients tightly and updated parameters with that in mind.
+
+Not ported: the vae, vqvae and ssl families, bf16 compute (``compute_dtype``)
+and the other generators' training (ROADMAP.md Queue 1); ``spectral_precision``
+(a TPU MXU pass count) and the split step (an XLA compile workaround) are
+TPU machinery.  ``run.precision`` sets TF32 in the trainer.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any
+
+import torch
+from torch import nn
+from torch.nn.utils import parametrize
+
+from vocoder_tpu_torch.losses import (
+    discriminator_loss,
+    feature_matching_loss,
+    generator_adversarial_loss,
+    multi_resolution_stft_loss,
+)
+from vocoder_tpu_torch.models.mpd import MPDConfig, MultiPeriodDiscriminator
+from vocoder_tpu_torch.models.mrd import MRDConfig, MultiResolutionDiscriminator
+from vocoder_tpu_torch.models.registry import get_generator
+from vocoder_tpu_torch.ops.spectral import log_mel_spectrogram
+from vocoder_tpu_torch.train.schedule import WarmupCosineConfig, warmup_cosine
+
+DEFAULT_RESOLUTIONS = ((2048, 512, 2048), (1024, 120, 600), (2048, 240, 1200), (4096, 480, 2400), (512, 50, 240))
+TRAINABLE = ("bigvgan", "hifigan")
+
+
+@dataclasses.dataclass(frozen=True)
+class GANTaskConfig:
+    """The reference's gan.yaml composed with a resolution preset."""
+
+    sampling_rate: int = 44100
+    n_fft: int = 2048
+    hop_length: int = 512
+    win_length: int = 2048
+    num_mels: int = 128
+
+    generator_name: str = "hifigan"
+    generator: Any = None  # generator config dataclass
+
+    mpd: MPDConfig = MPDConfig(periods=(3, 5, 7, 11, 17, 23, 37))
+    mrd: MRDConfig = MRDConfig(resolutions=DEFAULT_RESOLUTIONS)
+    stft_resolutions: tuple = DEFAULT_RESOLUTIONS  # tied to the MRD's (gan.yaml)
+
+    num_frames: int = 128
+    crop_length: int | None = 512 * 32  # hop * 32
+    input_transform: str = "mel"  # only "mel" is ported ("linear" feeds the vae family)
+    family: str = "gan"  # only "gan" is ported
+
+    schedule: WarmupCosineConfig = WarmupCosineConfig()
+    adam_b1: float = 0.8
+    adam_b2: float = 0.99
+    adam_eps: float = 1e-6
+    weight_decay: float = 0.01
+
+    stft_weight: float = 2.5
+    mel_weight: float = 45.0
+    compute_dtype: str = "float32"  # only "float32" is ported
+
+    def replace(self, **kw) -> "GANTaskConfig":
+        return dataclasses.replace(self, **kw)
+
+
+def check_trainable(cfg: GANTaskConfig) -> None:
+    """Raise for what the port does not train yet."""
+    if cfg.family != "gan":
+        raise NotImplementedError(f"task family {cfg.family!r} is not yet ported (ROADMAP.md Queue 1); use 'gan'")
+    if cfg.compute_dtype != "float32":
+        raise NotImplementedError(
+            f"compute_dtype {cfg.compute_dtype!r}: bf16 training is not yet ported (ROADMAP.md Queue 1); "
+            "the port trains in float32")
+    if cfg.generator_name not in TRAINABLE:
+        raise NotImplementedError(f"training {cfg.generator_name!r} is not yet ported (ROADMAP.md Queue 1); "
+                                  f"trainable: {list(TRAINABLE)}")
+    if cfg.input_transform != "mel":
+        raise NotImplementedError(f"input transform {cfg.input_transform!r} is not yet ported (ROADMAP.md Queue 1)")
+
+
+@dataclasses.dataclass
+class TrainState:
+    """Generator, discriminators {mpd, mrd}, their AdamW optimizers, the step and the crop generator."""
+
+    step: int
+    generator: nn.Module
+    discriminators: nn.ModuleDict
+    opt_g: torch.optim.Optimizer
+    opt_d: torch.optim.Optimizer
+    rng: torch.Generator
+
+    def state_dict(self) -> dict:
+        return {"step": self.step, "generator": self.generator.state_dict(),
+                "discriminators": self.discriminators.state_dict(), "opt_g": self.opt_g.state_dict(),
+                "opt_d": self.opt_d.state_dict(), "rng": self.rng.get_state()}
+
+    def load_state_dict(self, sd: dict, weights_only: bool = False) -> None:
+        """Everything, or with ``weights_only`` the generator's and discriminators' weights alone."""
+        self.generator.load_state_dict(sd["generator"])
+        self.discriminators.load_state_dict(sd["discriminators"])
+        if not weights_only:
+            self.opt_g.load_state_dict(sd["opt_g"])
+            self.opt_d.load_state_dict(sd["opt_d"])
+            self.rng.set_state(sd["rng"])
+            self.step = int(sd["step"])
+
+
+def make_optimizer(cfg: GANTaskConfig, params) -> torch.optim.AdamW:
+    """AdamW; the step sets its lr from ``warmup_cosine`` before each update."""
+    return torch.optim.AdamW(params, lr=warmup_cosine(0, cfg.schedule), betas=(cfg.adam_b1, cfg.adam_b2),
+                             eps=cfg.adam_eps, weight_decay=cfg.weight_decay)
+
+
+def reference_init(generator: nn.Module) -> nn.Module:
+    """The reference's ``init_weights`` on the generator: the upsample, resblock and post convs'
+    directions drawn from normal(0, 0.01), each gain the norm of its direction (what weight norm
+    gives a freshly wrapped conv).  conv_pre and the biases keep PyTorch's default init."""
+    with torch.no_grad():
+        for name, m in generator.named_modules():
+            if name.split(".")[0] in ("ups", "resblocks", "conv_post") and parametrize.is_parametrized(m, "weight"):
+                wn = m.parametrizations.weight
+                wn.original1.normal_(0.0, 0.01)
+                v = wn.original1
+                wn.original0.copy_(torch.linalg.vector_norm(v, dim=tuple(range(1, v.dim())), keepdim=True))
+    return generator
+
+
+def create_train_state(cfg: GANTaskConfig, seed: int, device) -> TrainState:
+    """Modules initialised on the CPU from ``seed`` (the same weights on any device), then moved to
+    ``device``; the crop generator seeded with ``seed``."""
+    check_trainable(cfg)
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(seed)
+        generator = reference_init(get_generator(cfg.generator_name).module_cls(cfg.generator))
+        discriminators = nn.ModuleDict(
+            {"mpd": MultiPeriodDiscriminator(cfg.mpd), "mrd": MultiResolutionDiscriminator(cfg.mrd)})
+    generator.to(device).train()
+    discriminators.to(device).train()
+    return TrainState(step=0, generator=generator, discriminators=discriminators,
+                      opt_g=make_optimizer(cfg, generator.parameters()),
+                      opt_d=make_optimizer(cfg, discriminators.parameters()),
+                      rng=torch.Generator().manual_seed(seed))
+
+
+def sequence_mask(lengths: torch.Tensor, max_length: int) -> torch.Tensor:
+    """(B,) -> (B, 1, T) float mask."""
+    idx = torch.arange(max_length, device=lengths.device)[None, :]
+    return (idx < lengths[:, None]).float()[:, None, :]
+
+
+def loss_mel_transform(cfg: GANTaskConfig, audio: torch.Tensor) -> torch.Tensor:
+    return log_mel_spectrogram(audio, sample_rate=cfg.sampling_rate, n_fft=cfg.n_fft, hop_length=cfg.hop_length,
+                               win_length=cfg.win_length, n_mels=cfg.num_mels, f_max=cfg.sampling_rate // 2)
+
+
+def generator_forward(generator: nn.Module, audio: torch.Tensor, cfg: GANTaskConfig,
+                      plain: bool = False) -> torch.Tensor:
+    """audio (B, 1, T) -> the generator's fake (B, 1, T), fp32.  ``plain``: through the kernels'
+    plain versions (``forward_plain``, where the generator has kernels), as the card checks compare."""
+    spec = loss_mel_transform(cfg, audio[:, 0, :])  # the gan family's input transform is the log-mel
+    forward = generator.forward_plain if plain and hasattr(generator, "forward_plain") else generator
+    return forward(spec).float()
+
+
+def _discriminators(discriminators: nn.ModuleDict, audio: torch.Tensor) -> dict:
+    with torch.profiler.record_function("discriminators"):
+        return {key: d(audio) for key, d in discriminators.items()}
+
+
+def draw_crop_start(state: TrainState, cfg: GANTaskConfig, t: int) -> int | None:
+    """The discriminators' random crop start for T-sample audio, from the state's generator; None
+    when the audio is not longer than the crop."""
+    if cfg.crop_length is None or t <= cfg.crop_length:
+        return None
+    return int(torch.randint(0, t - cfg.crop_length, (), generator=state.rng))
+
+
+def _generator_loss(generator, discriminators, audio, mask, cfg: GANTaskConfig, start: int | None,
+                    plain: bool = False):
+    """(loss, metrics, audio_c, fake_c): the generator loss, and the crops the discriminators see."""
+    fake = generator_forward(generator, audio, cfg, plain)
+    if fake.shape != audio.shape:
+        raise ValueError(f"generator output {tuple(fake.shape)} does not match the audio {tuple(audio.shape)}")
+    audio_m, fake_m = audio * mask, fake * mask
+    with torch.profiler.record_function("mr_stft_loss"):
+        sc_loss, mag_loss = multi_resolution_stft_loss(fake_m[:, 0], audio_m[:, 0], cfg.stft_resolutions)
+    loss_stft = sc_loss + mag_loss
+    loss_mel = torch.mean(torch.abs(loss_mel_transform(cfg, audio_m[:, 0]) - loss_mel_transform(cfg, fake_m[:, 0])))
+
+    if start is None:
+        audio_c, fake_c = audio_m, fake_m
+    else:
+        audio_c = audio_m[..., start : start + cfg.crop_length]
+        fake_c = fake_m[..., start : start + cfg.crop_length]
+
+    metrics = {}
+    loss_adv_all = 0.0
+    discriminators.requires_grad_(False)  # no G-phase gradient reaches D's .grad
+    try:
+        fake_outs = _discriminators(discriminators, fake_c)
+        with torch.no_grad():  # the real audio does not depend on G
+            real_outs = _discriminators(discriminators, audio_c)
+    finally:
+        discriminators.requires_grad_(True)
+    for key, (score_fakes, feat_fake) in fake_outs.items():
+        loss_fake = generator_adversarial_loss(score_fakes)
+        loss_fm = feature_matching_loss(real_outs[key][1], feat_fake)
+        metrics[f"train/generator/adv_{key}"] = loss_fake
+        metrics[f"train/generator/adv_fm_{key}"] = loss_fm
+        loss_adv_all = loss_adv_all + loss_fake + loss_fm
+    loss_adv_all = loss_adv_all / len(fake_outs)
+
+    base = torch.zeros((), device=audio.device)
+    loss = base + loss_stft * cfg.stft_weight + loss_mel * cfg.mel_weight + loss_adv_all
+    metrics.update({"train/generator/stft": loss_stft, "train/generator/mel": loss_mel,
+                    "train/generator/base": base, "train/generator/all": loss})
+    return loss, metrics, audio_c, fake_c
+
+
+def _discriminator_loss(discriminators, audio_c, fake_c):
+    real_outs = _discriminators(discriminators, audio_c)
+    fake_outs = _discriminators(discriminators, fake_c.detach())
+    metrics = {f"train/discriminator/{key}": discriminator_loss(real_outs[key][0], fake_outs[key][0])
+               for key in real_outs}
+    loss = sum(metrics.values()) / len(real_outs)
+    metrics["train/discriminator/all"] = loss
+    return loss, metrics
+
+
+def global_norm(params) -> torch.Tensor:
+    """sqrt of the sum of squares of every gradient (optax.global_norm)."""
+    grads = [p.grad for p in params if p.grad is not None]
+    return torch.linalg.vector_norm(torch.stack([torch.linalg.vector_norm(g) for g in grads]))
+
+
+def make_train_step(cfg: GANTaskConfig, plain: bool = False):
+    """(state, batch, crop_start=None) -> metrics; updates ``state`` in place.
+
+    ``batch``: {"audio": (B, 1, T), "lengths": (B,)} on the state's device.  The generator
+    step (``step.g_phase``), then the discriminator step (``step.d_phase``) on the pre-update
+    generator's fake; the crop start is drawn from ``state.rng`` unless given.  The phases are
+    exposed so that a measurement times the code the step runs.  ``plain`` runs the generator
+    through its kernels' plain versions (what the card checks hold the kernel path against)."""
+    check_trainable(cfg)
+
+    def g_phase(state: TrainState, batch: dict, crop_start: int | None = None):
+        """The generator's loss, backward and AdamW update: (metrics, audio_c, fake_c)."""
+        audio, lengths = batch["audio"], batch["lengths"]
+        mask = sequence_mask(lengths, audio.shape[2])
+        start = draw_crop_start(state, cfg, audio.shape[2]) if crop_start is None else crop_start
+        state.opt_g.zero_grad(set_to_none=True)
+        loss, metrics, audio_c, fake_c = _generator_loss(
+            state.generator, state.discriminators, audio, mask, cfg, start, plain)
+        loss.backward()
+        metrics["train/generator/grad_norm"] = global_norm(state.generator.parameters())
+        for group in state.opt_g.param_groups:
+            group["lr"] = warmup_cosine(state.step, cfg.schedule)
+        state.opt_g.step()
+        return metrics, audio_c, fake_c
+
+    def d_phase(state: TrainState, audio_c: torch.Tensor, fake_c: torch.Tensor) -> dict:
+        """The discriminators' loss, backward and AdamW update on the crops; advances the step."""
+        state.opt_d.zero_grad(set_to_none=True)
+        loss, metrics = _discriminator_loss(state.discriminators, audio_c, fake_c)
+        loss.backward()
+        for key, d in state.discriminators.items():
+            metrics[f"train/discriminator/grad_norm_{key}"] = global_norm(d.parameters())
+        for group in state.opt_d.param_groups:
+            group["lr"] = warmup_cosine(state.step, cfg.schedule)
+        state.opt_d.step()
+        state.step += 1
+        return metrics
+
+    def step(state: TrainState, batch: dict, crop_start: int | None = None) -> dict:
+        lr = warmup_cosine(state.step, cfg.schedule)
+        metrics, audio_c, fake_c = g_phase(state, batch, crop_start)
+        metrics.update(d_phase(state, audio_c, fake_c))
+        return {**{k: v.detach() for k, v in metrics.items()}, "lr": lr}
+
+    step.g_phase, step.d_phase = g_phase, d_phase
+    return step
+
+
+def make_eval_step(cfg: GANTaskConfig):
+    """(state, batch) -> ({"val/metrics/mel": masked mel-L1 on the full clip}, masked fake): the
+    generator in eval mode under ``torch.no_grad`` (BigVGAN: the inference path, K2 and K1)."""
+
+    def step(state: TrainState, batch: dict):
+        audio, lengths = batch["audio"], batch["lengths"]
+        mask = sequence_mask(lengths, audio.shape[2])
+        state.generator.eval()
+        try:
+            with torch.no_grad():
+                fake = generator_forward(state.generator, audio, cfg)
+                audio_m, fake_m = audio * mask, fake * mask
+                loss_mel = torch.mean(torch.abs(loss_mel_transform(cfg, audio_m[:, 0])
+                                                - loss_mel_transform(cfg, fake_m[:, 0])))
+        finally:
+            state.generator.train()
+        return {"val/metrics/mel": loss_mel}, fake_m
+
+    return step

@@ -1,0 +1,198 @@
+"""The training loop.
+
+Counterpart of ``vocoder_tpu/train/trainer.py`` on one device: ``config.json``
+and the guard against resuming a workdir that holds another task's
+checkpoint, auto-resume from the latest checkpoint (or a weights-only start
+from ``run.ckpt_path``), the first step, then the loop with its log window
+(``perf/steps_per_s``, ``perf/audio_s_per_s``, ``perf/input_wait_s``), the
+validation mel-L1 every ``run.val_interval`` steps with
+``run.early_stop_patience``, a checkpoint every ``run.ckpt_interval`` steps
+and a forced one at the end, and ``crash.log`` when a step raises.
+
+``run.precision="highest"`` (the default) runs the library's convs and
+matmuls in full fp32 (TF32 off), as the JAX package's ``Precision.HIGHEST``;
+"default" lets them use TF32, as its ``Precision.DEFAULT`` lets the MXU round.
+
+Not ported yet (ROADMAP.md): the distributed init and meshes, the profiler
+window, PESQ and media in validation (so a ``data.val_root`` needs
+``run.val_pesq=False``), TensorBoard and W&B, and the pinned-memory prefetcher:
+each batch is copied to the card when the step needs it, and the wait counts
+as input time.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import time
+import traceback
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from vocoder_tpu_torch.config import TrainConfig
+from vocoder_tpu_torch.data import transforms as T
+from vocoder_tpu_torch.data.dataset import MixDataset, VocoderDataset, batch_iterator
+from vocoder_tpu_torch.nn import set_full_precision
+from vocoder_tpu_torch.train import gan
+from vocoder_tpu_torch.utils.checkpoint import CheckpointManager
+from vocoder_tpu_torch.utils.logging import MetricsLogger, log
+
+
+def set_precision(precision: str) -> None:
+    if precision == "highest":
+        set_full_precision()
+    elif precision == "default":
+        torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
+    else:
+        raise ValueError(f"unknown run.precision {precision!r}; 'highest' or 'default'")
+
+
+def _build_train_sampler(cfg: TrainConfig):
+    task = cfg.task
+    tr = T.train_transform(task.sampling_rate, task.hop_length, task.num_frames)
+    roots = list(cfg.data.train_roots)
+    if not roots:
+        raise ValueError("data.train_roots must be set")
+    probs = list(cfg.data.train_probs) or [1.0] * len(roots)
+    return MixDataset(datasets=[VocoderDataset(root=r, transform=tr) for r in roots], probs=probs).sample
+
+
+def _build_val_batches(cfg: TrainConfig) -> list[dict] | None:
+    """Fixed validation batches: each clip's first channel cut or zero-padded to val_crop_frames hops."""
+    if cfg.data.val_root is None:
+        return None
+    task = cfg.task
+    ds = VocoderDataset(root=cfg.data.val_root,
+                        transform=T.val_transform(task.sampling_rate, task.hop_length, cfg.data.val_crop_frames))
+    target = task.hop_length * cfg.data.val_crop_frames
+    rng = np.random.default_rng(cfg.run.seed)
+    b = cfg.data.val_batch_size
+    batches = []
+    for i in range(0, len(ds), b):
+        audios, lengths = [], []
+        for j in range(i, min(i + b, len(ds))):
+            a = ds.get(rng, j)[:1]
+            n = min(a.shape[-1], target)
+            audios.append(np.pad(a[..., :n], ((0, 0), (0, target - n))))
+            lengths.append(n)
+        while len(audios) < b:  # a fixed batch shape, as the JAX package keeps
+            audios.append(np.zeros_like(audios[0]))
+            lengths.append(0)
+        batches.append({"audio": np.stack(audios).astype(np.float32), "lengths": np.asarray(lengths, np.int64)})
+    return batches
+
+
+def to_device(batch: dict, device: torch.device) -> dict:
+    return {k: torch.from_numpy(v).to(device, non_blocking=True) for k, v in batch.items()}
+
+
+def _check_config(cfg: TrainConfig, workdir: Path, ckpt: CheckpointManager) -> None:
+    """Refuse a workdir whose checkpoint was trained with another task config (the keys its config.json
+    records, so fields added since do not block a resume); refuse PESQ, which is not ported."""
+    if cfg.data.val_root is not None and cfg.run.val_pesq:
+        raise SystemExit("validation PESQ is not yet ported (ROADMAP.md Queue 1, evaluation); "
+                         "pass run.val_pesq=False to validate by mel-L1 alone")
+    task_now = json.loads(json.dumps(dataclasses.asdict(cfg.task), default=str))
+    cfg_path = workdir / "config.json"
+    if cfg_path.exists() and ckpt.latest_step() is not None:
+        task_prev = json.loads(cfg_path.read_text()).get("task") or {}
+        diff = [k for k in sorted(task_prev) if k in task_now and task_prev[k] != task_now[k]]
+        if diff:
+            raise SystemExit(
+                f"workdir {workdir} holds a checkpoint (step {ckpt.latest_step()}) trained with a different "
+                f"task config (differs in: {', '.join(diff)}). Point run.workdir at a fresh directory, or pass "
+                "the old model/resolution flags to resume it.")
+
+
+def train(cfg: TrainConfig, device: str | torch.device = "cuda") -> gan.TrainState:
+    """Train on ``device`` until ``run.max_steps`` (or an early stop); the final state."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise SystemExit("no CUDA device is available; pass --device cpu to train on the CPU")
+    set_precision(cfg.run.precision)
+    task = cfg.task
+    workdir = Path(cfg.run.workdir)
+    ckpt = CheckpointManager(workdir / "checkpoints", save_interval_steps=cfg.run.ckpt_interval)
+    _check_config(cfg, workdir, ckpt)
+    workdir.mkdir(parents=True, exist_ok=True)
+    (workdir / "config.json").write_text(json.dumps(dataclasses.asdict(cfg), indent=2, default=str))
+
+    state = gan.create_train_state(task, cfg.run.seed, device)
+    latest = ckpt.latest_step()
+    if cfg.run.ckpt_path is not None and cfg.run.resume_weights_only:
+        CheckpointManager(cfg.run.ckpt_path).restore_weights_only(state)
+        log(f"resumed weights only from {cfg.run.ckpt_path}")
+    elif latest is not None:
+        ckpt.restore(state)
+        log(f"auto-resumed from step {state.step}")
+    n_g = sum(p.numel() for p in state.generator.parameters())
+    n_d = sum(p.numel() for p in state.discriminators.parameters())
+    log(f"params: generator {n_g:,}, discriminators {n_d:,} on {device}")
+
+    step_fn = gan.make_train_step(task)
+    eval_fn = gan.make_eval_step(task)
+    target_len = task.hop_length * task.num_frames
+    host_it = batch_iterator(_build_train_sampler(cfg), batch_size=cfg.data.batch_size, target_length=target_len,
+                             seed=cfg.run.seed, start_step=state.step, num_workers=cfg.data.num_workers)
+    val_batches = _build_val_batches(cfg)
+    metrics_logger = MetricsLogger(workdir)
+    wait_s = 0.0
+
+    def next_batch() -> dict:
+        nonlocal wait_s
+        t = time.perf_counter()
+        batch = to_device(next(host_it), device)
+        wait_s += time.perf_counter() - t
+        return batch
+
+    start_step = state.step
+    log(f"starting training at step {start_step} / {cfg.run.max_steps}")
+    try:
+        if start_step < cfg.run.max_steps:
+            step_fn(state, next_batch())  # the first step, which builds the kernels, apart
+            ckpt.save(state.step, state)
+        t0 = time.perf_counter()
+        window = max(cfg.run.log_interval, 1)
+        best_val, stale_vals = float("inf"), 0
+        while state.step < cfg.run.max_steps:
+            metrics = step_fn(state, next_batch())
+            step = state.step
+            if step % window == 0:
+                scalars = {k: float(v) for k, v in metrics.items()}  # waits for the card
+                sps = window / (time.perf_counter() - t0)
+                scalars["perf/steps_per_s"] = sps
+                scalars["perf/audio_s_per_s"] = sps * cfg.data.batch_size * target_len / task.sampling_rate
+                scalars["perf/input_wait_s"] = wait_s
+                wait_s = 0.0
+                metrics_logger.write(step, scalars)
+                log(f"step {step}: g={scalars['train/generator/all']:.3f} "
+                    f"d={scalars['train/discriminator/all']:.3f} mel={scalars['train/generator/mel']:.3f} "
+                    f"({sps:.2f} steps/s, {scalars['perf/audio_s_per_s']:.1f} audio-s/s)")
+                t0 = time.perf_counter()
+            if val_batches and step % cfg.run.val_interval == 0:
+                val_mel = float(np.mean([float(eval_fn(state, to_device(vb, device))[0]["val/metrics/mel"])
+                                         for vb in val_batches]))
+                metrics_logger.write(step, {"val/metrics/mel": val_mel})
+                log(f"step {step}: val mel-L1 {val_mel:.4f}")
+                if cfg.run.early_stop_patience is not None:
+                    if val_mel < best_val - 1e-6:
+                        best_val, stale_vals = val_mel, 0
+                    else:
+                        stale_vals += 1
+                        if stale_vals >= cfg.run.early_stop_patience:
+                            log(f"early stop: no val improvement in {stale_vals} validations")
+                            break
+            ckpt.save(step, state)
+        if ckpt.latest_step() != state.step:
+            ckpt.save(state.step, state, force=True)
+    except BaseException as e:
+        log(f"training failed at step {state.step}: {type(e).__name__}: {e}")
+        (workdir / "crash.log").write_text(traceback.format_exc())
+        raise
+    finally:
+        ckpt.wait()
+        host_it.close()
+        metrics_logger.close()
+    return state
