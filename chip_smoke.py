@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's inference (BigVGAN, HiFiGAN, Vocos) and training on one CUDA card and check it.
+"""Drive the PyTorch port's inference (BigVGAN, HiFiGAN, Vocos, RefineGAN, Firefly-GAN; BigVGAN also with an
+f0 template) and training on one CUDA card and check it.
 
     python3 chip_smoke.py          # from the repository root; needs one NVIDIA H100
 
@@ -39,21 +40,44 @@ Phases, in order; any failure exits non-zero:
      Then BigVGAN's masked b16 forward against the unmasked one at the same
      padded shape, HiFiGAN's and Vocos' forwards at b1 and b16 in both
      dtypes, and the CLI's seconds at --batch 1 and --batch 16 over 32 WAVs;
-  8. K1 under autograd (`AASnakeFunction`: the kernel forward, the plain VJP)
+  8. BigVGAN with an f0 template (the 44.1 kHz preset, use_template=True):
+     `BigVGAN.forward(mel, template=)` against `forward_plain` in fp32 and
+     bf16 at the generator limits (K1 and the dtype's K2 route launched, no
+     stage block by block, a zero template moves the output), then
+     `cli.infer --ckpt <workdir>` whose config.json records use_template on
+     voiced WAVs (K1 and K2 counts > 0, each output F * hop samples);
+  9. RefineGAN (24 kHz preset) and Firefly-GAN (44.1 kHz) at full width
+     through `cli.infer` on WAVs (Firefly also a .npy mel and a file past
+     --chunk-frames): finite output of each file's length; RefineGAN twice,
+     equal to the bit.  The CLI over 32 WAVs for refinegan, split into the
+     host's f0 seconds and the forwards'; then the generator ms, audio-s/s,
+     card busy share and launches (`tools/profile_forward.py`) of BigVGAN
+     with a template (b1, b16; bf16, fp32; K2's share of the forward),
+     RefineGAN and Firefly-GAN (b1, b16; fp32);
+ 10. K1 under autograd (`AASnakeFunction`: the kernel forward, the plain VJP)
      against autograd through the plain version, fp32, at C = 16, 256, 512,
      T = K1's tile edge +- 1, under the halo and 65,536, B = 1 and 4: dx,
      d alpha and d beta;
-  9. one full-width training step (`train.gan.make_train_step`, 44.1 kHz
+ 11. one full-width training step (`train.gan.make_train_step`, 44.1 kHz
      presets, b2 x 65,536 samples, fp32, TF32 off) with the kernels against
      the same step through the plain versions, from the same weights, batch
      and crop start: every loss, the grad norms and every generator gradient,
-     for BigVGAN (K1 launched 91 times in the step) and HiFiGAN;
- 10. `cli.train.main --model bigvgan` at the preset's batch 16 x 128 frames on
+     for BigVGAN (K1 launched 91 times in the step), HiFiGAN and BigVGAN with
+     an f0 template (its batch carrying each item's template; K1 91 times);
+ 12. `cli.train.main --model bigvgan` at the preset's batch 16 x 128 frames on
      32 generated WAVs, 4 steps with validation every 2 (K2 in validation,
      the blockwise AMP path in training only), then a resume to step 6, then
      `cli.infer --ckpt <workdir>` from that run;
- 11. the training step's ms by phase, audio-s/s, peak memory and the card-time
-     shares of its parts at b16 (vocoder_tpu_torch/tools/profile_train.py).
+ 13. the training step's ms by phase, audio-s/s, peak memory and the card-time
+     shares of its parts at b16 (vocoder_tpu_torch/tools/profile_train.py);
+ 14. `cli.train.main --model refinegan --resolution 24000_256_1024` at the
+     preset's batch 16 x 128 frames (f0 templates made on the host), 4 steps
+     with validation every 2, a resume to 6 (the AdaIN noise generator on the
+     card, restored from the checkpoint) and `cli.infer --ckpt <workdir>`;
+     then the RefineGAN step at b16 as in 13, with the host's f0 seconds for
+     one batch and the CLI run's input wait.
+
+A `timeline` line gives the seconds from the start to the end of each phase.
 
 Prints the card's name and power limit first, one JSON line per check and
 timing, a `{"kernels": [...]}` line and, last, `{"ok": true, "device": {...}}`.
@@ -717,10 +741,13 @@ def check_eval_after_step(state, task, batch: dict, fake_before) -> None:
 
 
 def check_train_steps(dev, paths: dict) -> int:
-    """One training step of each ported family at its 44.1 kHz preset, b2 x 65,536 samples: the kernel
-    path (BigVGAN: K1 under autograd) against the plain path from the same weights (numpy seed 0), batch
-    (one item shorter, so the mask counts) and crop start.  K1's launches in the BigVGAN step.  BigVGAN's
-    validation runs before and after its kernel-path step (``check_eval_after_step``)."""
+    """One training step of BigVGAN, HiFiGAN and BigVGAN with an f0 template (its batch carrying each
+    sine's template) at the 44.1 kHz presets, b2 x 65,536 samples: the kernel path (BigVGAN: K1 under
+    autograd) against the plain path from the same weights (numpy seed 0), batch (one item shorter, so the
+    mask counts) and crop start.  K1's launches in the BigVGAN steps.  BigVGAN's validation runs before
+    and after its kernel-path step (``check_eval_after_step``)."""
+    import dataclasses
+
     import torch
 
     from vocoder_tpu_torch.config import build_task_config
@@ -729,10 +756,15 @@ def check_train_steps(dev, paths: dict) -> int:
     from vocoder_tpu_torch.train import gan
 
     k1_step = 0
-    for name, weights in (("bigvgan", bigvgan.random_state_dict), ("hifigan", hifigan.random_state_dict)):
-        task = build_task_config(name, "44100_512_2048")
+    for name, weights in (("bigvgan", bigvgan.random_state_dict), ("hifigan", hifigan.random_state_dict),
+                          ("bigvgan_template", bigvgan.random_state_dict)):
+        family = name.split("_")[0]
+        task = build_task_config(family, "44100_512_2048")
+        if name == "bigvgan_template":
+            task = task.replace(generator=dataclasses.replace(task.generator, use_template=True))
         t = task.hop_length * task.num_frames
-        batch = synthetic_batch(TRAIN_CHECK_BATCH, t, task.sampling_rate, SEED, dev)
+        batch = synthetic_batch(TRAIN_CHECK_BATCH, t, task.sampling_rate, SEED, dev,
+                                task.hop_length if gan.needs_template(task) else None)
         batch["lengths"][1] = t * 4 // 5
         batch["audio"][1, :, t * 4 // 5 :] = 0.0
         runs = {}
@@ -744,8 +776,8 @@ def check_train_steps(dev, paths: dict) -> int:
             if plain:
                 metrics = step(state, batch, start)
             else:
-                need = ("aa_snake",) if name == "bigvgan" else ()
-                blockwise = len(task.generator.upsample_rates) if name == "bigvgan" else 0
+                need = ("aa_snake",) if family == "bigvgan" else ()
+                blockwise = len(task.generator.upsample_rates) if family == "bigvgan" else 0
                 if name == "bigvgan":
                     _, fake_before = gan.make_eval_step(task)(state, batch)  # builds K2's packed weights
                 metrics = drive_path(f"train_step_{name}", lambda: step(state, batch, start), need, paths, blockwise)
@@ -766,9 +798,10 @@ def check_train_steps(dev, paths: dict) -> int:
         ok = (max(loss_rel.values()) <= STEP_LOSS_REL and max(norm_rel.values()) <= STEP_NORM_REL
               and grad_rel[worst_grad] <= STEP_GRAD_REL_L2
               and all(map(math.isfinite, list(mk.values()) + list(mp.values()))))
+        if family == "bigvgan":
+            ok = ok and launches["aa_snake"] == K1_PER_BIGVGAN_FORWARD
         if name == "bigvgan":
             k1_step = launches["aa_snake"]
-            ok = ok and k1_step == K1_PER_BIGVGAN_FORWARD
         log({"phase": "train_step_check", "model": name, "batch": TRAIN_CHECK_BATCH, "samples": t,
              "crop_start": start, "metrics_kernel": mk, "metrics_plain": mp, "loss_rel": loss_rel,
              "grad_norm_rel": norm_rel, "max_grad_rel_l2": grad_rel[worst_grad], "worst_grad": worst_grad,
@@ -892,6 +925,301 @@ def time_train_step(dev, stamp: dict) -> dict:
     return rec
 
 
+def f0_contour_template(frames: int, task, seed: int):
+    """(frames,) f0 gliding 140 -> 320 Hz with an unvoiced stretch, and its template (F * hop,)."""
+    import numpy as np
+
+    from vocoder_tpu_torch.data.f0 import template_from_f0
+
+    rng = np.random.default_rng(seed)
+    f0 = np.linspace(140.0, 320.0, frames) * (1 + 0.02 * rng.standard_normal(frames))
+    f0[frames // 3 : frames // 3 + frames // 8] = 0.0
+    return template_from_f0(f0, task.sampling_rate, task.hop_length)
+
+
+def template_bigvgan():
+    """The 44.1 kHz BigVGAN preset with use_template=True, random weights from numpy seed 0: (task, fp32
+    state_dict, fp32 model on the card, bf16 copy)."""
+    import torch
+
+    from vocoder_tpu_torch.tools.profile_forward import build
+
+    task, sd, model = build("bigvgan", torch.float32, template=True, seed=SEED)
+    return task, sd, model, copy.deepcopy(model).to(torch.bfloat16)
+
+
+def check_template_generator(task, model, model_bf16, dev, paths: dict) -> None:
+    """BigVGAN with an f0 template through BigVGAN.forward against forward_plain on the same mel and
+    template, fp32 and bf16, at the generator limits; K1 and the dtype's K2 route launched, no stage
+    block by block; and the template reaches the output (a zero template moves it)."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(SEED + 10)
+    frames = 200
+    mel32 = torch.from_numpy((rng.standard_normal((2, task.num_mels, frames)) - 5.0).astype(np.float32)).to(dev)
+    tpl32 = torch.from_numpy(np.stack([f0_contour_template(frames, task, SEED + 10 + i) for i in range(2)])[:, None])
+    tpl32 = tpl32.to(dev)
+    for dtype, m, route in ((torch.float32, model, FP32_K2), (torch.bfloat16, model_bf16, BF16_K2)):
+        tag = dtag(dtype)
+        mel, tpl = mel32.to(dtype), tpl32.to(dtype)
+        got = drive_path(f"template_forward_{tag}", lambda: m(mel, template=tpl), ("aa_snake", route), paths)
+        want = m.forward_plain(mel, template=tpl)
+        err, floor = rel_l2(got.float(), want.float()), None
+        limit = GEN_FP32_REL_L2 if dtype == torch.float32 else GEN_BF16_REL_L2
+        if dtype == torch.bfloat16 and err > limit:
+            torch.backends.cudnn.enabled = False
+            native = m.forward_plain(mel, template=tpl)
+            torch.backends.cudnn.enabled = True
+            floor = rel_l2(native.float(), want.float())
+            limit = max(limit, min(floor, GEN_BF16_CAP))
+        moved = rel_l2(m(mel, template=torch.zeros_like(tpl)).float(), got.float())
+        ok = (err <= limit and bool(torch.isfinite(got).all()) and got.shape == (2, 1, frames * task.hop_length)
+              and moved > 1e-3)
+        log({"phase": "template_generator_check", "model": "bigvgan", "dtype": tag, "shape": list(got.shape),
+             "rel_l2": err, "plain_vs_plain_rel_l2": floor, "limit": limit, "zero_template_moves_rel_l2": moved,
+             "launches": paths[f"template_forward_{tag}"], "ok": ok})
+        if not ok:
+            raise SystemExit(f"BigVGAN with a template: the {tag} kernel path disagrees with its plain path")
+
+
+def write_template_workdir(work: Path, task, sd: dict) -> None:
+    """A training run's workdir as the trainer leaves one: config.json recording the task (use_template
+    on) and checkpoints/0.pt holding the generator."""
+    import dataclasses
+
+    import torch
+
+    from vocoder_tpu_torch.config import TrainConfig
+
+    (work / "checkpoints").mkdir(parents=True)
+    (work / "config.json").write_text(json.dumps(dataclasses.asdict(TrainConfig(task=task)), indent=2, default=str))
+    torch.save({"generator": sd}, work / "checkpoints" / "0.pt")
+
+
+def check_cli_outputs(out_dir: Path, expected: dict, task, phase: str) -> dict:
+    """Each expected WAV at the task's rate, of its expected length, finite and not silent; name -> audio."""
+    import numpy as np
+
+    from vocoder_tpu_torch.data.audio_io import read_wav
+
+    outs = {}
+    for name, n in expected.items():
+        audio, sr = read_wav(out_dir / name)
+        ok = (sr == task.sampling_rate and audio.shape[-1] == n and bool(np.isfinite(audio).all())
+              and float(np.abs(audio).max()) > 1e-3)
+        log({"phase": phase, "file": name, "samples": audio.shape[-1], "expected": n,
+             "peak": float(np.abs(audio).max()), "ok": ok})
+        if not ok:
+            raise SystemExit(f"{phase}: {name}: bad output {audio.shape} at {sr} Hz")
+        outs[name] = audio
+    return outs
+
+
+def template_wavs(root: Path, task, rng) -> dict[str, int]:
+    """Voiced WAVs for a template-consuming CLI run (one at another rate, one stereo); name -> samples."""
+    import numpy as np
+
+    from vocoder_tpu_torch.data.audio_io import write_wav
+
+    sr, hop = task.sampling_rate, task.hop_length
+    expected = {}
+    for name, rate, seconds, ch in (("tone.wav", sr, 1.2, 1), ("low_rate.wav", 22050, 0.6, 1),
+                                    ("stereo.wav", sr, 0.8, 2)):
+        n = int(rate * seconds)
+        t = np.arange(n) / rate
+        audio = 0.3 * np.sin(2 * np.pi * (180.0 * t + 40.0 * t * t))[None] + 0.01 * rng.standard_normal((ch, n))
+        write_wav(root / name, audio.astype(np.float32), rate)
+        expected[name] = -(-(-(-n * sr // rate) if rate != sr else n) // hop) * hop
+    return expected
+
+
+def family_models() -> dict:
+    """RefineGAN (24 kHz preset) and Firefly-GAN (44.1 kHz preset) at full width, random weights from numpy
+    seed 0: name -> (task, fp32 state_dict, fp32 model on the card)."""
+    import torch
+
+    from vocoder_tpu_torch.tools.profile_forward import build
+
+    return {name: build(name, torch.float32, seed=SEED) for name in ("refinegan", "firefly_gan_base")}
+
+
+def check_family_clis(infer, root: Path, models: dict, paths: dict) -> None:
+    """RefineGAN and Firefly-GAN through cli.infer on WAVs: finite output of each file's length; RefineGAN
+    twice, equal to the bit (its AdaIN noise comes from the seeded-0 default); Firefly also on a .npy mel
+    and a file past --chunk-frames.  Neither runs a kernel of the port: both paths launch 0."""
+    import numpy as np
+    import torch
+
+    for name, (task, sd, _) in models.items():
+        ckpt = root / f"{name}.ckpt"
+        torch.save({"state_dict": {f"generator.{k}": v for k, v in sd.items()}}, ckpt)
+        rng = np.random.default_rng(SEED + 11)
+        (root / f"{name}_in").mkdir()
+        if name == "refinegan":
+            expected = template_wavs(root / f"{name}_in", task, rng)
+        else:
+            expected = write_inputs(root / f"{name}_in", task, rng)
+        resolution = "24000_256_1024" if name == "refinegan" else "44100_512_2048"
+        outs = []
+        for run in (1, 2) if name == "refinegan" else (1,):
+            argv = ["--model", name, "--resolution", resolution, "--ckpt", str(ckpt), "--input",
+                    str(root / f"{name}_in"), "--output", str(root / f"{name}_out{run}"), "--chunk-frames", "512"]
+            seconds = drive_path(f"cli_{name}", lambda: run_cli(infer, argv), (), paths)
+            log({"phase": "cli", "model": name, "run": run, "seconds": seconds, "launches": paths[f"cli_{name}"]})
+            outs.append(check_cli_outputs(root / f"{name}_out{run}", expected, task, f"cli_output_{name}"))
+        if name == "refinegan":
+            same = all(np.array_equal(outs[0][f], outs[1][f]) for f in expected)
+            log({"phase": "refinegan_runs_equal", "files": sorted(expected), "ok": same})
+            if not same:
+                raise SystemExit("refinegan: two CLI runs on the same input differ")
+    tf32_off()
+
+
+def time_families(models: dict, template_models: tuple, dev, stamp: dict) -> None:
+    """Generator ms (CUDA events), audio-s/s and profile_forward's busy share, launches and K2 card ms
+    per forward, F_FRAMES frames: BigVGAN with a template at b1 and b16 in bf16 and fp32 (K2's share of
+    the forward), RefineGAN and Firefly-GAN at b1 and b16 in fp32."""
+    import torch
+
+    from vocoder_tpu_torch.tools.profile_forward import inputs, profile
+
+    task, model, model_bf16 = template_models
+    runs = [("bigvgan_template", task, m, b, dt) for b in (1, 16)
+            for dt, m in ((torch.bfloat16, model_bf16), (torch.float32, model))]
+    runs += [(name, t, m, b, torch.float32) for name, (t, _, m) in models.items() for b in (1, 16)]
+    for name, t, m, b, dtype in runs:
+        # b1's host-paced ms over 10 forwards; the card's busy ms is read from the same number traced.
+        rec = profile(m, inputs(t, b, F_FRAMES, dtype, SEED + 12), iters=10 if b == 1 else 2, top=4)
+        audio_s = b * F_FRAMES * t.hop_length / t.sampling_rate
+        log({"metric": "generator_ms", "model": name, "batch": b, "frames": F_FRAMES, "dtype": dtag(dtype),
+             "ms": rec["ms"], "audio_s_per_s": audio_s / (rec["ms"] / 1e3), "busy_ms": rec["busy_ms"],
+             "busy_share": rec["busy_share"], "launches_per_forward": rec["launches_per_forward"],
+             "k2_ms": rec["k2_ms"], "k2_share_of_forward": rec["k2_ms"] / rec["ms"], "top": rec["top"], **stamp})
+
+
+def time_refinegan_cli(infer, root: Path, models: dict, stamp: dict) -> None:
+    """The CLI's seconds over 32 WAVs of 0.5-3 s at 24 kHz, refinegan fp32, split into the host's f0
+    templates (``infer.templates``), the forwards (``infer.synthesize``, synchronised) and the rest
+    (checkpoint, reads, log-mel, writes)."""
+    import numpy as np
+    import torch
+
+    from vocoder_tpu_torch.data.audio_io import write_wav
+
+    task, sd, _ = models["refinegan"]
+    ckpt = root / "refinegan.ckpt"
+    torch.save({"state_dict": {f"generator.{k}": v for k, v in sd.items()}}, ckpt)
+    rng = np.random.default_rng(SEED + 13)
+    src = root / "refinegan_32"
+    src.mkdir()
+    audio_s = 0.0
+    for i, seconds in enumerate(rng.uniform(0.5, 3.0, 32)):
+        n = int(task.sampling_rate * seconds)
+        t = np.arange(n) / task.sampling_rate
+        audio = 0.3 * np.sin(2 * np.pi * (110.0 + 10 * i) * t) + 0.01 * rng.standard_normal(n)
+        write_wav(src / f"{i:02d}.wav", audio[None].astype(np.float32), task.sampling_rate)
+        audio_s += -(-n // task.hop_length) * task.hop_length / task.sampling_rate
+    spent = {"f0": 0.0, "forward": 0.0}
+    originals = {"f0": infer.templates, "forward": infer.synthesize}
+
+    def timed(key):
+        def fn(*a, **kw):
+            t0 = time.perf_counter()
+            out = originals[key](*a, **kw)
+            torch.cuda.synchronize()
+            spent[key] += time.perf_counter() - t0
+            return out
+        return fn
+
+    infer.templates, infer.synthesize = timed("f0"), timed("forward")
+    try:
+        seconds = run_cli(infer, ["--model", "refinegan", "--resolution", "24000_256_1024", "--ckpt", str(ckpt),
+                                  "--input", str(src), "--output", str(root / "refinegan_32_out")])
+    finally:
+        infer.templates, infer.synthesize = originals["f0"], originals["forward"]
+    log({"metric": "cli_seconds", "model": "refinegan", "dtype": "fp32", "batch": 1, "files": 32, "audio_s": audio_s,
+         "seconds": seconds, "audio_s_per_s": audio_s / seconds, "f0_seconds": spent["f0"],
+         "forward_seconds": spent["forward"], "other_seconds": seconds - spent["f0"] - spent["forward"], **stamp})
+
+
+def check_cli_train_refinegan(root: Path, infer, paths: dict) -> dict:
+    """cli.train --model refinegan at the 24 kHz preset's batch 16 x 128 frames on 32 generated WAVs, the
+    preset's data workers: 4 steps with validation every 2, a resume to 6, then cli.infer --ckpt <workdir>.  Returns
+    the first run's last log record (input wait included)."""
+    import numpy as np
+
+    from vocoder_tpu_torch.config import build_task_config
+    from vocoder_tpu_torch.data.audio_io import read_wav
+
+    task = build_task_config("refinegan", "24000_256_1024")
+    write_train_corpus(root, task.sampling_rate, np.random.default_rng(SEED + 14))
+    work = root / "run_refinegan"
+    base = ["--model", "refinegan", "--resolution", "24000_256_1024", "--device", "cuda",
+            f"data.train_roots=('{root / 'train'}',)", f"data.val_root={root / 'val'}",
+            "run.log_interval=1", "run.val_interval=2", "run.ckpt_interval=2", "run.val_pesq=False",
+            f"run.workdir={work}"]
+    tf32_defaults()
+    state, _ = drive_path("cli_train_refinegan", lambda: run_train_cli([*base, "run.max_steps=4"]), (), paths)
+    records = [json.loads(line) for line in (work / "metrics.jsonl").read_text().splitlines()]
+    train_recs = [r for r in records if "train/generator/all" in r]
+    val_recs = [r for r in records if "val/metrics/mel" in r]
+    finite = all(math.isfinite(v) for r in records for v in r.values())
+    ckpts = sorted(p.name for p in (work / "checkpoints").iterdir())
+    ok = (state.step == 4 and finite and [r["step"] for r in train_recs] == [2, 3, 4]
+          and [r["step"] for r in val_recs] == [2, 4] and {"2.pt", "4.pt"} <= set(ckpts)
+          and state.noise.device.type == "cuda")
+    log({"phase": "cli_train", "model": "refinegan", "batch": 16, "frames": 128, "steps": 4, "checkpoints": ckpts,
+         "train_records": train_recs, "val_records": val_recs, "finite": finite, "ok": ok})
+    if not ok:
+        raise SystemExit("cli.train --model refinegan: the run did not train, validate and checkpoint as asked")
+
+    tf32_defaults()
+    state, text = drive_path("cli_train_refinegan_resume", lambda: run_train_cli([*base, "run.max_steps=6"]), (),
+                             paths)
+    ok = state.step == 6 and "auto-resumed from step 4" in text and (work / "checkpoints" / "6.pt").is_file()
+    log({"phase": "cli_train_resume", "model": "refinegan", "step": state.step, "ok": ok})
+    if not ok:
+        raise SystemExit("cli.train --model refinegan did not resume from step 4 and end at step 6")
+
+    wav = root / "val" / "00.wav"
+    n = read_wav(wav)[0].shape[-1]
+    run_cli(infer, ["--model", "refinegan", "--resolution", "24000_256_1024", "--ckpt", str(work), "--input", str(wav),
+                    "--output", str(root / "synth_refinegan")])
+    tf32_off()
+    check_cli_outputs(root / "synth_refinegan", {"00.wav": -(-n // task.hop_length) * task.hop_length}, task,
+                      "cli_infer_from_training")
+    return train_recs[-1]
+
+
+def time_refinegan_step(dev, stamp: dict, cli_record: dict) -> dict:
+    """The RefineGAN preset's training step at b16 x 32,768 samples (24 kHz), fp32, TF32 off: ms by phase,
+    rate, peak memory, card-time parts (tools/profile_train.py); beside it the host's f0 seconds for the
+    batch's 16 templates, one after another as ``batch_iterator`` makes them, and the CLI run's input wait
+    a step."""
+    import torch
+
+    from vocoder_tpu_torch.data.f0 import f0_template
+    from vocoder_tpu_torch.tools.profile_train import measure_step, training_setup
+    from vocoder_tpu_torch.train import gan
+
+    tf32_off()
+    task, state, batch = training_setup("refinegan", 16, SEED, dev)
+    t0 = time.perf_counter()
+    for a in batch["audio"][:, 0].cpu().numpy():
+        f0_template(a, task.sampling_rate, task.hop_length)
+    f0_s = time.perf_counter() - t0
+    rec = {"metric": "train_step_ms", "model": "refinegan", "batch": 16, "samples": task.hop_length * task.num_frames,
+           "dtype": "fp32", **measure_step(state, gan.make_train_step(task), batch, task, 8),
+           "f0_seconds_per_batch": f0_s,
+           "cli_input_wait_s_per_step": cli_record.get("perf/input_wait_s"),
+           "cli_audio_s_per_s": cli_record.get("perf/audio_s_per_s"), **stamp}
+    log(rec)
+    del state
+    torch.cuda.empty_cache()
+    return rec
+
+
 def main() -> int:
     import torch
 
@@ -917,10 +1245,15 @@ def main() -> int:
     dev = torch.device("cuda")
     kind = torch.cuda.get_device_name(0)
     stamp = {"card": card, "device": kind}
+    timeline = {}  # phase -> seconds from the start to its end
+
+    def mark(phase: str) -> None:
+        timeline[phase] = round(time.perf_counter() - t0, 3)
 
     # 0. Build.
     t0 = time.perf_counter()
     libs = build.build_all()
+    mark("0 build")
     log({"phase": "build", "seconds": round(time.perf_counter() - t0, 3), "libs": sorted(p.name for p in libs.values())})
     for name in sorted(libs):  # ptxas -v: registers, shared memory and spills of each instantiation
         logf = build.BUILD_DIR / f"{name}.log"
@@ -1002,6 +1335,7 @@ def main() -> int:
 
         # 1-2, with per-item lengths.
         check_masked_kernels(model, model_bf16, c_post, t_post, dev, errs_masked)
+    mark("1-2 kernel checks")
 
     # 3. The full generator through the inference CLI.
     rng = np.random.default_rng(SEED)
@@ -1029,7 +1363,7 @@ def main() -> int:
         # Kernel path against the plain path on the same mel, fp32; and the WAV against the kernel path.
         with torch.inference_mode():
             gen_model = infer.load_generator(ckpt, task, dev)
-            mel = infer.load_mel_item(root / "in" / "mel.npy", task, dev)
+            mel, _ = infer.load_mel_item(root / "in" / "mel.npy", task, dev)
             got = gen_model(mel)
             want = gen_model.forward_plain(mel)
             torch.cuda.synchronize()
@@ -1065,9 +1399,11 @@ def main() -> int:
             # 4. A padded batch against per-item runs, on the kernels.
             check_masked_generator(model, model_bf16, cfg.hop_length, dev, paths)
 
+            mark("3-4 bigvgan cli and forwards")
             # 5. HiFiGAN and Vocos on the card.
             lib_models = library_models(dev)
             check_library_models(lib_models, dev)
+            mark("5 hifigan vocos")
 
         # 6. The batched CLI against the per-file CLI, every family.
         (root / "batch_in").mkdir()
@@ -1078,6 +1414,7 @@ def main() -> int:
             torch.save({"state_dict": {f"generator.{k}": v for k, v in lib_sd.items()}}, ckpts[name])
         check_batched_cli(infer, root, ckpts, paths)
         tf32_off()
+    mark("6 batched cli")
 
     # 7. Timing, CUDA events.
     entries = {}
@@ -1115,14 +1452,56 @@ def main() -> int:
         ckpt = Path(tmp) / "generator.ckpt"
         torch.save({"state_dict": {f"generator.{k}": v for k, v in sd.items()}}, ckpt)
         time_cli(infer, Path(tmp), ckpt, task, np.random.default_rng(SEED + 7), stamp)
+    mark("7 timings")
 
-    # 8-11. Training.
+    # 8. BigVGAN with an f0 template: BigVGAN.forward against its plain path, then cli.infer from a workdir.
+    t_task, t_sd, t_model, t_model_bf16 = template_bigvgan()
+    with torch.inference_mode():
+        check_template_generator(t_task, t_model, t_model_bf16, dev, paths)
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        write_template_workdir(root / "run", t_task, t_sd)
+        (root / "in").mkdir()
+        expected = template_wavs(root / "in", t_task, np.random.default_rng(SEED + 15))
+        argv = ["--model", "bigvgan", "--ckpt", str(root / "run"), "--input", str(root / "in"), "--output",
+                str(root / "out")]
+        seconds = drive_path("cli_bigvgan_template", lambda: run_cli(infer, argv), ("aa_snake", FP32_K2), paths)
+        tf32_off()
+        log({"phase": "cli", "model": "bigvgan_template", "seconds": seconds,
+             "launches": paths["cli_bigvgan_template"]})
+        check_cli_outputs(root / "out", expected, t_task, "cli_output_bigvgan_template")
+    mark("8 template bigvgan")
+
+    # 9. RefineGAN and Firefly-GAN through cli.infer; the family timings.
+    fam = family_models()
+    with tempfile.TemporaryDirectory() as tmp:
+        check_family_clis(infer, Path(tmp), fam, paths)
+        mark("9 family clis")
+        time_refinegan_cli(infer, Path(tmp), fam, stamp)
+        mark("9 refinegan cli timing")
+    tf32_off()
+    time_families(fam, (t_task, t_model, t_model_bf16), dev, stamp)
+    mark("9 family timings")
+    del t_model, t_model_bf16, fam
+    torch.cuda.empty_cache()
+
+    # 10-14. Training.
     k1_grad = check_k1_autograd(dev)
+    mark("10 k1 autograd")
     k1_train_step = check_train_steps(dev, paths)
     tf32_off()
+    mark("11 train steps")
     with tempfile.TemporaryDirectory() as tmp:
         check_cli_train(Path(tmp), infer, paths)
+    mark("12 cli.train bigvgan")
     train_rec = time_train_step(dev, stamp)
+    mark("13 train step timing")
+    with tempfile.TemporaryDirectory() as tmp:
+        cli_rec = check_cli_train_refinegan(Path(tmp), infer, paths)
+    mark("14 cli.train refinegan")
+    time_refinegan_step(dev, stamp, cli_rec)
+    mark("14 refinegan step timing")
+    log({"phase": "timeline", "seconds_at_end": timeline})
 
     def launches(name):  # over the main paths' runs; each path's count beside it
         by_path = {path: c[name] for path, c in paths.items() if c[name]}

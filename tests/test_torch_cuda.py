@@ -402,3 +402,66 @@ def test_bigvgan_stages_k2_does_not_take_run_blockwise(cuda_device, upsample_ini
         want = model.forward_plain(mel)
     assert got.shape == (2, 1, 12 * 512) and bool(torch.isfinite(got).all())
     assert _rel_l2(got, want) <= 1e-4
+
+
+NARROW_TEMPLATE = BigVGANConfig(hop_length=16, upsample_rates=(4, 4), upsample_kernel_sizes=(8, 8), num_mels=8,
+                                upsample_initial_channel=64, use_template=True)
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_template_generator_kernel_path_matches_plain_path(cuda_device, dtype, masked):
+    """BigVGAN with an f0 template (noise convs after each upsample) on K1 and K2 against its plain path,
+    with and without frame_lengths: fp32 rel L2 1e-4, bf16 2e-2 (two plain paths that differ only in fp32
+    sum order drift ~1e-2 through a bf16 generator); K2 takes every stage (none block by block)."""
+    from vocoder_tpu_torch.data.f0 import template_from_f0
+
+    model = _model(NARROW_TEMPLATE, cuda_device, dtype)
+    rng = np.random.default_rng(5)
+    lengths = [40, 17, 9]
+    mel = torch.from_numpy(rng.standard_normal((3, 8, 40)).astype(np.float32) - 3.0)
+    tpl = torch.from_numpy(np.stack([template_from_f0(np.full(40, f), 8000, 16) for f in (210.0, 330.0, 450.0)]))
+    lens = None
+    if masked:
+        for i, n in enumerate(lengths):
+            mel[i, :, n:] = 0.0
+        lens = torch.tensor(lengths, device=cuda_device)
+    mel, tpl = mel.to(cuda_device, dtype), tpl[:, None].to(cuda_device, dtype)
+    counter = "launches" if dtype == torch.float32 else "mma_launches"
+    with torch.inference_mode():
+        BigVGAN.blockwise_stages, k1, k2 = 0, aa_snake.launches, getattr(amp_stage, counter)
+        got = model(mel, lens, template=tpl)
+        assert BigVGAN.blockwise_stages == 0 and aa_snake.launches == k1 + 1
+        assert getattr(amp_stage, counter) == k2 + 2 * 18
+        want = model.forward_plain(mel, lens, template=tpl)
+    assert got.shape == (3, 1, 640) and bool(torch.isfinite(got).all())
+    assert _rel_l2(got.float(), want.float()) <= (1e-4 if dtype == torch.float32 else 2e-2)
+    if masked:
+        _lengths_past_zero(got, [n * 16 for n in lengths])
+
+
+def test_refinegan_draws_on_the_card_are_reproducible(cuda_device):
+    """RefineGAN's AdaIN noise drawn on the card: the same CUDA generator seed gives the same audio,
+    another seed other audio, no generator the seeded-0 default; a CPU generator is refused, not copied."""
+    from vocoder_tpu_torch.models.refinegan import RefineGAN, RefineGANConfig
+    from vocoder_tpu_torch.models.refinegan import random_state_dict as refinegan_weights
+
+    cfg = RefineGANConfig(sampling_rate=8000, hop_length=16, downsample_rates=(2, 2, 2, 2),
+                          upsample_rates=(2, 2, 2, 2), num_mels=8, start_channels=4)
+    model = RefineGAN(cfg)
+    model.load_state_dict(refinegan_weights(cfg, 0))
+    model = fold_weight_norm(model).to(cuda_device).eval()
+    rng = np.random.default_rng(6)
+    mel = torch.from_numpy(rng.standard_normal((2, 8, 24)).astype(np.float32) - 5.0).to(cuda_device)
+    tpl = torch.from_numpy(0.1 * np.sin(np.arange(24 * 16) / 5.0)).float().expand(2, 1, -1).to(cuda_device)
+
+    def gen(seed):
+        return torch.Generator(device=cuda_device).manual_seed(seed)
+
+    with torch.inference_mode():
+        a, b, c = model(mel, tpl, gen(3)), model(mel, tpl, gen(3)), model(mel, tpl, gen(4))
+        d, e = model(mel, tpl), model(mel, tpl, gen(0))
+        assert torch.equal(a, b) and torch.equal(d, e) and bool(torch.isfinite(a).all())
+        assert float((a - c).abs().max()) > 1e-3
+        with pytest.raises(RuntimeError):
+            model(mel, tpl, torch.Generator().manual_seed(3))

@@ -253,7 +253,8 @@ def test_batched_cli_falls_back_per_file_for_an_odd_upsample_stage(tmp_path, mon
 
 @pytest.mark.parametrize("semitones", [3.0, -5.0])
 def test_pitch_shift_matches_jax_load_mel_item(tmp_path, semitones):
-    """--pitch-shift: two resamples before the log-mel, as JAX's _load_mel_item does them."""
+    """--pitch-shift: two resamples before the log-mel, as JAX's _load_mel_item does them; the shifted,
+    padded audio beside the mel (what an f0 template is made from) is JAX's too."""
     import argparse
 
     from vocoder_tpu.cli import infer as jinfer
@@ -267,10 +268,13 @@ def test_pitch_shift_matches_jax_load_mel_item(tmp_path, semitones):
     def featurize(a):
         return jlog_mel(a, sample_rate=8000, n_fft=64, hop_length=16, win_length=64, n_mels=8, f_max=4000)
 
-    want, _, _ = jinfer._load_mel_item(tmp_path / "a.wav", argparse.Namespace(pitch_shift=semitones), task, featurize)
-    got = infer.load_mel_item(tmp_path / "a.wav", task, torch.device("cpu"), semitones).numpy()
+    want, _, want_audio = jinfer._load_mel_item(tmp_path / "a.wav", argparse.Namespace(pitch_shift=semitones), task,
+                                                featurize)
+    got, got_audio = infer.load_mel_item(tmp_path / "a.wav", task, torch.device("cpu"), semitones)
     assert got.shape == want.shape
-    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-4, atol=1e-4)
+    assert got_audio.shape == want_audio.shape
+    np.testing.assert_allclose(got_audio, want_audio, rtol=0, atol=1e-6)
 
 
 def test_cli_turns_tf32_off(tmp_path, monkeypatch):

@@ -177,12 +177,13 @@ def test_presets_equal_jax_package(resolution):
         assert getattr(got.generator, field) == getattr(want.generator, field), field
 
 
-@pytest.mark.parametrize("name", ["refinegan", "firefly_gan_base"])
-def test_unported_generators_raise(name):
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        get_generator(name)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        tconfig.build_task_config(name)
+def test_unknown_generator_raises():
+    """Every name of the JAX registry is ported (tests/test_torch_families.py builds each preset); an
+    unknown name raises KeyError, as in the JAX package."""
+    with pytest.raises(KeyError, match="unknown generator"):
+        get_generator("wavenet")
+    with pytest.raises(KeyError, match="unknown generator preset"):
+        tconfig.build_task_config("wavenet")
 
 
 def test_cuda_is_required_unless_cpu_is_asked(monkeypatch):

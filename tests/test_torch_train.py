@@ -1,7 +1,8 @@
 """One port training step against the JAX package's ``make_train_step``, on the CPU.
 
-``check_train_step`` is shared with ``tests/test_torch_train_bigvgan.py`` (one file a model keeps
-each file's JAX compiles within a minute on one worker).  The tiny HiFiGAN task of ``tests/test_gan_step.py`` and a tiny BigVGAN on the same task, from the
+``check_train_step`` is shared with ``tests/test_torch_train_bigvgan.py`` and
+``tests/test_torch_template_train.py`` (RefineGAN, whose batch carries an f0 template; one file a
+model keeps each file's JAX compiles within a minute on one worker).  The tiny HiFiGAN task of ``tests/test_gan_step.py`` and a tiny BigVGAN on the same task, from the
 same weights (the port's, bridged into JAX by its ``from_torch_state_dict``) and the same batch, with
 the JAX program's crop start passed to the port (drawn from ``state.rng`` as ``make_train_step``
 splits it), and without a crop.  Compared: every metric (rtol 2e-4, atol 2e-5, the JAX kernel tests'
@@ -27,9 +28,11 @@ from vocoder_tpu.models import bigvgan as jbigvgan
 from vocoder_tpu.models import hifigan as jhifigan
 from vocoder_tpu.models import mpd as jmpd
 from vocoder_tpu.models import mrd as jmrd
+from vocoder_tpu.models import refinegan as jrefinegan
 from vocoder_tpu.train import gan as jgan
 from vocoder_tpu.train.schedule import WarmupCosineConfig as JWarmupCosine
-from vocoder_tpu_torch.models import bigvgan, hifigan, mpd, mrd
+from vocoder_tpu_torch.data.f0 import template_from_f0
+from vocoder_tpu_torch.models import bigvgan, hifigan, mpd, mrd, refinegan
 from vocoder_tpu_torch.train import gan
 from vocoder_tpu_torch.train.schedule import WarmupCosineConfig
 
@@ -40,17 +43,21 @@ GEN = dict(hop_length=HOP, upsample_rates=(2, 2), upsample_kernel_sizes=(4, 4), 
 RES = ((16, 4, 16), (32, 8, 32))
 COMMON = dict(sampling_rate=8000, n_fft=16, hop_length=HOP, win_length=16, num_mels=8, stft_resolutions=RES,
               num_frames=32)
-MODELS = {"hifigan": (jhifigan, jhifigan.HiFiGANConfig, hifigan.HiFiGANConfig),
-          "bigvgan": (jbigvgan, jbigvgan.BigVGANConfig, bigvgan.BigVGANConfig)}
+# RefineGAN (tests/test_torch_template_train.py): a two-stage UNet at the same hop, fed an f0 template.
+REFINE = dict(sampling_rate=8000, hop_length=HOP, downsample_rates=(2, 2), upsample_rates=(2, 2), num_mels=8,
+              start_channels=4)
+MODELS = {"hifigan": (jhifigan, jhifigan.HiFiGANConfig, hifigan.HiFiGANConfig, GEN),
+          "bigvgan": (jbigvgan, jbigvgan.BigVGANConfig, bigvgan.BigVGANConfig, GEN),
+          "refinegan": (jrefinegan, jrefinegan.RefineGANConfig, refinegan.RefineGANConfig, REFINE)}
 
 
 def _configs(name: str, crop: bool):
-    jmod, jgen, tgen = MODELS[name]
+    jmod, jgen, tgen, kw = MODELS[name]
     crop_length = HOP * 8 if crop else None
-    jcfg = jgan.GANTaskConfig(generator_name=name, generator=jgen(**GEN), crop_length=crop_length,
+    jcfg = jgan.GANTaskConfig(generator_name=name, generator=jgen(**kw), crop_length=crop_length,
                               mpd=jmpd.MPDConfig(periods=(2, 3), channels=(1, 4, 8)), mrd=jmrd.MRDConfig(resolutions=RES),
                               schedule=JWarmupCosine(val_base=2e-4, max_decay_steps=1000), **COMMON)
-    tcfg = gan.GANTaskConfig(generator_name=name, generator=tgen(**GEN), crop_length=crop_length,
+    tcfg = gan.GANTaskConfig(generator_name=name, generator=tgen(**kw), crop_length=crop_length,
                              mpd=mpd.MPDConfig(periods=(2, 3), channels=(1, 4, 8)), mrd=mrd.MRDConfig(resolutions=RES),
                              schedule=WarmupCosineConfig(val_base=2e-4, max_decay_steps=1000), **COMMON)
     return jmod, jcfg, tcfg
@@ -84,11 +91,16 @@ def _assert_adam_updates_close(new, old, want_new, grads, grad_err, lr, wd):
         assert np.all(diff[~clear] <= 2 * lr + lr * wd * np.abs(o[~clear]) + ulps[~clear]), key
 
 
-def _batch(tcfg):
-    """Two clips of noise, the second 17 samples shorter: (audio (2, 1, T), lengths (2,))."""
+def _batch(tcfg) -> dict:
+    """Two clips of noise, the second 17 samples shorter: {audio (2, 1, T), lengths (2,)}, and for a
+    generator that consumes one, a template (2, 1, T) of two sines (300 and 410 Hz), numpy."""
     t = HOP * tcfg.num_frames
     audio = (0.3 * np.random.default_rng(0).standard_normal((2, 1, t))).astype(np.float32)
-    return audio, np.asarray([t, t - 17])
+    batch = {"audio": audio, "lengths": np.asarray([t, t - 17])}
+    if gan.needs_template(tcfg):
+        batch["template"] = np.stack([template_from_f0(np.full(tcfg.num_frames, f), tcfg.sampling_rate, HOP)
+                                      for f in (300.0, 410.0)])[:, None, :]
+    return batch
 
 
 @pytest.mark.parametrize("crop", [True, False])
@@ -108,9 +120,9 @@ def check_train_step(name: str, crop: bool):
     jstate = jgan.TrainState(step=jnp.zeros((), jnp.int32), gen_params=gp, disc_params=dp, opt_g=tx.init(gp),
                              opt_d=tx.init(dp), rng=key)
 
-    audio, lengths = _batch(tcfg)
-    t = audio.shape[2]
-    jbatch = {"audio": jnp.asarray(audio), "lengths": jnp.asarray(lengths)}
+    batch = _batch(tcfg)
+    t = batch["audio"].shape[2]
+    jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
     # The JAX step's crop start: make_train_step splits state.rng, then _generator_loss splits the step key.
     _, step_rng = jax.random.split(key)
     r_crop, _ = jax.random.split(step_rng)
@@ -121,14 +133,13 @@ def check_train_step(name: str, crop: bool):
         """The JAX step, and the gradients of the two functions it differentiates, in one program."""
         mask = jgan.sequence_mask(jbatch["lengths"], t)
         (_, (_, audio_c, fake_c, _)), grads_g = jax.value_and_grad(jgan._generator_loss, has_aux=True)(
-            jstate.gen_params, jstate.disc_params, jbatch["audio"], mask, jcfg, step_rng, None)
+            jstate.gen_params, jstate.disc_params, jbatch["audio"], mask, jcfg, step_rng, None, jbatch.get("template"))
         grads_d, _ = jax.grad(jgan._discriminator_loss_fn, has_aux=True)(jstate.disc_params, audio_c, fake_c, jcfg)
         return jgan.make_train_step(jcfg)(jstate, jbatch), grads_g, grads_d
 
     (new_jstate, jmetrics), jgrads_g, jgrads_d = jax_step(jstate, jbatch)
 
-    metrics = gan.make_train_step(tcfg)(state, {"audio": torch.from_numpy(audio),
-                                                "lengths": torch.from_numpy(lengths)}, start)
+    metrics = gan.make_train_step(tcfg)(state, {k: torch.from_numpy(v) for k, v in batch.items()}, start)
     assert state.step == 1 and set(metrics) == set(jmetrics)
     for k in metrics:
         np.testing.assert_allclose(float(metrics[k]), float(jmetrics[k]), rtol=RTOL, atol=ATOL, err_msg=k)
@@ -155,8 +166,8 @@ def check_eval_step(name: str):
     weights that step left, bridged: the val mel-L1 and the masked fake within rtol 2e-4 / atol 2e-5."""
     jmod, jcfg, tcfg = _configs(name, True)
     state = gan.create_train_state(tcfg, 0, "cpu")
-    audio, lengths = _batch(tcfg)
-    batch = {"audio": torch.from_numpy(audio), "lengths": torch.from_numpy(lengths)}
+    np_batch = _batch(tcfg)
+    batch = {k: torch.from_numpy(v) for k, v in np_batch.items()}
     eval_step = gan.make_eval_step(tcfg)
     _, before = eval_step(state, batch)
     gan.make_train_step(tcfg)(state, batch)
@@ -166,8 +177,7 @@ def check_eval_step(name: str):
     gp, dp = _to_jax(jmod, jcfg, state.generator.state_dict(), state.discriminators.state_dict())
     jstate = jgan.TrainState(step=jnp.ones((), jnp.int32), gen_params=gp, disc_params=dp, opt_g=None, opt_d=None,
                              rng=jax.random.key(0))
-    jmetrics, jfake = jax.jit(jgan.make_eval_step(jcfg))(jstate, {"audio": jnp.asarray(audio),
-                                                                  "lengths": jnp.asarray(lengths)})
+    jmetrics, jfake = jax.jit(jgan.make_eval_step(jcfg))(jstate, {k: jnp.asarray(v) for k, v in np_batch.items()})
     assert set(metrics) == set(jmetrics)
     for k in metrics:
         np.testing.assert_allclose(float(metrics[k]), float(jmetrics[k]), rtol=RTOL, atol=ATOL, err_msg=k)

@@ -1,14 +1,16 @@
 """PyTorch + CUDA port of the vocoder framework, for NVIDIA Hopper (H100).
 
 This package stands beside the JAX package and imports nothing of it: the
-host-side pieces it needs (presets, WAV I/O, the resampler) are its own
-copies.  It currently carries inference for BigVGAN, HiFiGAN and Vocos end
-to end, per file or in exact padded batches, and GAN training of BigVGAN and
-HiFiGAN:
+host-side pieces it needs (presets, WAV I/O, the resampler, the f0
+estimator) are its own copies.  It currently carries inference for BigVGAN,
+HiFiGAN, Vocos, RefineGAN and Firefly-GAN end to end (BigVGAN and HiFiGAN
+also with an f0 template), per file or, without a template, in exact padded
+batches; and GAN training of BigVGAN and HiFiGAN (with or without a
+template) and RefineGAN:
 
-    python -m vocoder_tpu_torch.cli.infer --model bigvgan|hifigan|vocos \\
+    python -m vocoder_tpu_torch.cli.infer --model bigvgan|hifigan|vocos|refinegan|firefly_gan_base \\
         --resolution 44100_512_2048 --ckpt G.ckpt --input in/ --output out/ [--batch 16]
-    python -m vocoder_tpu_torch.cli.train --model bigvgan|hifigan \\
+    python -m vocoder_tpu_torch.cli.train --model bigvgan|hifigan|refinegan \\
         "data.train_roots=('wavs/',)" run.workdir=logs/run
 
 Layout.  The generator keeps the JAX package's contract at its public

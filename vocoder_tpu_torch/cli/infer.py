@@ -11,9 +11,15 @@ then for each ``.wav``
 16-bit WAV.  Library convs and matmuls run in full fp32 (no TF32), as the
 JAX package runs them at ``Precision.HIGHEST``.
 
-    python -m vocoder_tpu_torch.cli.infer --model hifigan|bigvgan|vocos --resolution 44100_512_2048 \\
-        --ckpt G.ckpt|workdir --input in_dir --output out_dir [--device cuda|cpu] [--chunk-frames N] \\
-        [--batch N] [--pitch-shift SEMITONES] [--trust-checkpoint]
+    python -m vocoder_tpu_torch.cli.infer --model hifigan|bigvgan|vocos|refinegan|firefly_gan_base \\
+        --resolution 44100_512_2048 --ckpt G.ckpt|workdir --input in_dir --output out_dir \\
+        [--device cuda|cpu] [--chunk-frames N] [--batch N] [--pitch-shift SEMITONES] [--trust-checkpoint]
+
+A generator that consumes an f0 template (refinegan always; hifigan or
+bigvgan whose workdir's ``config.json`` records ``use_template``) gets one per
+channel, ``data/f0.py::f0_template`` of the resampled, pitch-shifted and
+padded audio, on the host; it runs per file and unchunked, as in the JAX
+package's CLI, and a precomputed mel is refused.
 
 ``--batch N`` synthesises N items per forward (hifigan, vocos, bigvgan): the
 items (one per channel of each file) are sorted by length, each group is
@@ -23,8 +29,8 @@ masking makes every row equal to that item's own forward.  Files longer than
 at a time, as every file does at ``--batch 1``.
 
 Runs on ``cuda`` unless ``--device cpu`` is given; it never falls back to the
-CPU by itself.  f0 templates, Orbax checkpoints (the JAX package's) and
-FLAC/Ogg/MP3 input are not yet ported.
+CPU by itself.  Orbax checkpoints (the JAX package's) and FLAC/Ogg/MP3 input
+are not yet ported.
 """
 
 from __future__ import annotations
@@ -40,12 +46,13 @@ import torch
 from vocoder_tpu_torch.config import build_task_config, overlay_task_config
 from vocoder_tpu_torch.convert import load_reference_state_dict
 from vocoder_tpu_torch.data.audio_io import AUDIO_EXTENSIONS, read_audio, write_wav
+from vocoder_tpu_torch.data.f0 import f0_template
 from vocoder_tpu_torch.data.resample import resample
 from vocoder_tpu_torch.models.registry import get_generator
 from vocoder_tpu_torch.nn import fold_weight_norm, set_full_precision
 from vocoder_tpu_torch.ops.spectral import log_mel_spectrogram
 from vocoder_tpu_torch.parallel.streaming import chunked_synthesis
-from vocoder_tpu_torch.train.gan import GANTaskConfig
+from vocoder_tpu_torch.train.gan import GANTaskConfig, needs_template
 from vocoder_tpu_torch.utils.checkpoint import CheckpointManager
 
 MEL_SUFFIXES = {".npy", ".pt", ".pth"}
@@ -92,8 +99,10 @@ def restore_task_config(task: GANTaskConfig, ckpt: str | Path) -> GANTaskConfig:
     return task
 
 
-def load_mel_item(f: Path, task: GANTaskConfig, device: torch.device, pitch_shift: float = 0.0) -> torch.Tensor:
-    """One input file -> mel (channels, num_mels, F) float32 on device.
+def load_mel_item(f: Path, task: GANTaskConfig, device: torch.device,
+                  pitch_shift: float = 0.0) -> tuple[torch.Tensor, np.ndarray | None]:
+    """One input file -> (mel (channels, num_mels, F) float32 on device, the audio it was computed from
+    (channels, F * hop) float32 on the host, or None for a mel file).
 
     The per-file and the batched paths share it, so their preprocessing (mel
     auto-transpose, pitch shift, hop padding, log-mel) cannot drift apart."""
@@ -107,14 +116,14 @@ def load_mel_item(f: Path, task: GANTaskConfig, device: torch.device, pitch_shif
             mel = mel[None]
         if mel.shape[-1] == task.num_mels:  # (C, F, num_mels) -> (C, num_mels, F)
             mel = mel.transpose(0, 2, 1)
-        return torch.as_tensor(np.asarray(mel, np.float32), device=device)
+        return torch.as_tensor(np.asarray(mel, np.float32), device=device), None
     audio, sr = read_audio(f)
     audio = resample(audio, sr, task.sampling_rate)
     if pitch_shift:  # a resample from a shifted rate, rounded down to a multiple of 100 Hz
         step = round(task.sampling_rate * 2 ** (pitch_shift / 12))
         audio = resample(audio, step - step % 100, task.sampling_rate)
     audio = np.pad(audio, ((0, 0), (0, (-audio.shape[-1]) % task.hop_length)))
-    return log_mel_spectrogram(
+    mel = log_mel_spectrogram(
         torch.as_tensor(audio, device=device),
         sample_rate=task.sampling_rate,
         n_fft=task.n_fft,
@@ -123,10 +132,23 @@ def load_mel_item(f: Path, task: GANTaskConfig, device: torch.device, pitch_shif
         n_mels=task.num_mels,
         f_max=task.sampling_rate // 2,
     )
+    return mel, audio
 
 
-def synthesize(model: torch.nn.Module, mel: torch.Tensor, task: GANTaskConfig, chunk_frames: int) -> torch.Tensor:
-    """mel (C, num_mels, F) -> audio (C, 1, F * hop), chunked per channel past chunk_frames."""
+def templates(audio: np.ndarray | None, task: GANTaskConfig) -> np.ndarray:
+    """audio (C, F * hop) -> the f0 template of each channel (C, 1, F * hop), float32, on the host."""
+    if audio is None:
+        raise SystemExit(f"{task.generator_name} needs an f0 template derived from source audio; "
+                         "precomputed-mel input has none. Pass audio files instead.")
+    return np.stack([f0_template(ch, task.sampling_rate, task.hop_length) for ch in audio])[:, None, :]
+
+
+def synthesize(model: torch.nn.Module, mel: torch.Tensor, task: GANTaskConfig, chunk_frames: int,
+               template: torch.Tensor | None = None) -> torch.Tensor:
+    """mel (C, num_mels, F) [+ template (C, 1, F * hop)] -> audio (C, 1, F * hop), chunked per
+    channel past chunk_frames when there is no template."""
+    if template is not None:
+        return model(mel, template=template)
     if chunk_frames and mel.shape[2] > chunk_frames:
         return torch.cat(
             [
@@ -142,7 +164,7 @@ def batchable(task: GANTaskConfig, batch: int) -> bool:
     ``frame_lengths``, no f0 template, and an even (kernel - rate) at every upsample
     stage (an odd one would shift each item's output length by a sample a stage)."""
     gen = task.generator
-    if batch <= 1 or task.generator_name not in BATCHABLE or getattr(gen, "use_template", False):
+    if batch <= 1 or task.generator_name not in BATCHABLE or needs_template(task):
         return False
     ups = zip(getattr(gen, "upsample_rates", ()), getattr(gen, "upsample_kernel_sizes", ()))
     return not any((k - u) % 2 for u, k in ups)
@@ -175,7 +197,7 @@ def batched_synthesis(model, files: list[Path], task: GANTaskConfig, device: tor
     min_frames = min_batch_frames(task)
     items, outs, deferred = [], {}, []  # items: (file, channel, mel (num_mels, F))
     for f in files:
-        mel = load_mel_item(f, task, device, args.pitch_shift)
+        mel, _ = load_mel_item(f, task, device, args.pitch_shift)
         frames = mel.shape[2]
         if (args.chunk_frames and frames > args.chunk_frames) or frames < min_frames:
             deferred.append(f)
@@ -206,7 +228,8 @@ def batched_synthesis(model, files: list[Path], task: GANTaskConfig, device: tor
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description="Vocoder inference (PyTorch + CUDA)")
-    ap.add_argument("--model", default="hifigan", help="hifigan, bigvgan, vocos, vocos_small or vocos_huge")
+    ap.add_argument("--model", default="hifigan", help="hifigan, bigvgan, vocos, vocos_small, vocos_huge, refinegan "
+                    "or firefly_gan_base")
     ap.add_argument("--resolution", default="44100_512_2048")
     ap.add_argument("--ckpt", required=True, help="reference-layout .ckpt/.pt with a generator. state_dict, "
                     "or a training run's workdir (or its checkpoints directory)")
@@ -244,8 +267,11 @@ def main(argv=None) -> None:
             print(f"--batch: falling back to per-file synthesis for {task.generator_name}", flush=True)
         for f in files:
             start = time.perf_counter()
-            mel = load_mel_item(f, task, device, args.pitch_shift)
-            fake = synthesize(model, mel, task, args.chunk_frames)[:, 0, :].float().cpu().numpy()
+            mel, audio = load_mel_item(f, task, device, args.pitch_shift)
+            template = None
+            if needs_template(task):
+                template = torch.as_tensor(templates(audio, task), device=device)
+            fake = synthesize(model, mel, task, args.chunk_frames, template)[:, 0, :].float().cpu().numpy()
             out_path = _write(out_root, in_root, f, fake, task)
             dur = fake.shape[-1] / task.sampling_rate
             print(f"{f.name}: {dur:.2f}s audio in {time.perf_counter() - start:.2f}s -> {out_path}", flush=True)

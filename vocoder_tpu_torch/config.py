@@ -2,8 +2,10 @@
 
 A copy of what the port needs of ``vocoder_tpu/config.py`` (that module
 imports the JAX models, so the port keeps its own): the resolution presets
-and upsample factorizations, the generator presets of the ported families
-(hifigan, vocos, vocos_small, vocos_huge and bigvgan), ``build_task_config``
+and upsample factorizations, the generator presets (hifigan, vocos,
+vocos_small, vocos_huge, bigvgan, refinegan and firefly_gan_base; refinegan
+builds only at hop 256 and firefly_gan_base only at hop 512, and elsewhere
+each raises ``ValueError`` where the JAX package's asserts), ``build_task_config``
 (the "gan" family's ``GANTaskConfig``: MPD periods (3, 5, 7, 11, 17, 23,
 37), the MRD and MR-STFT resolutions, 128-frame crops, hop * 32 for the
 discriminators), ``DataConfig``, ``RunConfig``, ``TrainConfig``,
@@ -60,7 +62,8 @@ def upsample_rates_for_hop(hop: int) -> tuple[tuple, tuple]:
 
 
 def _gen_upsampler(name: str, res: dict):
-    """hifigan and bigvgan: the hop's upsample factorization, no template."""
+    """hifigan and bigvgan: the hop's upsample factorization, no template (``task.generator.use_template=True``
+    turns it on)."""
     rates, kernels = upsample_rates_for_hop(res["hop_length"])
     return name, get_generator(name).config_cls(
         hop_length=res["hop_length"],
@@ -86,12 +89,38 @@ def _gen_vocos(size: str, res: dict):
     return "vocos", getattr(VocosConfig, size)(num_mels=res["num_mels"], **stft)
 
 
+def _gen_refinegan(res: dict):
+    """The RefineGAN defaults, rates (2, 2, 8, 8) / (8, 8, 2, 2): hop 256 only."""
+    from vocoder_tpu_torch.models.refinegan import RefineGANConfig
+
+    return "refinegan", RefineGANConfig(sampling_rate=res["sampling_rate"], hop_length=res["hop_length"],
+                                        num_mels=res["num_mels"])
+
+
+def _gen_firefly(res: dict):
+    """The reference's firefly-gan-base.yaml: a ConvNeXt backbone and a HiFiGAN head of rates
+    (8, 8, 2, 2, 2), so hop 512 only."""
+    from vocoder_tpu_torch.models.convnext import ConvNeXtConfig
+    from vocoder_tpu_torch.models.firefly import FireflyConfig
+    from vocoder_tpu_torch.models.hifigan import HiFiGANConfig
+
+    return "firefly_gan_base", FireflyConfig(
+        backbone=ConvNeXtConfig(input_channels=res["num_mels"], depths=(3, 3, 9, 3), dims=(128, 256, 384, 512),
+                                drop_path_rate=0.2),
+        head=HiFiGANConfig(hop_length=res["hop_length"], upsample_rates=(8, 8, 2, 2, 2),
+                           upsample_kernel_sizes=(16, 16, 4, 4, 4), num_mels=512, upsample_initial_channel=512,
+                           use_template=False, pre_conv_kernel_size=13, post_conv_kernel_size=13),
+    )
+
+
 GENERATOR_PRESETS = {
     "hifigan": functools.partial(_gen_upsampler, "hifigan"),
     "vocos": functools.partial(_gen_vocos, "base"),
     "vocos_small": functools.partial(_gen_vocos, "small"),
     "vocos_huge": functools.partial(_gen_vocos, "huge"),
     "bigvgan": functools.partial(_gen_upsampler, "bigvgan"),
+    "refinegan": _gen_refinegan,
+    "firefly_gan_base": _gen_firefly,
 }
 
 
@@ -107,7 +136,6 @@ def build_task_config(model: str = "hifigan", resolution: str = "44100_512_2048"
     if resolution not in RESOLUTIONS:
         raise KeyError(f"unknown resolution {resolution!r}; available: {sorted(RESOLUTIONS)}")
     if model not in GENERATOR_PRESETS:
-        get_generator(model)  # raises "not yet ported" for the JAX package's other generators
         raise KeyError(f"unknown generator preset {model!r}; available: {sorted(GENERATOR_PRESETS)}")
     res = RESOLUTIONS[resolution]
     generator_name, generator = GENERATOR_PRESETS[model](res)

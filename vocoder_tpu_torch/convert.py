@@ -1,7 +1,9 @@
 """Weights bridge: JAX parameter trees and reference checkpoints -> port state_dicts.
 
-``bigvgan_state_dict_from_jax``, ``hifigan_state_dict_from_jax`` and
-``vocos_state_dict_from_jax`` are the inverses of the JAX package's
+``bigvgan_state_dict_from_jax``, ``hifigan_state_dict_from_jax`` (both with
+the f0 template's ``noise_convs`` where the tree has them),
+``vocos_state_dict_from_jax``, ``refinegan_state_dict_from_jax`` and
+``firefly_state_dict_from_jax`` are the inverses of the JAX package's
 ``from_torch_state_dict`` for those families: each takes that package's
 parameter tree (leaves as numpy arrays, or torch tensors, including ``meta``
 ones for a shape-only check) and returns the state_dict the port's model
@@ -65,25 +67,35 @@ def _snake(sd: dict, prefix: str, p: dict) -> None:
         sd[f"{prefix}.activation.beta"] = _t(p["beta"])
 
 
+def _convs12(sd: dict, prefix: str, block: dict) -> None:
+    """A resblock's ``convs1.{l}`` and ``convs2.{l}``, keys under ``prefix``."""
+    for name in ("convs1", "convs2"):
+        for l, conv in enumerate(block[name]):
+            _conv(sd, f"{prefix}{name}.{l}", conv)
+
+
 def amp_block_state_dict_from_jax(block: dict) -> dict[str, torch.Tensor]:
     """One JAX AMP block's parameters -> ``AMPBlock.state_dict()`` layout."""
     sd: dict[str, torch.Tensor] = {}
-    for name in ("convs1", "convs2"):
-        for l, conv in enumerate(block[name]):
-            _conv(sd, f"{name}.{l}", conv)
+    _convs12(sd, "", block)
     for a, act in enumerate(block["activations"]):
         _snake(sd, f"activations.{a}", act)
     return sd
 
 
+def _ups_and_noise_convs(sd: dict, params: dict, prefix: str = "") -> None:
+    """conv_pre, the transposed-conv upsamples and, with a template, the plain noise convs."""
+    _conv(sd, f"{prefix}conv_pre", params["conv_pre"])
+    for i, up in enumerate(params["ups"]):
+        _conv(sd, f"{prefix}ups.{i}", up, transposed=True)
+    for i, nc in enumerate(params.get("noise_convs", ())):
+        _conv(sd, f"{prefix}noise_convs.{i}", nc)
+
+
 def bigvgan_state_dict_from_jax(params: dict) -> dict[str, torch.Tensor]:
     """The JAX BigVGAN parameter tree -> ``BigVGAN.state_dict()`` layout."""
-    if "noise_convs" in params:
-        raise NotImplementedError("BigVGAN with an f0 template is not yet ported")
     sd: dict[str, torch.Tensor] = {}
-    _conv(sd, "conv_pre", params["conv_pre"])
-    for i, up in enumerate(params["ups"]):
-        _conv(sd, f"ups.{i}", up, transposed=True)
+    _ups_and_noise_convs(sd, params)
     for r, block in enumerate(params["resblocks"]):
         sd.update({f"resblocks.{r}.{k}": v for k, v in amp_block_state_dict_from_jax(block).items()})
     _snake(sd, "activation_post", params["post_act"])
@@ -91,21 +103,40 @@ def bigvgan_state_dict_from_jax(params: dict) -> dict[str, torch.Tensor]:
     return sd
 
 
-def hifigan_state_dict_from_jax(params: dict) -> dict[str, torch.Tensor]:
-    """The JAX HiFiGAN parameter tree -> ``HiFiGAN.state_dict()`` layout."""
-    if "noise_convs" in params:
-        raise NotImplementedError("HiFiGAN with an f0 template is not yet ported")
+def hifigan_state_dict_from_jax(params: dict, prefix: str = "") -> dict[str, torch.Tensor]:
+    """The JAX HiFiGAN parameter tree -> ``HiFiGAN.state_dict()`` layout, keys under ``prefix``."""
     sd: dict[str, torch.Tensor] = {}
-    _conv(sd, "conv_pre", params["conv_pre"])
-    for i, up in enumerate(params["ups"]):
-        _conv(sd, f"ups.{i}", up, transposed=True)
+    _ups_and_noise_convs(sd, params, prefix)
     for i, stage in enumerate(params["resblocks"]):
         for j, block in enumerate(stage["blocks"]):
-            for name in ("convs1", "convs2"):
-                for l, conv in enumerate(block[name]):
-                    _conv(sd, f"resblocks.{i}.blocks.{j}.{name}.{l}", conv)
-    _conv(sd, "conv_post", params["conv_post"])
+            _convs12(sd, f"{prefix}resblocks.{i}.blocks.{j}.", block)
+    _conv(sd, f"{prefix}conv_post", params["conv_post"])
     return sd
+
+
+def refinegan_state_dict_from_jax(params: dict) -> dict[str, torch.Tensor]:
+    """The JAX RefineGAN parameter tree -> ``RefineGAN.state_dict()`` layout (each downsample stage's
+    ResBlock in slot 1 of its ``Sequential``; AdaIN, ResBlock, AdaIN in slots 0-2 of each upsample block)."""
+    sd: dict[str, torch.Tensor] = {}
+    _conv(sd, "template_conv", params["template_conv"])
+    for i, block in enumerate(params["downsample_blocks"]):
+        _convs12(sd, f"downsample_blocks.{i}.1.", block)
+    _conv(sd, "mel_conv", params["mel_conv"])
+    for i, up in enumerate(params["upsample_conv_blocks"]):
+        bp = f"upsample_conv_blocks.{i}"
+        _conv(sd, f"{bp}.input_conv", up["input_conv"])
+        for j, block in enumerate(up["blocks"]):
+            sd[f"{bp}.blocks.{j}.0.weight"] = _t(block["adain1"]["weight"])
+            _convs12(sd, f"{bp}.blocks.{j}.1.", block["res"])
+            sd[f"{bp}.blocks.{j}.2.weight"] = _t(block["adain2"]["weight"])
+    _conv(sd, "output_conv", params["output_conv"])
+    return sd
+
+
+def firefly_state_dict_from_jax(params: dict) -> dict[str, torch.Tensor]:
+    """The JAX Firefly parameter tree -> ``Firefly.state_dict()`` layout (``backbone.``, ``head.``)."""
+    return {**convnext_state_dict_from_jax(params["backbone"], prefix="backbone."),
+            **hifigan_state_dict_from_jax(params["head"], prefix="head.")}
 
 
 def convnext_state_dict_from_jax(params: dict, prefix: str = "") -> dict[str, torch.Tensor]:

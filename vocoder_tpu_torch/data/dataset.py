@@ -4,9 +4,10 @@ A copy of ``vocoder_tpu/data/dataset.py`` (the reference's datasets/vocoder.py,
 mix.py and datamodules/naive.py): file lists from a directory walk or a
 filelist, per-item transforms with peak normalisation, a weighted infinite
 mix, and ``batch_iterator``'s fixed-shape {audio (B, 1, T), lengths (B,)}
-batches.  Each batch element draws from its own rng keyed (seed, host, step,
-slot), so for the same files and seed the stream is the JAX package's, and
-it resumes at any step.  The JAX package's ``DevicePrefetcher`` is not
+batches, with the f0 template (B, 1, T) of each element's final audio when
+a ``template_fn`` is given.  Each batch element draws from its own rng
+keyed (seed, host, step, slot), so for the same files and seed the stream
+is the JAX package's, and it resumes at any step.  The JAX package's ``DevicePrefetcher`` is not
 ported: the trainer copies each batch to the card itself and times the wait
 (``perf/input_wait_s``).  ``DECODABLE_EXTENSIONS`` is ``{".wav"}`` until the
 FLAC, Ogg and MP3 decoders are ported, so a corpus with other files fails at
@@ -91,12 +92,19 @@ def batch_iterator(
     host_index: int = 0,
     start_step: int = 0,
     num_workers: int = 1,
+    template_fn: Callable[[np.ndarray], np.ndarray] | None = None,
 ) -> Iterator[dict]:
-    """Infinite {audio (B, 1, T) float32, lengths (B,) int64} batches of fixed shape.
+    """Infinite {audio (B, 1, T) float32, lengths (B,) int64[, template (B, 1, T) float32]} batches of
+    fixed shape.
 
     Element ``slot`` of batch ``step`` draws from ``np.random.default_rng((seed, host_index,
     step, slot))``, so the stream is the same for any ``num_workers``; a thread pool (decode
-    and resample release the interpreter lock in numpy) only changes the wall clock."""
+    and resample release the interpreter lock in numpy) only changes the wall clock.
+    ``template_fn`` (audio (T,) -> template (T,)) runs on each element's final (cropped, fixed-length)
+    audio, so that the f0 is that of what the generator must reconstruct.  It runs in this thread, one
+    element after another, once the pool has made the batch: ``data/f0.py``'s loop releases and takes
+    back the interpreter lock at each of its small numpy calls, and in a pool of threads that hand-off,
+    not the work, sets the pace (several times slower than one thread)."""
 
     def element(step: int, slot: int) -> tuple[np.ndarray, int]:
         a = sample_fn(np.random.default_rng((seed, host_index, step, slot)))
@@ -112,8 +120,11 @@ def batch_iterator(
                 items = [element(step, i) for i in range(batch_size)]
             else:
                 items = list(pool.map(lambda i: element(step, i), range(batch_size)))
-            yield {"audio": np.stack([a for a, _ in items]).astype(np.float32),
-                   "lengths": np.asarray([n for _, n in items], np.int64)}
+            batch = {"audio": np.stack([a for a, _ in items]).astype(np.float32),
+                     "lengths": np.asarray([n for _, n in items], np.int64)}
+            if template_fn is not None:
+                batch["template"] = np.stack([template_fn(a[0]) for a, _ in items])[:, None, :].astype(np.float32)
+            yield batch
             step += 1
     finally:
         if pool is not None:

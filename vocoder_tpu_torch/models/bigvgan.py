@@ -1,12 +1,17 @@
 """BigVGAN generator as a ``torch.nn.Module``.
 
-Counterpart of ``vocoder_tpu/models/bigvgan.py`` (``apply`` without a
-template, with or without ``frame_lengths``): the HiFiGAN upsample skeleton with
+Counterpart of ``vocoder_tpu/models/bigvgan.py`` (``apply``, with or
+without a template and ``frame_lengths``): the HiFiGAN upsample skeleton with
 Snake/SnakeBeta activations, each wrapped in the anti-aliased 2x up / 2x down
 FIRs, AMP resblocks averaged per upsample stage, then a post activation, a
 conv and ``tanh``.  Submodule names follow the reference, so the state_dict
-keys are the reference's (``conv_pre``, ``ups``, ``resblocks``,
-``activation_post``, ``conv_post``).
+keys are the reference's (``conv_pre``, ``ups``, ``noise_convs``,
+``resblocks``, ``activation_post``, ``conv_post``).  With ``use_template``
+the f0 template's noise convs (``models/hifigan.py::noise_convs``) add to
+the stream after each upsample, before the stage; they are ``torch.nn``
+convs outside the stages, so K2 still takes every stage at inference (as
+the JAX package keeps ``amp_stage_fused`` there) and its packed weights
+never hold them.
 
 In eval mode every AMP stage runs through ``ops.amp_block.amp_stage``
 (kernel K2 on the card) and ``activation_post`` through
@@ -36,6 +41,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from vocoder_tpu_torch.models.hifigan import add_noise, check_template, noise_conv_weight, noise_convs
 from vocoder_tpu_torch.nn import conv1d, conv_transpose1d, get_padding, length_mask
 from vocoder_tpu_torch.ops.aa_snake import aa_snake
 from vocoder_tpu_torch.ops.amp_block import amp_stage, amp_stage_plain, kernel_takes
@@ -129,14 +135,12 @@ class AMPBlock(nn.Module):
 
 
 class BigVGAN(nn.Module):
-    """mel (B, num_mels, F) -> waveform (B, 1, F * hop)."""
+    """mel (B, num_mels, F) [+ template (B, 1, F * hop)] -> waveform (B, 1, F * hop)."""
 
     blockwise_stages = 0  # AMP stages the kernel path ran block by block, over every instance
 
     def __init__(self, cfg: BigVGANConfig, device=None):
         super().__init__()
-        if cfg.use_template:
-            raise NotImplementedError("BigVGAN with an f0 template is not yet ported")
         self.cfg = cfg
         uic = cfg.upsample_initial_channel
         self.conv_pre = conv1d(
@@ -149,6 +153,8 @@ class BigVGAN(nn.Module):
             for k_r, d_r in zip(cfg.resblock_kernel_sizes, cfg.resblock_dilation_sizes):
                 resblocks.append(AMPBlock(c_out, k_r, d_r, cfg, device))
         self.ups = nn.ModuleList(ups)
+        if cfg.use_template:
+            self.noise_convs = noise_convs(cfg, device)
         self.resblocks = nn.ModuleList(resblocks)
         ch = uic // (2 ** len(cfg.upsample_rates))
         # The post activation is log-scale whatever snake_logscale says (reference bigvgan.py:335-337).
@@ -157,26 +163,31 @@ class BigVGAN(nn.Module):
             ch, 1, cfg.post_conv_kernel_size, padding=get_padding(cfg.post_conv_kernel_size), device=device
         )
 
-    def forward(self, mel: torch.Tensor, frame_lengths=None) -> torch.Tensor:
-        """mel (B, num_mels, F) -> (B, 1, F * hop); ``frame_lengths`` (B,): each item's frames."""
-        return self._forward(mel, frame_lengths, plain=False)
+    def forward(self, mel: torch.Tensor, frame_lengths=None, template=None) -> torch.Tensor:
+        """mel (B, num_mels, F) -> (B, 1, F * hop); ``frame_lengths`` (B,): each item's frames;
+        ``template`` (B, 1, F * hop): the f0 template, required with ``use_template``."""
+        return self._forward(mel, frame_lengths, template, plain=False)
 
-    def forward_plain(self, mel: torch.Tensor, frame_lengths=None) -> torch.Tensor:
+    def forward_plain(self, mel: torch.Tensor, frame_lengths=None, template=None) -> torch.Tensor:
         """The same function through the kernels' plain versions on any device:
         what the kernel path is held against on the card."""
-        return self._forward(mel, frame_lengths, plain=True)
+        return self._forward(mel, frame_lengths, template, plain=True)
 
-    def _forward(self, mel: torch.Tensor, frame_lengths, plain: bool) -> torch.Tensor:
+    def _forward(self, mel: torch.Tensor, frame_lengths, template, plain: bool) -> torch.Tensor:
         cfg = self.cfg
+        check_template(cfg, template)
         n_k = len(cfg.resblock_kernel_sizes)
         stage = amp_stage_plain if plain else amp_stage
+        dtype = self.conv_post.bias.dtype
         lens = None if frame_lengths is None else torch.as_tensor(frame_lengths, device=mel.device)
-        x = length_mask(self.conv_pre(mel.to(self.conv_post.bias.dtype)), lens)
+        x = length_mask(self.conv_pre(mel.to(dtype)), lens)
         for i, (up, u) in enumerate(zip(self.ups, cfg.upsample_rates)):
             x = up(x)
             if lens is not None:
                 lens = lens * u
                 x = length_mask(x, lens)
+            if template is not None:
+                x = add_noise(x, self.noise_convs[i], template.to(dtype), lens)
             blocks = list(self.resblocks[i * n_k : (i + 1) * n_k])
             if self.training or not kernel_takes(x.shape[1]):
                 if not plain:
@@ -197,12 +208,15 @@ def random_state_dict(cfg: BigVGANConfig, seed: int) -> dict[str, torch.Tensor]:
     residual branches below the skip path, conv_pre's 0.2 takes a log-mel's
     offset of about -5 to unit scale and conv_post's 0.25 keeps tanh off its
     rails.  Biases are small and the snake parameters sit near their init.
+    The template's noise convs are plain (``hifigan.noise_conv_weight``).
     """
     rng = np.random.default_rng(seed)
     shapes = {k: tuple(v.shape) for k, v in BigVGAN(cfg, device="meta").state_dict().items()}
     sd = {}
     for key, shape in shapes.items():
-        if key.endswith("original0"):
+        if key.startswith("noise_convs.") and key.endswith("weight"):
+            val = noise_conv_weight(rng, shape)
+        elif key.endswith("original0"):
             top = key.split(".")[0]
             gain = {"conv_pre": 0.2, "resblocks": 0.5, "conv_post": 0.25}.get(top, 1.0)
             if top == "ups":

@@ -1,13 +1,20 @@
 """HiFiGAN generator as a ``torch.nn.Module``.
 
-Counterpart of ``vocoder_tpu/models/hifigan.py`` (``apply`` without a
-template, with or without ``frame_lengths``), the reference's SiLU MRF
+Counterpart of ``vocoder_tpu/models/hifigan.py`` (``apply``, with or
+without a template and ``frame_lengths``), the reference's SiLU MRF
 variant: conv_pre -> per upsample stage (SiLU -> weight-normed transposed
-conv -> the mean of the parallel resblocks) -> SiLU -> conv_post -> tanh.
-Each resblock runs, per dilation d, SiLU -> conv(k, d) -> SiLU -> conv(k)
--> + x.  Submodule names follow the reference, so the state_dict keys are
-the reference's (``conv_pre``, ``ups.{i}``,
-``resblocks.{i}.blocks.{j}.convs{1,2}.{l}``, ``conv_post``).
+conv -> [+ the noise conv of the f0 template] -> the mean of the parallel
+resblocks) -> SiLU -> conv_post -> tanh.  Each resblock runs, per dilation
+d, SiLU -> conv(k, d) -> SiLU -> conv(k) -> + x.  Submodule names follow the
+reference, so the state_dict keys are the reference's (``conv_pre``,
+``ups.{i}``, ``noise_convs.{i}``, ``resblocks.{i}.blocks.{j}.convs{1,2}.{l}``,
+``conv_post``).
+
+With ``use_template=True`` the forward takes an f0 template (B, 1, F * hop)
+(``data/f0.py``): after upsample i, a plain conv (``noise_convs.{i}``, no
+weight norm, 1 -> the stage's channels) decimates it to the stage's rate by
+s = prod(upsample_rates[i+1:]) (kernel 2s, padding s // 2; kernel 1 at the
+last stage) and its output is added to the stream (``NoiseConvs``).
 
 ``frame_lengths`` (B,) makes a right-padded batch exact: every conv output
 is masked past each item's length (scaled by each upsample rate), so row i
@@ -15,7 +22,7 @@ equals item i's forward over its first ``frame_lengths[i]`` frames.
 
 The model has no kernel of its own: the JAX package left its convs to XLA
 and no Pallas kernel, so here they are ``torch.nn`` layers (cuDNN on the
-card).  The f0-template path (``use_template=True``) is not yet ported.
+card).
 """
 
 from __future__ import annotations
@@ -84,13 +91,40 @@ class ParallelBlock(nn.Module):
         return sum(blk(x, lens) for blk in self.blocks) / len(self.blocks)
 
 
+def noise_convs(cfg, device=None) -> nn.ModuleList:
+    """The f0 template's plain convs, one per upsample stage of ``cfg`` (HiFiGAN's or BigVGAN's):
+    1 -> the stage's channels, stride s = prod(upsample_rates[i+1:]), kernel 2s, padding s // 2, so
+    that a template of F * hop samples becomes the stage's F * prod(rates[:i+1]); kernel 1 at the last."""
+    convs = []
+    for i in range(len(cfg.upsample_rates)):
+        c_out = cfg.upsample_initial_channel // 2 ** (i + 1)
+        s = prod(cfg.upsample_rates[i + 1 :])
+        if i + 1 < len(cfg.upsample_rates):
+            convs.append(nn.Conv1d(1, c_out, 2 * s, stride=s, padding=s // 2, device=device))
+        else:
+            convs.append(nn.Conv1d(1, c_out, 1, device=device))
+    return nn.ModuleList(convs)
+
+
+def add_noise(x: torch.Tensor, conv: nn.Conv1d, template: torch.Tensor, lens) -> torch.Tensor:
+    """x + the stage's noise conv of the template, masked past each item's length."""
+    return length_mask(x + conv(template), lens)
+
+
+def check_template(cfg, template) -> None:
+    """A generator built with ``use_template`` needs a template, and one built without takes none."""
+    if cfg.use_template and template is None:
+        raise ValueError("this generator was built with use_template=True: pass the f0 template waveform "
+                         "(B, 1, F * hop), e.g. data/f0.py::f0_template of the audio")
+    if template is not None and not cfg.use_template:
+        raise ValueError("a template was given to a generator built without use_template")
+
+
 class HiFiGAN(nn.Module):
-    """mel (B, num_mels, F) -> waveform (B, 1, F * hop)."""
+    """mel (B, num_mels, F) [+ template (B, 1, F * hop)] -> waveform (B, 1, F * hop)."""
 
     def __init__(self, cfg: HiFiGANConfig, device=None):
         super().__init__()
-        if cfg.use_template:
-            raise NotImplementedError("HiFiGAN with an f0 template is not yet ported")
         self.cfg = cfg
         uic = cfg.upsample_initial_channel
         self.conv_pre = conv1d(
@@ -102,6 +136,8 @@ class HiFiGAN(nn.Module):
                 for i, (u, k) in enumerate(zip(cfg.upsample_rates, cfg.upsample_kernel_sizes))
             ]
         )
+        if cfg.use_template:
+            self.noise_convs = noise_convs(cfg, device)
         self.resblocks = nn.ModuleList(
             [ParallelBlock(uic // 2 ** (i + 1), cfg, device) for i in range(len(cfg.upsample_rates))]
         )
@@ -110,15 +146,20 @@ class HiFiGAN(nn.Module):
             ch, 1, cfg.post_conv_kernel_size, padding=get_padding(cfg.post_conv_kernel_size), device=device
         )
 
-    def forward(self, mel: torch.Tensor, frame_lengths=None) -> torch.Tensor:
-        """mel (B, num_mels, F) -> (B, 1, F * hop); ``frame_lengths`` (B,): each item's frames."""
+    def forward(self, mel: torch.Tensor, frame_lengths=None, template=None) -> torch.Tensor:
+        """mel (B, num_mels, F) -> (B, 1, F * hop); ``frame_lengths`` (B,): each item's frames;
+        ``template`` (B, 1, F * hop): the f0 template, required with ``use_template``."""
+        check_template(self.cfg, template)
+        dtype = self.conv_post.bias.dtype
         lens = None if frame_lengths is None else torch.as_tensor(frame_lengths, device=mel.device)
-        x = length_mask(self.conv_pre(mel.to(self.conv_post.bias.dtype)), lens)
-        for up, block, u in zip(self.ups, self.resblocks, self.cfg.upsample_rates):
+        x = length_mask(self.conv_pre(mel.to(dtype)), lens)
+        for i, (up, block, u) in enumerate(zip(self.ups, self.resblocks, self.cfg.upsample_rates)):
             x = up(F.silu(x))
             if lens is not None:
                 lens = lens * u
                 x = length_mask(x, lens)
+            if template is not None:
+                x = add_noise(x, self.noise_convs[i], template.to(dtype), lens)
             x = block(x, lens)
         return length_mask(torch.tanh(self.conv_post(F.silu(x))), lens)
 
@@ -129,12 +170,15 @@ def random_state_dict(cfg: HiFiGANConfig, seed: int) -> dict[str, torch.Tensor]:
     standard normal, gains that keep the signal's scale, small biases.  The
     transposed convs' gains are sqrt(rate), against BigVGAN's sqrt(rate / 2), for
     the SiLU before each; 0.5 in the resblocks, 0.2 at conv_pre for a log-mel's
-    offset, 0.5 at conv_post (a log-mel at 44.1 kHz gives audio of rms ~0.07)."""
+    offset, 0.5 at conv_post (a log-mel at 44.1 kHz gives audio of rms ~0.07).  The template's noise
+    convs are plain: see ``noise_conv_weight``."""
     rng = np.random.default_rng(seed)
     sd = {}
     for key, val in HiFiGAN(cfg, device="meta").state_dict().items():
         shape = tuple(val.shape)
-        if key.endswith("original0"):
+        if key.startswith("noise_convs.") and key.endswith("weight"):
+            arr = noise_conv_weight(rng, shape)
+        elif key.endswith("original0"):
             top = key.split(".")[0]
             gain = {"conv_pre": 0.2, "resblocks": 0.5, "conv_post": 0.5}.get(top, 1.0)
             if top == "ups":
@@ -146,3 +190,9 @@ def random_state_dict(cfg: HiFiGANConfig, seed: int) -> dict[str, torch.Tensor]:
             arr = 0.01 * rng.standard_normal(shape)
         sd[key] = torch.from_numpy(np.asarray(arr, np.float32))
     return sd
+
+
+def noise_conv_weight(rng: np.random.Generator, shape: tuple) -> np.ndarray:
+    """A template noise conv's (O, 1, K) weight with variance 4 / K: the template (amplitude 0.1, a
+    sine over the window) comes out at ~0.1-0.3, beside a stream of unit scale."""
+    return 2.0 * rng.standard_normal(shape) / np.sqrt(shape[-1])

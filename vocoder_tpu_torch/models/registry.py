@@ -1,15 +1,14 @@
 """Generator registry: name -> (config class, module class).
 
-BigVGAN, HiFiGAN and Vocos are ported; every other name of the JAX
-package's registry raises "not yet ported".
+The JAX package's registry's five names: bigvgan, hifigan, vocos, refinegan
+and firefly_gan_base.
 """
 
 from __future__ import annotations
 
 import dataclasses
 
-_JAX_PACKAGE_GENERATORS = ("refinegan", "firefly_gan_base")
-PORTED = ("bigvgan", "hifigan", "vocos")
+PORTED = ("bigvgan", "hifigan", "vocos", "refinegan", "firefly_gan_base")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -31,6 +30,12 @@ def get_generator(name: str) -> GeneratorDef:
         from vocoder_tpu_torch.models.vocos import Vocos, VocosConfig
 
         return GeneratorDef(VocosConfig, Vocos)
-    if name in _JAX_PACKAGE_GENERATORS:
-        raise NotImplementedError(f"generator {name!r} is not yet ported; available: {list(PORTED)}")
+    if name == "refinegan":
+        from vocoder_tpu_torch.models.refinegan import RefineGAN, RefineGANConfig
+
+        return GeneratorDef(RefineGANConfig, RefineGAN)
+    if name == "firefly_gan_base":
+        from vocoder_tpu_torch.models.firefly import Firefly, FireflyConfig
+
+        return GeneratorDef(FireflyConfig, Firefly)
     raise KeyError(f"unknown generator {name!r}; available: {list(PORTED)}")

@@ -1,11 +1,13 @@
 """Where a GAN training step spends its time, by phase and by part, on one CUDA card.
 
-    python -m vocoder_tpu_torch.tools.profile_train [--model bigvgan] [--batch 16] [--steps 8]
+    python -m vocoder_tpu_torch.tools.profile_train [--model bigvgan|hifigan|refinegan] [--batch 16] [--steps 8]
 
-Builds the 44.1 kHz preset's training state (BigVGAN: random weights from
-numpy seed 0; discriminators from the torch seed), a batch of ``--batch``
-128-frame crops (65,536 samples) of sines and noise from a numpy seed, and
-runs ``--steps`` steps of ``make_train_step`` in fp32 with TF32 off.  Each
+Builds the preset's training state (44.1 kHz; RefineGAN at 24 kHz, the only
+resolution it builds at; the generator's random weights from numpy seed 0,
+the discriminators from the torch seed), a batch of ``--batch`` 128-frame
+crops (65,536 samples at 44.1 kHz, 32,768 at 24 kHz) of sines and noise from
+a numpy seed, with each sine's f0 template where the generator consumes one,
+and runs ``--steps`` steps of ``make_train_step`` in fp32 with TF32 off.  Each
 step's generator phase and discriminator phase are timed with CUDA events;
 the median over the steps from the third on is reported, with the training
 rate in audio seconds a second and the peak device memory.  Then one more
@@ -16,14 +18,22 @@ transposed and backward, generator and discriminators), the discriminators
 (their forwards in both phases and the backward nodes those forwards
 created) and the MR-STFT loss (its forward and its backward nodes).  The
 parts overlap: the convs are counted in both the discriminators and the convs.
-Prints one JSON line, with the card's name and power limit.
+For a generator that consumes a template it also times the host's f0
+templates of the batch, one after another as ``batch_iterator`` makes them
+and in a pool of the preset's ``data.num_workers`` threads, with
+``OPENBLAS_NUM_THREADS`` beside them: run it with that variable at 1 to tell
+the interpreter lock's hand-off from BLAS threads contending.  Prints one
+JSON line, with the card's name and power limit.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import statistics
+import time
+from concurrent.futures import ThreadPoolExecutor
 import sys
 
 import numpy as np
@@ -74,14 +84,21 @@ def step_parts(prof) -> dict[str, float]:
     }
 
 
-def synthetic_batch(batch: int, samples: int, sampling_rate: int, seed: int, device) -> dict:
-    """``batch`` items of sines plus noise, every item ``samples`` long."""
+def synthetic_batch(batch: int, samples: int, sampling_rate: int, seed: int, device, hop: int | None = None) -> dict:
+    """``batch`` items of sines plus noise, every item ``samples`` long; with ``hop``, also each sine's f0
+    template (``template_from_f0`` of its constant f0)."""
+    from vocoder_tpu_torch.data.f0 import template_from_f0
+
     rng = np.random.default_rng(seed)
     t = np.arange(samples) / sampling_rate
     f0 = rng.uniform(100.0, 400.0, (batch, 1))
     audio = 0.3 * np.sin(2 * np.pi * f0 * t) + 0.02 * rng.standard_normal((batch, samples))
-    return {"audio": torch.from_numpy(audio[:, None].astype(np.float32)).to(device),
-            "lengths": torch.full((batch,), samples, dtype=torch.int64, device=device)}
+    out = {"audio": torch.from_numpy(audio[:, None].astype(np.float32)).to(device),
+           "lengths": torch.full((batch,), samples, dtype=torch.int64, device=device)}
+    if hop is not None:
+        tpl = np.stack([template_from_f0(np.full(samples // hop, f[0]), sampling_rate, hop) for f in f0])
+        out["template"] = torch.from_numpy(tpl[:, None]).to(device)
+    return out
 
 
 def measure_step(state, step_fn, batch: dict, task, steps: int) -> dict:
@@ -119,15 +136,52 @@ def measure_step(state, step_fn, batch: dict, task, steps: int) -> dict:
     }
 
 
-def main(argv: list[str] | None = None) -> int:
+def f0_seconds(task, batch: dict, threads: int) -> dict:
+    """The host's seconds for the f0 templates of the batch's audio, one after another and in a pool of
+    ``threads`` threads; the two must give the same templates."""
+    from vocoder_tpu_torch.data.f0 import f0_template
+
+    audio = list(batch["audio"][:, 0].cpu().numpy())
+
+    def template(a):
+        return f0_template(a, task.sampling_rate, task.hop_length)
+
+    t0 = time.perf_counter()
+    one = [template(a) for a in audio]
+    serial_s = time.perf_counter() - t0
+    with ThreadPoolExecutor(max_workers=threads) as pool:
+        t0 = time.perf_counter()
+        pooled = list(pool.map(template, audio))
+        pool_s = time.perf_counter() - t0
+    if not all(np.array_equal(a, b) for a, b in zip(one, pooled)):
+        raise SystemExit("f0 templates made in a thread pool differ from one thread's")
+    return {"f0_seconds_per_batch": serial_s, "f0_seconds_per_batch_pool": pool_s, "f0_pool_threads": threads,
+            "openblas_num_threads": os.environ.get("OPENBLAS_NUM_THREADS")}
+
+
+def training_setup(model: str, batch: int, seed: int, device="cuda"):
+    """(task, state, batch): the preset's training state with the generator's random weights from
+    ``seed`` and a synthetic batch of the preset's crops (with templates where the generator needs them)."""
     from vocoder_tpu_torch.config import build_task_config
-    from vocoder_tpu_torch.models import bigvgan, hifigan
+    from vocoder_tpu_torch.tools.profile_forward import RANDOM_WEIGHTS, RESOLUTION
+    from vocoder_tpu_torch.train import gan
+
+    task = build_task_config(model, RESOLUTION.get(model, "44100_512_2048"))
+    state = gan.create_train_state(task, seed, device)
+    state.generator.load_state_dict(RANDOM_WEIGHTS[model](task.generator, seed))
+    hop = task.hop_length if gan.needs_template(task) else None
+    return task, state, synthetic_batch(batch, task.hop_length * task.num_frames, task.sampling_rate, seed, device,
+                                        hop)
+
+
+def main(argv: list[str] | None = None) -> int:
+    from vocoder_tpu_torch.config import DataConfig
     from vocoder_tpu_torch.nn import set_full_precision
     from vocoder_tpu_torch.tools.timing import card_line
     from vocoder_tpu_torch.train import gan
 
     ap = argparse.ArgumentParser(description="A GAN training step, by phase and by part, on the card")
-    ap.add_argument("--model", choices=("bigvgan", "hifigan"), default="bigvgan")
+    ap.add_argument("--model", choices=gan.TRAINABLE, default="bigvgan")
     ap.add_argument("--batch", type=int, default=16)
     ap.add_argument("--steps", type=int, default=8)
     args = ap.parse_args(argv)
@@ -135,12 +189,10 @@ def main(argv: list[str] | None = None) -> int:
         print("profile_train: no CUDA device", file=sys.stderr)
         return 2
     set_full_precision()
-    task = build_task_config(args.model, "44100_512_2048")
-    state = gan.create_train_state(task, 0, "cuda")
-    weights = {"bigvgan": bigvgan.random_state_dict, "hifigan": hifigan.random_state_dict}[args.model]
-    state.generator.load_state_dict(weights(task.generator, 0))
-    batch = synthetic_batch(args.batch, task.hop_length * task.num_frames, task.sampling_rate, 0, "cuda")
+    task, state, batch = training_setup(args.model, args.batch, 0)
     rec = measure_step(state, gan.make_train_step(task), batch, task, args.steps)
+    if gan.needs_template(task):
+        rec.update(f0_seconds(task, batch, DataConfig().num_workers))
     print(json.dumps({"card": card_line(), "model": args.model, "batch": args.batch, "dtype": "fp32", **rec}),
           flush=True)
     return 0

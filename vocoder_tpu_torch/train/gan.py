@@ -20,15 +20,23 @@ Three places where PyTorch differs from the JAX program, each handled here:
   only).  The generator phase runs the discriminators with
   ``requires_grad`` off, so no gradient reaches them and the discriminator
   step sees its own gradients alone.
-- The crop start comes from the state's ``torch.Generator``, which cannot
-  reproduce ``jax.random``; ``make_train_step``'s step takes an optional
-  ``crop_start`` so that a parity test can pass the JAX program's start.
+- The crop start comes from the state's ``torch.Generator`` (``rng``, on the
+  CPU), which cannot reproduce ``jax.random``; ``make_train_step``'s step
+  takes an optional ``crop_start`` so that a parity test can pass the JAX
+  program's start.  RefineGAN's AdaIN noise comes from a second generator
+  (``noise``, on the model's device, seeded from the same seed and saved in
+  the checkpoint beside ``rng``); validation draws it from the seeded-0
+  default, as the JAX package's eval step does.
+- Generators that consume an f0 template (``needs_template``: RefineGAN, and
+  HiFiGAN or BigVGAN with ``use_template``) take ``batch["template"]``
+  (B, 1, T), which the data pipeline builds from each element's final audio.
 - Adam's first step moves each parameter by about lr * sign(g): where a
   gradient is near 0, a rounding difference flips the sign of the update.
   Compare gradients tightly and updated parameters with that in mind.
 
 Not ported: the vae, vqvae and ssl families, bf16 compute (``compute_dtype``)
-and the other generators' training (ROADMAP.md Queue 1); ``spectral_precision``
+and Vocos' and Firefly-GAN's training, whose ConvNeXt ``drop_path`` is not
+ported (ROADMAP.md Queue 1); ``spectral_precision``
 (a TPU MXU pass count) and the split step (an XLA compile workaround) are
 TPU machinery.  ``run.precision`` sets TF32 in the trainer.
 """
@@ -55,7 +63,7 @@ from vocoder_tpu_torch.ops.spectral import log_mel_spectrogram
 from vocoder_tpu_torch.train.schedule import WarmupCosineConfig, warmup_cosine
 
 DEFAULT_RESOLUTIONS = ((2048, 512, 2048), (1024, 120, 600), (2048, 240, 1200), (4096, 480, 2400), (512, 50, 240))
-TRAINABLE = ("bigvgan", "hifigan")
+TRAINABLE = ("bigvgan", "hifigan", "refinegan")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -103,15 +111,23 @@ def check_trainable(cfg: GANTaskConfig) -> None:
             f"compute_dtype {cfg.compute_dtype!r}: bf16 training is not yet ported (ROADMAP.md Queue 1); "
             "the port trains in float32")
     if cfg.generator_name not in TRAINABLE:
-        raise NotImplementedError(f"training {cfg.generator_name!r} is not yet ported (ROADMAP.md Queue 1); "
+        raise NotImplementedError(f"training {cfg.generator_name!r} is not yet ported: its ConvNeXt backbone's "
+                                  "drop_path (stochastic depth) is not (ROADMAP.md Queue 1 item 2); "
                                   f"trainable: {list(TRAINABLE)}")
     if cfg.input_transform != "mel":
         raise NotImplementedError(f"input transform {cfg.input_transform!r} is not yet ported (ROADMAP.md Queue 1)")
 
 
+def needs_template(cfg: GANTaskConfig) -> bool:
+    """Whether the generator consumes an f0 template waveform: its config's ``use_template`` (a field of
+    HiFiGAN's and BigVGAN's, always true for RefineGAN's)."""
+    return bool(getattr(cfg.generator, "use_template", False))
+
+
 @dataclasses.dataclass
 class TrainState:
-    """Generator, discriminators {mpd, mrd}, their AdamW optimizers, the step and the crop generator."""
+    """Generator, discriminators {mpd, mrd}, their AdamW optimizers, the step, the crop generator
+    (``rng``, CPU) and the generator's noise generator (``noise``, on the model's device)."""
 
     step: int
     generator: nn.Module
@@ -119,20 +135,25 @@ class TrainState:
     opt_g: torch.optim.Optimizer
     opt_d: torch.optim.Optimizer
     rng: torch.Generator
+    noise: torch.Generator
 
     def state_dict(self) -> dict:
         return {"step": self.step, "generator": self.generator.state_dict(),
                 "discriminators": self.discriminators.state_dict(), "opt_g": self.opt_g.state_dict(),
-                "opt_d": self.opt_d.state_dict(), "rng": self.rng.get_state()}
+                "opt_d": self.opt_d.state_dict(), "rng": self.rng.get_state(), "noise": self.noise.get_state()}
 
     def load_state_dict(self, sd: dict, weights_only: bool = False) -> None:
-        """Everything, or with ``weights_only`` the generator's and discriminators' weights alone."""
+        """Everything, or with ``weights_only`` the generator's and discriminators' weights alone.  A
+        checkpoint without ``noise`` (written before the noise generator existed, for a generator that
+        draws none) leaves it as it was seeded."""
         self.generator.load_state_dict(sd["generator"])
         self.discriminators.load_state_dict(sd["discriminators"])
         if not weights_only:
             self.opt_g.load_state_dict(sd["opt_g"])
             self.opt_d.load_state_dict(sd["opt_d"])
             self.rng.set_state(sd["rng"])
+            if "noise" in sd:
+                self.noise.set_state(sd["noise"])
             self.step = int(sd["step"])
 
 
@@ -158,7 +179,7 @@ def reference_init(generator: nn.Module) -> nn.Module:
 
 def create_train_state(cfg: GANTaskConfig, seed: int, device) -> TrainState:
     """Modules initialised on the CPU from ``seed`` (the same weights on any device), then moved to
-    ``device``; the crop generator seeded with ``seed``."""
+    ``device``; the crop generator (CPU) and the noise generator (on ``device``) seeded with ``seed``."""
     check_trainable(cfg)
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(seed)
@@ -170,7 +191,8 @@ def create_train_state(cfg: GANTaskConfig, seed: int, device) -> TrainState:
     return TrainState(step=0, generator=generator, discriminators=discriminators,
                       opt_g=make_optimizer(cfg, generator.parameters()),
                       opt_d=make_optimizer(cfg, discriminators.parameters()),
-                      rng=torch.Generator().manual_seed(seed))
+                      rng=torch.Generator().manual_seed(seed),
+                      noise=torch.Generator(device=device).manual_seed(seed))
 
 
 def sequence_mask(lengths: torch.Tensor, max_length: int) -> torch.Tensor:
@@ -184,13 +206,23 @@ def loss_mel_transform(cfg: GANTaskConfig, audio: torch.Tensor) -> torch.Tensor:
                                win_length=cfg.win_length, n_mels=cfg.num_mels, f_max=cfg.sampling_rate // 2)
 
 
-def generator_forward(generator: nn.Module, audio: torch.Tensor, cfg: GANTaskConfig,
-                      plain: bool = False) -> torch.Tensor:
-    """audio (B, 1, T) -> the generator's fake (B, 1, T), fp32.  ``plain``: through the kernels'
-    plain versions (``forward_plain``, where the generator has kernels), as the card checks compare."""
+def generator_forward(generator: nn.Module, audio: torch.Tensor, cfg: GANTaskConfig, plain: bool = False,
+                      template: torch.Tensor | None = None, noise: torch.Generator | None = None) -> torch.Tensor:
+    """audio (B, 1, T) [+ template (B, 1, T)] -> the generator's fake (B, 1, T), fp32.  ``plain``:
+    through the kernels' plain versions (``forward_plain``, where the generator has kernels), as the
+    card checks compare.  ``noise``: the noise generator of a generator that ``draws_noise`` (RefineGAN's
+    AdaIN; None: the seeded-0 default)."""
     spec = loss_mel_transform(cfg, audio[:, 0, :])  # the gan family's input transform is the log-mel
     forward = generator.forward_plain if plain and hasattr(generator, "forward_plain") else generator
-    return forward(spec).float()
+    kw = {}
+    if needs_template(cfg):
+        if template is None:
+            raise ValueError(f"{cfg.generator_name} needs an f0 template waveform in the batch "
+                             "(batch['template'], which the trainer builds when needs_template(cfg))")
+        kw["template"] = template
+    if getattr(generator, "draws_noise", False):
+        kw["noise"] = noise
+    return forward(spec, **kw).float()
 
 
 def _discriminators(discriminators: nn.ModuleDict, audio: torch.Tensor) -> dict:
@@ -207,9 +239,9 @@ def draw_crop_start(state: TrainState, cfg: GANTaskConfig, t: int) -> int | None
 
 
 def _generator_loss(generator, discriminators, audio, mask, cfg: GANTaskConfig, start: int | None,
-                    plain: bool = False):
+                    plain: bool = False, template=None, noise=None):
     """(loss, metrics, audio_c, fake_c): the generator loss, and the crops the discriminators see."""
-    fake = generator_forward(generator, audio, cfg, plain)
+    fake = generator_forward(generator, audio, cfg, plain, template, noise)
     if fake.shape != audio.shape:
         raise ValueError(f"generator output {tuple(fake.shape)} does not match the audio {tuple(audio.shape)}")
     audio_m, fake_m = audio * mask, fake * mask
@@ -267,7 +299,8 @@ def global_norm(params) -> torch.Tensor:
 def make_train_step(cfg: GANTaskConfig, plain: bool = False):
     """(state, batch, crop_start=None) -> metrics; updates ``state`` in place.
 
-    ``batch``: {"audio": (B, 1, T), "lengths": (B,)} on the state's device.  The generator
+    ``batch``: {"audio": (B, 1, T), "lengths": (B,)[, "template": (B, 1, T)]} on the state's device.
+    The generator
     step (``step.g_phase``), then the discriminator step (``step.d_phase``) on the pre-update
     generator's fake; the crop start is drawn from ``state.rng`` unless given.  The phases are
     exposed so that a measurement times the code the step runs.  ``plain`` runs the generator
@@ -281,7 +314,8 @@ def make_train_step(cfg: GANTaskConfig, plain: bool = False):
         start = draw_crop_start(state, cfg, audio.shape[2]) if crop_start is None else crop_start
         state.opt_g.zero_grad(set_to_none=True)
         loss, metrics, audio_c, fake_c = _generator_loss(
-            state.generator, state.discriminators, audio, mask, cfg, start, plain)
+            state.generator, state.discriminators, audio, mask, cfg, start, plain, batch.get("template"),
+            state.noise)
         loss.backward()
         metrics["train/generator/grad_norm"] = global_norm(state.generator.parameters())
         for group in state.opt_g.param_groups:
@@ -314,7 +348,8 @@ def make_train_step(cfg: GANTaskConfig, plain: bool = False):
 
 def make_eval_step(cfg: GANTaskConfig):
     """(state, batch) -> ({"val/metrics/mel": masked mel-L1 on the full clip}, masked fake): the
-    generator in eval mode under ``torch.no_grad`` (BigVGAN: the inference path, K2 and K1)."""
+    generator in eval mode under ``torch.no_grad`` (BigVGAN: the inference path, K2 and K1; RefineGAN:
+    the seeded-0 noise of inference)."""
 
     def step(state: TrainState, batch: dict):
         audio, lengths = batch["audio"], batch["lengths"]
@@ -322,7 +357,7 @@ def make_eval_step(cfg: GANTaskConfig):
         state.generator.eval()
         try:
             with torch.no_grad():
-                fake = generator_forward(state.generator, audio, cfg)
+                fake = generator_forward(state.generator, audio, cfg, template=batch.get("template"))
                 audio_m, fake_m = audio * mask, fake * mask
                 loss_mel = torch.mean(torch.abs(loss_mel_transform(cfg, audio_m[:, 0])
                                                 - loss_mel_transform(cfg, fake_m[:, 0])))

@@ -4,7 +4,8 @@ Counterpart of ``vocoder_tpu/train/trainer.py`` on one device: ``config.json``
 and the guard against resuming a workdir that holds another task's
 checkpoint, auto-resume from the latest checkpoint (or a weights-only start
 from ``run.ckpt_path``), the first step, then the loop with its log window
-(``perf/steps_per_s``, ``perf/audio_s_per_s``, ``perf/input_wait_s``), the
+(``perf/steps_per_s``, ``perf/audio_s_per_s``, ``perf/input_wait_s``, which
+holds the host's f0 templates where the generator consumes them), the
 validation mel-L1 every ``run.val_interval`` steps with
 ``run.early_stop_patience``, a checkpoint every ``run.ckpt_interval`` steps
 and a forced one at the end, and ``crash.log`` when a step raises.
@@ -34,6 +35,7 @@ import torch
 from vocoder_tpu_torch.config import TrainConfig
 from vocoder_tpu_torch.data import transforms as T
 from vocoder_tpu_torch.data.dataset import MixDataset, VocoderDataset, batch_iterator
+from vocoder_tpu_torch.data.f0 import f0_template
 from vocoder_tpu_torch.nn import set_full_precision
 from vocoder_tpu_torch.train import gan
 from vocoder_tpu_torch.utils.checkpoint import CheckpointManager
@@ -59,8 +61,16 @@ def _build_train_sampler(cfg: TrainConfig):
     return MixDataset(datasets=[VocoderDataset(root=r, transform=tr) for r in roots], probs=probs).sample
 
 
+def template_fn(task):
+    """For a generator that consumes an f0 template: audio (T,) -> its template (T,), on the host; else None."""
+    if not gan.needs_template(task):
+        return None
+    return lambda audio: f0_template(audio, task.sampling_rate, task.hop_length)
+
+
 def _build_val_batches(cfg: TrainConfig) -> list[dict] | None:
-    """Fixed validation batches: each clip's first channel cut or zero-padded to val_crop_frames hops."""
+    """Fixed validation batches: each clip's first channel cut or zero-padded to val_crop_frames hops,
+    with each clip's f0 template (of the padded clip) where the generator consumes one."""
     if cfg.data.val_root is None:
         return None
     task = cfg.task
@@ -69,6 +79,7 @@ def _build_val_batches(cfg: TrainConfig) -> list[dict] | None:
     target = task.hop_length * cfg.data.val_crop_frames
     rng = np.random.default_rng(cfg.run.seed)
     b = cfg.data.val_batch_size
+    tfn = template_fn(task)
     batches = []
     for i in range(0, len(ds), b):
         audios, lengths = [], []
@@ -80,7 +91,10 @@ def _build_val_batches(cfg: TrainConfig) -> list[dict] | None:
         while len(audios) < b:  # a fixed batch shape, as the JAX package keeps
             audios.append(np.zeros_like(audios[0]))
             lengths.append(0)
-        batches.append({"audio": np.stack(audios).astype(np.float32), "lengths": np.asarray(lengths, np.int64)})
+        batch = {"audio": np.stack(audios).astype(np.float32), "lengths": np.asarray(lengths, np.int64)}
+        if tfn is not None:
+            batch["template"] = np.stack([tfn(a[0]) for a in audios])[:, None, :].astype(np.float32)
+        batches.append(batch)
     return batches
 
 
@@ -135,7 +149,8 @@ def train(cfg: TrainConfig, device: str | torch.device = "cuda") -> gan.TrainSta
     eval_fn = gan.make_eval_step(task)
     target_len = task.hop_length * task.num_frames
     host_it = batch_iterator(_build_train_sampler(cfg), batch_size=cfg.data.batch_size, target_length=target_len,
-                             seed=cfg.run.seed, start_step=state.step, num_workers=cfg.data.num_workers)
+                             seed=cfg.run.seed, start_step=state.step, num_workers=cfg.data.num_workers,
+                             template_fn=template_fn(task))
     val_batches = _build_val_batches(cfg)
     metrics_logger = MetricsLogger(workdir)
     wait_s = 0.0
