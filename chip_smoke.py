@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's inference (BigVGAN, HiFiGAN, Vocos, RefineGAN, Firefly-GAN; BigVGAN also with an
-f0 template) and training on one CUDA card and check it.
+f0 template), training (those, and the vae and vqvae families) and the vqvae codec on one CUDA card and
+check it.
 
     python3 chip_smoke.py          # from the repository root; needs one NVIDIA H100
 
@@ -75,7 +76,24 @@ Phases, in order; any failure exits non-zero:
      with validation every 2, a resume to 6 (the AdaIN noise generator on the
      card, restored from the checkpoint) and `cli.infer --ckpt <workdir>`;
      then the RefineGAN step at b16 as in 13, with the host's f0 seconds for
-     one batch and the CLI run's input wait.
+     one batch and the CLI run's input wait;
+ 15. `cli.codec` at the vqvae preset's full width (44.1 kHz: a 16-layer
+     WaveNet of 256 over 1,025 bins, a 4,096 x 512 EMA codebook, a
+     512-channel HiFiGAN decoder) from a seeded training workdir: `encode`
+     and `decode` on the card over generated WAVs (one stereo, one at
+     22.05 kHz) and `encode --device cpu`; the card's codes equal the CPU's
+     wherever a frame's margin allows (the share under it is printed), each
+     decoded WAV equals the generator's eval forward on the card; encode and
+     decode audio-s/s and seconds;
+ 16. the training step of vae, vqvae, Vocos and Firefly-GAN at their presets'
+     widths and batch 16, as in 13 (ms by phase, audio-s/s, peak memory,
+     card busy share, top kernels);
+ 17. one step of each of those four at full width and reduced depth (b2,
+     8,192 samples, a 4,096-sample crop, TF32 off) on the card against the
+     same step on the CPU, the same draws (drop_path, eps) on both: losses,
+     gradients, updated parameters and the vqvae's EMA codebook;
+ 18. `cli.train --family vqvae` at the preset's batch 16 x 32 frames: 4 steps
+     with validation every 2, a resume to 6, the codebooks checkpointed.
 
 A `timeline` line gives the seconds from the start to the end of each phase.
 
@@ -89,6 +107,7 @@ default flags (cuDNN TF32 on), so that it checks the CLI's own setting.
 from __future__ import annotations
 
 import copy
+import dataclasses
 import itertools
 import json
 import math
@@ -729,7 +748,7 @@ def check_eval_after_step(state, task, batch: dict, fake_before) -> None:
     launched = amp_stage.launches - launches
     with torch.no_grad():
         mask = gan.sequence_mask(batch["lengths"], batch["audio"].shape[2])
-        want = gan.generator_forward(state.generator, batch["audio"], task, plain=True) * mask
+        want = gan.generator_forward(state.generator, batch["audio"], task, plain=True)[0] * mask
     err, moved = rel_l2(fake, want), rel_l2(fake, fake_before)
     val_mel = float(metrics["val/metrics/mel"])
     ok = launched > 0 and err <= GEN_FP32_REL_L2 and moved > 10 * err and math.isfinite(val_mel)
@@ -1220,6 +1239,337 @@ def time_refinegan_step(dev, stamp: dict, cli_record: dict) -> dict:
     return rec
 
 
+# Phases 15-18: the vae and vqvae families, and Vocos and Firefly-GAN training.
+# (name, the gan preset or the family's model argument, family) of each newly trainable generator.
+FAMILY_STEPS = (("vae", "hifigan", "vae"), ("vqvae", "hifigan", "vqvae"), ("vocos", "vocos", "gan"),
+                ("firefly_gan_base", "firefly_gan_base", "gan"))
+# A frame's VQ code is held equal across devices where its margin (second-best minus best squared
+# distance) exceeds this share of its squared norm: fp32 sums over 512 dimensions, and the 16 WaveNet
+# layers' convs summed in another order, move a distance by ~1e-6 of that.
+CODEC_MARGIN_REL = 1e-4
+# One reduced-depth step on the card against the same step on the CPU, TF32 off: the same operations in
+# fp32, summed in other orders.
+FAMILY_LOSS_REL, FAMILY_GRAD_REL_L2, FAMILY_EMA_REL_L2 = 1e-5, 1e-3, 1e-5
+
+
+def fit_codebook(model, spec, seed: int) -> None:
+    """Put the first codebook where a trained one would sit: on latent frames of ``spec`` (B, bins, F)
+    plus noise of 0.3 of their spread (``embed_avg`` with it).  A random encoder's latents vary little about
+    their mean, so against a unit-normal codebook every frame would take the same code."""
+    import torch
+
+    with torch.no_grad():
+        frames = model.encoder(spec).transpose(1, 2).reshape(-1, model.cfg.vq.dim)
+        gen = torch.Generator().manual_seed(seed)
+        k = model.cfg.vq.codebook_size
+        idx = torch.randint(0, frames.shape[0], (k,), generator=gen).to(spec.device)
+        noise = torch.randn(k, frames.shape[1], generator=gen).to(spec.device)
+        rows = frames[idx] + 0.3 * frames.std(0) * noise
+        model.vq.layers[0].embed.copy_(rows)
+        model.vq.layers[0].embed_avg.copy_(rows)
+
+
+def codec_margins(model, spec):
+    """(codes (F,), margin over squared norm (F,)) of the first quantiser for one item's spectrogram, float64."""
+    import torch
+
+    with torch.no_grad():
+        x = model.encoder(spec)[0].T.double()
+        d = torch.cdist(x, model.vq.layers[0].embed.double()).square()
+        best = torch.topk(d, 2, dim=1, largest=False).values
+    return torch.argmin(d, dim=1), (best[:, 1] - best[:, 0]) / x.square().sum(1)
+
+
+def codec_wavs(root: Path, sr: int, rng) -> dict[str, float]:
+    """Speech-like WAVs for the codec (vibrato tones under a syllable envelope, noise bursts), one stereo
+    and one at 22.05 kHz; name -> seconds."""
+    import numpy as np
+
+    from vocoder_tpu_torch.data.audio_io import write_wav
+
+    out = {}
+    for i, (rate, seconds, ch) in enumerate(((sr, 3.0, 1), (sr, 2.2, 1), (sr, 1.3, 2), (22050, 1.7, 1))):
+        n = int(rate * seconds)
+        t = np.arange(n) / rate
+        f0 = rng.uniform(110.0, 260.0)
+        env = np.clip(np.sin(2 * np.pi * rng.uniform(2.0, 5.0) * t), 0.0, None)
+        tone = sum(np.sin(2 * np.pi * k * f0 * t + 2.0 * np.sin(2 * np.pi * 5.0 * t)) / k for k in range(1, 6))
+        audio = 0.2 * env * tone + 0.05 * (1 - env) * rng.standard_normal(n)
+        write_wav(root / f"{i}.wav", np.stack([audio, np.roll(audio, 7)][:ch]).astype(np.float32), rate)
+        out[f"{i}.wav"] = n / rate
+    return out
+
+
+def check_codec(root: Path, dev, paths: dict, stamp: dict) -> None:
+    """cli.codec at the vqvae preset's full width (44.1 kHz; a 16-layer WaveNet of 256, a 4,096 x 512
+    codebook, a 512-channel HiFiGAN decoder): a seeded training state (random weights from numpy, the
+    codebook fitted to the inputs' latents) saved as a workdir, then `encode` and `decode` on the card over
+    the WAVs, and `encode --device cpu`.  The card's codes equal the CPU's on every frame whose margin
+    exceeds CODEC_MARGIN_REL of its squared norm; each decoded WAV equals the generator's eval forward on
+    the card within WAV_TOL.  Encode and decode audio-s/s and seconds."""
+    import numpy as np
+    import torch
+
+    from vocoder_tpu_torch.cli import codec
+    from vocoder_tpu_torch.config import TrainConfig, build_task_config
+    from vocoder_tpu_torch.data.audio_io import read_audio, read_wav
+    from vocoder_tpu_torch.data.resample import resample
+    from vocoder_tpu_torch.models.vae import vqvae_random_state_dict
+    from vocoder_tpu_torch.ops.spectral import linear_spectrogram
+    from vocoder_tpu_torch.train import gan
+    from vocoder_tpu_torch.utils.checkpoint import CheckpointManager
+
+    tf32_off()
+    task = build_task_config(family="vqvae")
+    (root / "in").mkdir()
+    seconds = codec_wavs(root / "in", task.sampling_rate, np.random.default_rng(SEED + 16))
+
+    def spec_of(name: str, device) -> torch.Tensor:  # the CLI's preprocessing of one file
+        audio, sr = read_audio(root / "in" / name)
+        a = resample(audio.mean(0), sr, task.sampling_rate)
+        a = np.pad(a, (0, (-len(a)) % task.hop_length)).astype(np.float32)
+        return linear_spectrogram(torch.from_numpy(a)[None].to(device), n_fft=task.n_fft, hop_length=task.hop_length,
+                                  win_length=task.win_length)
+
+    state = gan.create_train_state(task, SEED, dev)
+    state.generator.load_state_dict(vqvae_random_state_dict(task.generator, SEED))
+    fit_codebook(state.generator, torch.cat([spec_of(n, dev) for n in ("0.wav", "1.wav")], dim=2), SEED + 16)
+    work = root / "run"
+    CheckpointManager(work / "checkpoints").save(0, state, force=True)
+    (work / "config.json").write_text(json.dumps(dataclasses.asdict(TrainConfig(task=task)), default=str))
+    del state
+    torch.cuda.empty_cache()
+
+    def run(mode: str, src: Path, dst: Path, device: str, path: str | None = None) -> float:
+        """The CLI from PyTorch's default TF32 flags; its seconds.  ``path``: a main path on the card."""
+        argv = [mode, "--ckpt", str(work), "--input", str(src), "--output", str(dst), "--device", device]
+        tf32_defaults()
+        t0 = time.perf_counter()
+        if path is None:
+            codec.main(argv)
+        else:
+            drive_path(path, lambda: codec.main(argv), (), paths)
+        if torch.backends.cudnn.allow_tf32 or torch.backends.cuda.matmul.allow_tf32:
+            raise SystemExit("cli.codec left TF32 on")
+        return time.perf_counter() - t0
+
+    encode_s = run("encode", root / "in", root / "codes", str(dev), "codec_encode")
+    decode_s = run("decode", root / "codes", root / "out", str(dev), "codec_decode")
+    cpu_s = run("encode", root / "in", root / "codes_cpu", "cpu")
+    tf32_off()
+    cpu_model = codec.load_codec(work, task, torch.device("cpu"))
+    card_model = codec.load_codec(work, task, torch.device(dev))
+    total = {"frames": 0, "under_margin": 0, "differ": 0, "differ_above_margin": 0, "codes_used": set()}
+    worst_wav = 0.0
+    for name in seconds:
+        stem = name[: -len(".wav")]
+        card = np.load(root / "codes" / f"{stem}.codes.npy")
+        cpu = np.load(root / "codes_cpu" / f"{stem}.codes.npy")
+        spec_cpu = spec_of(name, "cpu")
+        _, rel_margin = codec_margins(cpu_model, spec_cpu)
+        clear = rel_margin.numpy() > CODEC_MARGIN_REL
+        differ = card[0, 0] != cpu[0, 0]
+        total["frames"] += differ.size
+        total["under_margin"] += int((~clear).sum())
+        total["differ"] += int(differ.sum())
+        total["differ_above_margin"] += int((differ & clear).sum())
+        total["codes_used"] |= set(card[0, 0].tolist())
+        with torch.no_grad():
+            want = card_model(spec_of(name, dev))[0][0, 0].cpu().numpy()
+        wav, sr = read_wav(root / "out" / f"{stem}.wav")
+        err = float(np.abs(wav[0] - want).max()) if wav.shape == (1, want.size) else float("inf")
+        worst_wav = max(worst_wav, err)
+        log({"phase": "codec_file", "file": name, "frames": int(card.shape[-1]), "codes_shape": list(card.shape),
+             "differ": int(differ.sum()), "under_margin": int((~clear).sum()), "wav_vs_forward_max_abs": err,
+             "decoded_peak": float(np.abs(wav).max()) if wav.size else None})
+    audio_s = sum(seconds.values())
+    ok = (total["differ_above_margin"] == 0 and worst_wav <= WAV_TOL and len(total["codes_used"]) > 10
+          and total["under_margin"] < total["frames"])
+    log({"phase": "codec", "model": "vqvae", "files": len(seconds), "audio_s": audio_s, "frames": total["frames"],
+         "codes_used": len(total["codes_used"]), "share_under_margin": total["under_margin"] / total["frames"],
+         "margin_rel": CODEC_MARGIN_REL, "codes_differ_card_vs_cpu": total["differ"],
+         "codes_differ_above_margin": total["differ_above_margin"], "wav_vs_forward_max_abs": worst_wav,
+         "wav_limit": WAV_TOL, "ok": ok})
+    log({"metric": "codec_seconds", "model": "vqvae", "audio_s": audio_s, "encode_seconds": encode_s,
+         "decode_seconds": decode_s, "encode_audio_s_per_s": audio_s / encode_s,
+         "decode_audio_s_per_s": audio_s / decode_s, "cpu_encode_seconds": cpu_s, **stamp})
+    if not ok:
+        raise SystemExit("cli.codec: the card's codes or decoded audio disagree, or the codes did not vary")
+    del cpu_model, card_model
+    torch.cuda.empty_cache()
+
+
+def time_family_steps(dev, stamp: dict) -> None:
+    """The training step of vae, vqvae, Vocos (base) and Firefly-GAN at their presets' widths and the
+    trainer's default batch 16 (44.1 kHz; 128 frames, the vqvae's 32), fp32, TF32 off: ms by phase,
+    audio-s/s, peak memory, card busy and top kernels (tools/profile_train.py)."""
+    import torch
+
+    from vocoder_tpu_torch.tools.profile_train import measure_step, training_setup
+    from vocoder_tpu_torch.train import gan
+
+    tf32_off()
+    for name, model, family in FAMILY_STEPS:
+        task, state, batch = training_setup(model, 16, SEED, dev, family)
+        rec = measure_step(state, gan.make_train_step(task), batch, task, 4)
+        log({"metric": "train_step_ms", "model": name, "batch": 16, "samples": task.hop_length * task.num_frames,
+             "dtype": "fp32", "params": sum(p.numel() for p in state.generator.parameters()),
+             "busy_share_of_step": rec["profiled_busy_ms"] / rec["ms"], **rec, **stamp})
+        del state, batch
+        torch.cuda.empty_cache()
+
+
+def reduced_family_task(name: str, model: str, family: str):
+    """The preset's task at full width and reduced depth (ConvNeXt one block a stage, WaveNet 2 layers,
+    each HiFiGAN stage one resblock of kernel 3), 16 frames and a 4,096-sample crop: for a CPU step."""
+    from vocoder_tpu_torch.config import build_task_config
+
+    task = build_task_config(model, "44100_512_2048", family)
+    gen = task.generator
+    one_block = dict(resblock_kernel_sizes=(3,), resblock_dilation_sizes=((1, 3),))
+    if name == "vae":
+        gen = dataclasses.replace(gen, encoder=dataclasses.replace(gen.encoder, depths=(1, 1, 1, 1)),
+                                  decoder=dataclasses.replace(gen.decoder, **one_block))
+    elif name == "vqvae":
+        gen = dataclasses.replace(gen, encoder=dataclasses.replace(gen.encoder, n_layers=2),
+                                  decoder=dataclasses.replace(gen.decoder, **one_block))
+    elif name == "vocos":
+        gen = dataclasses.replace(gen, backbone=dataclasses.replace(gen.backbone, depths=(1, 1, 1, 1)))
+    else:
+        gen = dataclasses.replace(gen, backbone=dataclasses.replace(gen.backbone, depths=(1, 1, 1, 1)),
+                                  head=dataclasses.replace(gen.head, **one_block))
+    return task.replace(generator=gen, num_frames=16, crop_length=4096)
+
+
+def adam_step_close(new_card, new_cpu, old, grad_cpu, grad_err: float, lr: float, wd: float) -> bool:
+    """Updated parameters under Adam's first-step caveat: a step moves each element by about lr * sign(g),
+    so where the gradient lies within 100x its card-vs-CPU difference of 0 the sign may flip (within
+    2 lr + lr * wd * |p| + 2 ulps); elsewhere the steps agree to 1e-3 relative (+ 2 ulps)."""
+    import torch
+
+    step_card, step_cpu = new_card - old, new_cpu - old
+    ulps = 2 * torch.abs(old) * 2.0 ** -23
+    clear = grad_cpu.abs() > 100 * max(grad_err, 1e-6)
+    diff = (step_card - step_cpu).abs()
+    return bool((diff[clear] <= 1e-3 * step_cpu[clear].abs() + ulps[clear]).all()
+                and (diff[~clear] <= 2 * lr + lr * wd * old[~clear].abs() + ulps[~clear]).all())
+
+
+def check_family_steps_cpu(dev, paths: dict) -> None:
+    """One step of each family at full width and reduced depth (``reduced_family_task``), b2, TF32 off, on
+    the card and on the CPU from the same weights, batch, crop start and draws (the noise generator a CPU
+    one on both sides: drop_path and eps draw on their generator's device): every loss, every generator
+    gradient, the updated generator parameters, and the vqvae's EMA codebook (fitted to the batch's latents
+    first, so that the step touches many codes)."""
+    import torch
+
+    from vocoder_tpu_torch.models.vae import vae_random_state_dict, vqvae_random_state_dict
+    from vocoder_tpu_torch.tools.profile_forward import RANDOM_WEIGHTS
+    from vocoder_tpu_torch.tools.profile_train import synthetic_batch
+    from vocoder_tpu_torch.train import gan
+
+    tf32_off()
+    weights = {**RANDOM_WEIGHTS, "vae": vae_random_state_dict, "vqvae": vqvae_random_state_dict}
+    for name, model, family in FAMILY_STEPS:
+        task = reduced_family_task(name, model, family)
+        t = task.hop_length * task.num_frames
+        batch = synthetic_batch(TRAIN_CHECK_BATCH, t, task.sampling_rate, SEED, "cpu")
+        batch["lengths"][1] = t * 4 // 5
+        batch["audio"][1, :, t * 4 // 5:] = 0.0
+        sd = weights[task.generator_name](task.generator, SEED)
+        if name == "vqvae":  # one fitted codebook for both devices
+            from vocoder_tpu_torch.models.vae import VQVAEGenerator
+
+            m = VQVAEGenerator(task.generator)
+            m.load_state_dict(sd)
+            fit_codebook(m, gan.input_transform(task, batch["audio"][:, 0]), SEED)
+            sd = m.state_dict()
+        runs = {}
+        for device in ("cpu", dev):
+            state = gan.create_train_state(task, SEED, device)
+            state.generator.load_state_dict(sd)
+            state.noise = torch.Generator().manual_seed(SEED)
+            b = {k: v.to(device) for k, v in batch.items()}
+            old = {k: v.detach().cpu().clone() for k, v in state.generator.state_dict().items()}
+            start = gan.draw_crop_start(state, task, t)
+            step = gan.make_train_step(task)
+            if device == "cpu":
+                metrics = step(state, b, start)
+            else:
+                metrics = drive_path(f"train_step_{name}", lambda: step(state, b, start), (), paths)
+            runs[device] = ({k: float(v) for k, v in metrics.items()},
+                            {n: p.grad.detach().cpu().clone() for n, p in state.generator.named_parameters()},
+                            {k: v.detach().cpu().clone() for k, v in state.generator.state_dict().items()}, old)
+            del state
+        (mk, gk, nk, _), (mc, gc, nc, old) = runs[dev], runs["cpu"]
+        lr = mc["lr"]
+        loss_rel = {k: rel(mk[k], mc[k]) for k in mk if "grad_norm" not in k and k != "lr"}
+        grad_rel = {n: rel_l2(gk[n], gc[n]) for n in gc}
+        worst = max(grad_rel, key=grad_rel.get)
+        params_ok = all(adam_step_close(nk[n], nc[n], old[n], gc[n], float((gk[n] - gc[n]).abs().max()), lr,
+                                        task.weight_decay) for n in gc)
+        ema = {k: rel_l2(nk[k], nc[k]) for k in nc if ".vq." in f".{k}" and "layers" in k}
+        ema_moved = {k: rel_l2(nc[k], old[k]) for k in ema}
+        ok = (max(loss_rel.values()) <= FAMILY_LOSS_REL and grad_rel[worst] <= FAMILY_GRAD_REL_L2 and params_ok
+              and all(v <= FAMILY_EMA_REL_L2 for v in ema.values()) and all(v > 0 for v in ema_moved.values())
+              and all(map(math.isfinite, list(mk.values()) + list(mc.values()))))
+        log({"phase": "family_step_card_vs_cpu", "model": name, "batch": TRAIN_CHECK_BATCH, "samples": t,
+             "generator": dataclasses.asdict(task.generator), "metrics_card": mk, "loss_rel": loss_rel,
+             "max_grad_rel_l2": grad_rel[worst], "worst_grad": worst, "params_adam_close": params_ok,
+             "ema_rel_l2": ema, "ema_moved_rel_l2": ema_moved, "launches": paths[f"train_step_{name}"],
+             "limits": {"loss_rel": FAMILY_LOSS_REL, "grad_rel_l2": FAMILY_GRAD_REL_L2,
+                        "ema_rel_l2": FAMILY_EMA_REL_L2},
+             "ok": ok})
+        if not ok:
+            raise SystemExit(f"{name}: the training step on the card disagrees with the step on the CPU")
+        torch.cuda.empty_cache()
+
+
+def check_cli_train_vqvae(root: Path, dev, paths: dict) -> None:
+    """cli.train --family vqvae at the preset's batch 16 x 32 frames on 32 generated WAVs: 4 steps with
+    validation every 2 and a checkpoint every 2, then a resume to 6; the codebooks move from step 2 to 4,
+    step 4's checkpoint holds the run's last codebook, and the resumed run moves it on."""
+    import numpy as np
+    import torch
+
+    from vocoder_tpu_torch.config import build_task_config
+    from vocoder_tpu_torch.utils.checkpoint import CheckpointManager
+
+    task = build_task_config(family="vqvae")
+    write_train_corpus(root, task.sampling_rate, np.random.default_rng(SEED + 17))
+    work = root / "run_vqvae"
+    base = ["--family", "vqvae", "--device", str(dev), f"data.train_roots=('{root / 'train'}',)",
+            f"data.val_root={root / 'val'}", "run.log_interval=1", "run.val_interval=2", "run.ckpt_interval=2",
+            "run.val_pesq=False", f"run.workdir={work}"]
+    tf32_defaults()
+    state, _ = drive_path("cli_train_vqvae", lambda: run_train_cli([*base, "run.max_steps=4"]), (), paths)
+    records = [json.loads(line) for line in (work / "metrics.jsonl").read_text().splitlines()]
+    train_recs = [r for r in records if "train/generator/all" in r]
+    val_recs = [r for r in records if "val/metrics/mel" in r]
+    finite = all(math.isfinite(v) for r in records for v in r.values())
+    ckpts = sorted(p.name for p in (work / "checkpoints").iterdir())
+    embed = state.generator.vq.layers[0].embed.detach().cpu()
+    saved = CheckpointManager(work / "checkpoints").load(4)["generator"]["vq.layers.0.embed"]
+    first = CheckpointManager(work / "checkpoints").load(2)["generator"]["vq.layers.0.embed"]
+    ok = (state.step == 4 and finite and [r["step"] for r in train_recs] == [2, 3, 4]
+          and [r["step"] for r in val_recs] == [2, 4] and {"2.pt", "4.pt"} <= set(ckpts)
+          and all("train/generator/vq" in r for r in train_recs) and torch.equal(saved, embed)
+          and not torch.equal(first, embed))
+    log({"phase": "cli_train", "model": "vqvae", "batch": 16, "frames": 32, "steps": 4, "checkpoints": ckpts,
+         "train_records": train_recs, "val_records": val_recs, "finite": finite,
+         "codebook_moved_rel_l2_2_to_4": rel_l2(embed, first), "ok": ok})
+    if not ok:
+        raise SystemExit("cli.train --family vqvae: the run did not train, validate and checkpoint as asked")
+
+    tf32_defaults()
+    state, text = drive_path("cli_train_vqvae_resume", lambda: run_train_cli([*base, "run.max_steps=6"]), (), paths)
+    ok = (state.step == 6 and "auto-resumed from step 4" in text and (work / "checkpoints" / "6.pt").is_file()
+          and not torch.equal(state.generator.vq.layers[0].embed.detach().cpu(), embed))
+    log({"phase": "cli_train_resume", "model": "vqvae", "step": state.step, "ok": ok})
+    if not ok:
+        raise SystemExit("cli.train --family vqvae did not resume from step 4 and end at step 6")
+
+
 def main() -> int:
     import torch
 
@@ -1501,6 +1851,18 @@ def main() -> int:
     mark("14 cli.train refinegan")
     time_refinegan_step(dev, stamp, cli_rec)
     mark("14 refinegan step timing")
+
+    # 15-18. The vae and vqvae families, and Vocos and Firefly-GAN training.
+    with tempfile.TemporaryDirectory() as tmp:
+        check_codec(Path(tmp), dev, paths, stamp)
+    mark("15 vqvae codec")
+    time_family_steps(dev, stamp)
+    mark("16 family step timings")
+    check_family_steps_cpu(dev, paths)
+    mark("17 family steps card vs cpu")
+    with tempfile.TemporaryDirectory() as tmp:
+        check_cli_train_vqvae(Path(tmp), dev, paths)
+    mark("18 cli.train vqvae")
     log({"phase": "timeline", "seconds_at_end": timeline})
 
     def launches(name):  # over the main paths' runs; each path's count beside it

@@ -381,7 +381,7 @@ def test_eval_step_follows_optimizer_updates(cuda_device):
     _, after = eval_step(state, batch)
     assert amp_stage.launches - launches == 2 * 2 * 2 * 2  # 2 stages x 2 blocks x 2 dilations x 2 convs
     with torch.no_grad():
-        want = gan.generator_forward(state.generator, batch["audio"], task, plain=True)
+        want = gan.generator_forward(state.generator, batch["audio"], task, plain=True)[0]
     assert _rel_l2(after, want) <= 1e-4
     assert _rel_l2(after, before) > 1e-2
 
@@ -465,3 +465,96 @@ def test_refinegan_draws_on_the_card_are_reproducible(cuda_device):
         assert float((a - c).abs().max()) > 1e-3
         with pytest.raises(RuntimeError):
             model(mel, tpl, torch.Generator().manual_seed(3))
+
+
+def _tiny_family_task(family: str):
+    """A tiny vae (ConvNeXt encoder) or vqvae (WaveNet, 32 codes) task at 8 kHz, hop 16, n_fft 64."""
+    from vocoder_tpu_torch.config import apply_overrides, build_task_config
+
+    dec = ["hop_length=16", "upsample_rates=(4,4)", "upsample_kernel_sizes=(8,8)", "upsample_initial_channel=32",
+           "resblock_kernel_sizes=(3,)", "resblock_dilation_sizes=((1,3),)", "num_mels=6"]
+    enc = (["input_channels=33", "depths=(1,2)", "dims=(8,12)"] if family == "vae"
+           else ["in_channels=33", "out_channels=6", "hidden_channels=16", "n_layers=3"])
+    over = ["sampling_rate=8000", "n_fft=64", "win_length=64", "hop_length=16", "num_frames=32", "crop_length=128",
+            "mpd.periods=(2,3)", "mpd.channels=(1,4,8)", "mrd.resolutions=((64,16,64),(32,8,32))",
+            "stft_resolutions=((64,16,64),(32,8,32))", "generator.latent_size=6",
+            *[f"generator.decoder.{o}" for o in dec], *[f"generator.encoder.{o}" for o in enc]]
+    if family == "vqvae":
+        over += ["generator.vq.dim=6", "generator.vq.codebook_size=32"]
+    return apply_overrides(build_task_config(family=family), over)
+
+
+def test_vae_train_step_on_the_card_matches_the_cpu(cuda_device):
+    """A tiny vae step on the card against the same step on the CPU: the same weights, batch, crop and
+    eps draws (a CPU noise generator on both sides; draws move to the model's device): every loss rel 1e-5,
+    every generator gradient rel L2 1e-4, the updated generator within 2 lr of the CPU's."""
+    from vocoder_tpu_torch.models.vae import vae_random_state_dict
+    from vocoder_tpu_torch.tools.profile_train import synthetic_batch
+    from vocoder_tpu_torch.train import gan
+
+    task = _tiny_family_task("vae")
+    batch = synthetic_batch(2, 512, 8000, 0, "cpu")
+    runs = []
+    for device in ("cpu", cuda_device):
+        state = gan.create_train_state(task, 0, device)
+        state.generator.load_state_dict(vae_random_state_dict(task.generator, 0))
+        state.noise = torch.Generator().manual_seed(1)
+        metrics = gan.make_train_step(task)(state, {k: v.to(device) for k, v in batch.items()}, 100)
+        runs.append(({k: float(v) for k, v in metrics.items()},
+                     {n: p.grad.detach().cpu() for n, p in state.generator.named_parameters()},
+                     {n: p.detach().cpu() for n, p in state.generator.named_parameters()}))
+    (mc, gc, pc), (mk, gk, pk) = runs
+    for key in mk:
+        limit = 1e-4 if "grad_norm" in key else 1e-5
+        assert abs(mk[key] - mc[key]) <= limit * max(abs(mc[key]), 1e-30), key
+    for name in gc:
+        assert _rel_l2(gk[name], gc[name]) <= 1e-4, name
+        assert float((pk[name] - pc[name]).abs().max()) <= 2 * mc["lr"] + 1e-6, name
+
+
+def test_vqvae_codec_round_trip_on_the_card(cuda_device, tmp_path):
+    """cli.codec encode and decode on the card over a tiny vqvae workdir (the codebook on latent frames):
+    the codes equal encode on the CPU wherever a frame's margin exceeds 1e-4 of its squared norm (most
+    frames), and the WAV equals the CPU's decode of the same codes within two 16-bit steps."""
+    import dataclasses
+    import json
+
+    from vocoder_tpu_torch.cli import codec
+    from vocoder_tpu_torch.config import TrainConfig
+    from vocoder_tpu_torch.data.audio_io import read_wav, write_wav
+    from vocoder_tpu_torch.models.vae import VQVAEGenerator, vqvae_random_state_dict
+    from vocoder_tpu_torch.ops.spectral import linear_spectrogram
+
+    task = _tiny_family_task("vqvae")
+    rng = np.random.default_rng(7)
+    env = np.repeat(rng.uniform(0.0, 0.6, 250), 16)
+    audio = (env * rng.standard_normal(env.size)).astype(np.float32)
+    (tmp_path / "in").mkdir()
+    write_wav(tmp_path / "in" / "a.wav", audio, 8000)
+    model = VQVAEGenerator(task.generator)
+    model.load_state_dict(vqvae_random_state_dict(task.generator, 0))
+    spec = linear_spectrogram(torch.from_numpy(audio)[None], n_fft=64, hop_length=16, win_length=64)
+    with torch.no_grad():
+        frames = model.encoder(spec)[0].T
+        rows = frames[torch.from_numpy(rng.choice(frames.shape[0], 32, replace=False))]
+        model.vq.layers[0].embed.copy_(rows + 0.3 * frames.std(0) * torch.randn(rows.shape))
+    (tmp_path / "run" / "checkpoints").mkdir(parents=True)
+    (tmp_path / "run" / "config.json").write_text(json.dumps(dataclasses.asdict(TrainConfig(task=task)), default=str))
+    torch.save({"generator": model.state_dict()}, tmp_path / "run" / "checkpoints" / "1.pt")
+    run = str(tmp_path / "run")
+    for device, out in ((str(cuda_device), "card"), ("cpu", "cpu")):
+        codec.main(["encode", "--ckpt", run, "--input", str(tmp_path / "in"), "--output", str(tmp_path / out),
+                    "--device", device])
+    codec.main(["decode", "--ckpt", run, "--input", str(tmp_path / "card"), "--output", str(tmp_path / "wav"),
+                "--device", str(cuda_device)])
+    card, cpu = np.load(tmp_path / "card" / "a.codes.npy"), np.load(tmp_path / "cpu" / "a.codes.npy")
+    with torch.no_grad():
+        x = model.encoder(spec)[0].T.double()
+        d = torch.sort(torch.cdist(x, model.vq.layers[0].embed.double()).square(), dim=1).values
+        clear = ((d[:, 1] - d[:, 0]) / x.square().sum(1) > 1e-4).numpy()
+        want = model.eval().decode_from_codes(torch.from_numpy(card.astype(np.int64)))[0, 0].numpy()
+    assert card.shape == (1, 1, 250) and clear.mean() > 0.8 and len(np.unique(card)) > 8
+    np.testing.assert_array_equal(card[0, 0][clear], cpu[0, 0][clear])
+    wav, sr = read_wav(tmp_path / "wav" / "a.wav")
+    assert sr == 8000 and wav.shape == (1, 4000)
+    np.testing.assert_allclose(wav[0], want, rtol=0, atol=2.0 / 32768)

@@ -8,7 +8,10 @@ builds only at hop 256 and firefly_gan_base only at hop 512, and elsewhere
 each raises ``ValueError`` where the JAX package's asserts), ``build_task_config``
 (the "gan" family's ``GANTaskConfig``: MPD periods (3, 5, 7, 11, 17, 23,
 37), the MRD and MR-STFT resolutions, 128-frame crops, hop * 32 for the
-discriminators), ``DataConfig``, ``RunConfig``, ``TrainConfig``,
+discriminators; the "vae" and "vqvae" families' generators over the linear
+spectrogram, the vqvae's with MPD periods (2, 3, 5, 7, 11), the first four
+MRD resolutions and 32-frame crops; "ssl" raises ``NotImplementedError``),
+``DataConfig``, ``RunConfig``, ``TrainConfig``,
 ``build_train_config``, the dotted overrides (``run.max_steps=4``) and
 ``overlay_task_config``, which rebuilds a task config from a workdir's
 ``config.json``.  Each preset maps a resolution to the generator's registry
@@ -130,16 +133,72 @@ def _mrd_resolutions(res: dict) -> tuple:
             (1024, 120, 600), (2048, 240, 1200), (4096, 480, 2400), (512, 50, 240))
 
 
-def build_task_config(model: str = "hifigan", resolution: str = "44100_512_2048") -> GANTaskConfig:
-    """The "gan" task config of a generator preset (``vocos-huge`` reads as ``vocos_huge``) at a resolution."""
+def _vae_generator(res: dict):
+    """The reference's VAEModel (vae.yaml): a ConvNeXt encoder over the linear spectrogram emitting
+    2 * 256 channels, a HiFiGAN decoder of 512 channels at the hop's upsample rates."""
+    from vocoder_tpu_torch.models.convnext import ConvNeXtConfig
+    from vocoder_tpu_torch.models.hifigan import HiFiGANConfig
+    from vocoder_tpu_torch.models.vae import VAEGeneratorConfig
+
+    latent = 256
+    rates, kernels = upsample_rates_for_hop(res["hop_length"])
+    return "vae", VAEGeneratorConfig(
+        latent_size=latent, encoder_kind="convnext",
+        encoder=ConvNeXtConfig(input_channels=res["n_fft"] // 2 + 1, depths=(3, 3, 9, 3),
+                               dims=(128, 256, 384, 2 * latent), drop_path_rate=0.2),
+        decoder=HiFiGANConfig(hop_length=res["hop_length"], upsample_rates=rates, upsample_kernel_sizes=kernels,
+                              num_mels=latent, upsample_initial_channel=512, use_template=False),
+    )
+
+
+def _vqvae_generator(res: dict):
+    """The reference's VQVAEModel (vqvae.yaml): a 16-layer WaveNet of width 256 over the linear spectrogram,
+    an EMA codebook of 4096 x 512, a HiFiGAN decoder of 512 channels."""
+    from vocoder_tpu_torch.models.hifigan import HiFiGANConfig
+    from vocoder_tpu_torch.models.vae import VQVAEGeneratorConfig
+    from vocoder_tpu_torch.models.vq import VQConfig
+    from vocoder_tpu_torch.models.wavenet import PosteriorEncoderConfig
+
+    latent = 512
+    rates, kernels = upsample_rates_for_hop(res["hop_length"])
+    return "vqvae", VQVAEGeneratorConfig(
+        latent_size=latent,
+        encoder=PosteriorEncoderConfig(in_channels=res["n_fft"] // 2 + 1, out_channels=latent, hidden_channels=256,
+                                       n_layers=16, mode="vqvae"),
+        decoder=HiFiGANConfig(hop_length=res["hop_length"], upsample_rates=rates, upsample_kernel_sizes=kernels,
+                              num_mels=latent, upsample_initial_channel=512, use_template=False),
+        vq=VQConfig(dim=latent, codebook_size=4096, num_quantizers=1),
+    )
+
+
+FAMILIES = ("gan", "vae", "vqvae", "ssl")
+
+
+def build_task_config(model: str = "hifigan", resolution: str = "44100_512_2048", family: str = "gan") -> GANTaskConfig:
+    """The task config of a family at a resolution: for "gan" that of a generator preset (``vocos-huge``
+    reads as ``vocos_huge``); "vae" and "vqvae" build their own generator and ignore ``model``."""
     model = model.replace("-", "_")
     if resolution not in RESOLUTIONS:
         raise KeyError(f"unknown resolution {resolution!r}; available: {sorted(RESOLUTIONS)}")
-    if model not in GENERATOR_PRESETS:
-        raise KeyError(f"unknown generator preset {model!r}; available: {sorted(GENERATOR_PRESETS)}")
     res = RESOLUTIONS[resolution]
-    generator_name, generator = GENERATOR_PRESETS[model](res)
     mrd_res = _mrd_resolutions(res)
+    kw: dict = {"mpd": MPDConfig(periods=(3, 5, 7, 11, 17, 23, 37)), "num_frames": 128}
+    if family == "gan":
+        if model not in GENERATOR_PRESETS:
+            raise KeyError(f"unknown generator preset {model!r}; available: {sorted(GENERATOR_PRESETS)}")
+        generator_name, generator = GENERATOR_PRESETS[model](res)
+    elif family == "vae":
+        generator_name, generator = _vae_generator(res)
+    elif family == "vqvae":
+        generator_name, generator = _vqvae_generator(res)
+        mrd_res = mrd_res[:4]  # vqvae.yaml: smaller crops and discriminators
+        kw = {"mpd": MPDConfig(periods=(2, 3, 5, 7, 11)), "num_frames": 32}
+    elif family == "ssl":
+        from vocoder_tpu_torch.models.vae import SSL_NOT_PORTED
+
+        raise NotImplementedError(SSL_NOT_PORTED)
+    else:
+        raise ValueError(f"unknown family {family!r}; one of {FAMILIES}")
     return GANTaskConfig(
         sampling_rate=res["sampling_rate"],
         n_fft=res["n_fft"],
@@ -148,12 +207,13 @@ def build_task_config(model: str = "hifigan", resolution: str = "44100_512_2048"
         num_mels=res["num_mels"],
         generator_name=generator_name,
         generator=generator,
-        mpd=MPDConfig(periods=(3, 5, 7, 11, 17, 23, 37)),
         mrd=MRDConfig(resolutions=mrd_res),
         stft_resolutions=mrd_res,
-        num_frames=128,
         crop_length=res["hop_length"] * 32,
+        input_transform="mel" if family == "gan" else "linear",
+        family=family,
         schedule=WarmupCosineConfig(val_base=1e-4, val_final=0.0, max_decay_steps=5_000_000),
+        **kw,
     )
 
 
@@ -194,8 +254,9 @@ class TrainConfig:
     run: RunConfig = RunConfig()
 
 
-def build_train_config(model: str = "hifigan", resolution: str = "44100_512_2048", overrides=()) -> TrainConfig:
-    return apply_overrides(TrainConfig(task=build_task_config(model, resolution)), overrides)
+def build_train_config(model: str = "hifigan", resolution: str = "44100_512_2048", family: str = "gan",
+                       overrides=()) -> TrainConfig:
+    return apply_overrides(TrainConfig(task=build_task_config(model, resolution, family)), overrides)
 
 
 class _Leaf:

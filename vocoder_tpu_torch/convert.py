@@ -2,12 +2,16 @@
 
 ``bigvgan_state_dict_from_jax``, ``hifigan_state_dict_from_jax`` (both with
 the f0 template's ``noise_convs`` where the tree has them),
-``vocos_state_dict_from_jax``, ``refinegan_state_dict_from_jax`` and
-``firefly_state_dict_from_jax`` are the inverses of the JAX package's
-``from_torch_state_dict`` for those families: each takes that package's
-parameter tree (leaves as numpy arrays, or torch tensors, including ``meta``
-ones for a shape-only check) and returns the state_dict the port's model
-loads.  Layouts:
+``vocos_state_dict_from_jax``, ``refinegan_state_dict_from_jax``,
+``firefly_state_dict_from_jax`` and ``wavenet_state_dict_from_jax`` are the
+inverses of the JAX package's ``from_torch_state_dict`` for those families:
+each takes that package's parameter tree (leaves as numpy arrays, or torch
+tensors, including ``meta`` ones for a shape-only check) and returns the
+state_dict the port's model loads.  ``vae_state_dict_from_jax`` and
+``vqvae_state_dict_from_jax`` do the same for the vae and vqvae generators'
+trees (an encoder under ``encoder.``, a HiFiGAN under ``decoder.``), and
+``vq_state_dict_from_jax`` turns the JAX package's EMA codebook state
+(``TrainState.extra["vq"]``) into the quantiser's buffers.  Layouts:
 
     conv:            JAX v (K, I, O), g (1, 1, O)  -> original1 (O, I, K), original0 (O, 1, 1)
                      JAX w (K, I/groups, O)        -> weight (O, I/groups, K)   (no weight norm)
@@ -164,6 +168,44 @@ def vocos_state_dict_from_jax(params: dict) -> dict[str, torch.Tensor]:
     sd = convnext_state_dict_from_jax(params["backbone"], prefix="backbone.")
     _conv(sd, "head.out", params["head"]["out"])
     return sd
+
+
+def wavenet_state_dict_from_jax(params: dict, prefix: str = "",
+                                bn_state: dict | None = None) -> dict[str, torch.Tensor]:
+    """The JAX WaveNet posterior encoder's tree -> ``PosteriorEncoder.state_dict()`` layout; a bnvae's
+    running statistics come from ``bn_state`` (``wavenet.bn_init``'s tree)."""
+    sd: dict[str, torch.Tensor] = {}
+    _conv(sd, f"{prefix}pre", params["pre"])
+    for name in ("in_layers", "res_skip_layers"):
+        for i, conv in enumerate(params["enc"][name]):
+            _conv(sd, f"{prefix}enc.{name}.{i}", conv)
+    _conv(sd, f"{prefix}proj", params["proj"])
+    if "mu_bn" in params:
+        if bn_state is None:
+            raise ValueError("a bnvae encoder's tree needs its bn_state (running mean and var)")
+        sd[f"{prefix}mu_bn.bias"] = _t(params["mu_bn"]["bias"])
+        sd[f"{prefix}mu_bn.running_mean"] = _t(bn_state["mean"])
+        sd[f"{prefix}mu_bn.running_var"] = _t(bn_state["var"])
+    return sd
+
+
+def vq_state_dict_from_jax(vq_state: dict, prefix: str = "vq.") -> dict[str, torch.Tensor]:
+    """The JAX EMA VQ state {"layers": [{embed, embed_avg, cluster_size}]} -> the quantiser's buffers."""
+    return {f"{prefix}layers.{i}.{k}": _t(layer[k]) for i, layer in enumerate(vq_state["layers"])
+            for k in ("embed", "embed_avg", "cluster_size")}
+
+
+def vae_state_dict_from_jax(params: dict) -> dict[str, torch.Tensor]:
+    """The JAX vae generator's tree -> ``VAEGenerator.state_dict()`` layout (a ConvNeXt or WaveNet encoder)."""
+    enc = params["encoder"]
+    bridge = convnext_state_dict_from_jax if "downsample" in enc else wavenet_state_dict_from_jax
+    return {**bridge(enc, prefix="encoder."), **hifigan_state_dict_from_jax(params["decoder"], prefix="decoder.")}
+
+
+def vqvae_state_dict_from_jax(params: dict, vq_state: dict) -> dict[str, torch.Tensor]:
+    """The JAX vqvae generator's tree and its EMA VQ state -> ``VQVAEGenerator.state_dict()`` layout."""
+    return {**wavenet_state_dict_from_jax(params["encoder"], prefix="encoder."), **vq_state_dict_from_jax(vq_state),
+            **hifigan_state_dict_from_jax(params["decoder"], prefix="decoder.")}
 
 
 def load_reference_state_dict(path: str | Path, prefix: str = "generator.", keys=None,

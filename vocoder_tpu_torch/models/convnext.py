@@ -13,8 +13,13 @@ Submodule names are the reference's (``downsample_layers.{i}.{0,1}``,
 
 ``frame_lengths`` (B,) makes a right-padded batch exact: only the convs mix
 time, so a mask after each stage entry and after every block restores each
-item's zero padding before the next depthwise conv sees it.  Stochastic
-depth is a training knob and does nothing here.
+item's zero padding before the next depthwise conv sees it.
+
+Stochastic depth (``drop_path_rate``): block i of all n takes rate
+``linspace(0, drop_path_rate, n)[i]`` over the blocks of every stage
+together (``_drop_rates``), and in training mode, given a ``noise``
+generator, drops its branch per sample before the residual add.  Without a
+generator, or in eval mode, no branch is dropped.
 """
 
 from __future__ import annotations
@@ -26,7 +31,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from vocoder_tpu_torch.nn import length_mask
+from vocoder_tpu_torch.nn import drop_path, length_mask
 
 LN_EPS = 1e-6  # vocoder_tpu/nn.py::layer_norm
 
@@ -69,9 +74,17 @@ def pointwise(conv: nn.Conv1d, x: torch.Tensor) -> torch.Tensor:
     return F.linear(x, conv.weight[:, :, 0], conv.bias)
 
 
+def _drop_rates(cfg: ConvNeXtConfig) -> list[list[float]]:
+    """Each block's drop_path rate, by stage: ``linspace(0, drop_path_rate, sum(depths))`` cut by stage."""
+    rates = np.linspace(0, cfg.drop_path_rate, sum(cfg.depths))
+    bounds = np.cumsum((0,) + tuple(cfg.depths))
+    return [[float(r) for r in rates[a:b]] for a, b in zip(bounds[:-1], bounds[1:])]
+
+
 class ConvNeXtBlock(nn.Module):
-    def __init__(self, dim: int, cfg: ConvNeXtConfig, device=None):
+    def __init__(self, dim: int, cfg: ConvNeXtConfig, drop_rate: float = 0.0, device=None):
         super().__init__()
+        self.drop_rate = drop_rate
         hidden = int(cfg.mlp_ratio * dim)
         pad = cfg.dilation * (cfg.kernel_size - 1) // 2
         self.dwconv = nn.Conv1d(dim, dim, cfg.kernel_size, padding=pad, dilation=cfg.dilation, groups=dim,
@@ -84,11 +97,13 @@ class ConvNeXtBlock(nn.Module):
         else:
             self.register_parameter("gamma", None)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, noise: torch.Generator | None = None) -> torch.Tensor:
         y = self.norm(conv_time(self.dwconv, x))
         y = self.pwconv2(F.gelu(self.pwconv1(y)))  # exact (erf) GELU, torch's default
         if self.gamma is not None:
             y = self.gamma * y
+        if noise is not None:
+            y = drop_path(y, self.drop_rate, self.training, noise)
         return x + y
 
 
@@ -108,12 +123,13 @@ class ConvNeXtEncoder(nn.Module):
         ]
         self.downsample_layers = nn.ModuleList([stem, *transitions])
         self.stages = nn.ModuleList(
-            [nn.ModuleList([ConvNeXtBlock(dim, cfg, device) for _ in range(depth)])
-             for depth, dim in zip(cfg.depths, cfg.dims)]
+            [nn.ModuleList([ConvNeXtBlock(dim, cfg, rate, device) for rate in rates])
+             for rates, dim in zip(_drop_rates(cfg), cfg.dims)]
         )
         self.norm = LayerNorm(cfg.dims[-1], device)
 
-    def forward(self, x: torch.Tensor, frame_lengths=None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, frame_lengths=None, noise: torch.Generator | None = None) -> torch.Tensor:
+        """``noise``: the generator of the drop_path draws, in training mode (block after block)."""
         lens = None if frame_lengths is None else torch.as_tensor(frame_lengths, device=x.device)
         for i, (down, stage) in enumerate(zip(self.downsample_layers, self.stages)):
             if i == 0:
@@ -122,7 +138,7 @@ class ConvNeXtEncoder(nn.Module):
                 x = pointwise(down[1], down[0](x))
             x = length_mask(x, lens, time_dim=1)  # LN and the 1x1 conv put their biases in the padding
             for block in stage:
-                x = length_mask(block(x), lens, time_dim=1)
+                x = length_mask(block(x, noise), lens, time_dim=1)
         return self.norm(x)
 
 

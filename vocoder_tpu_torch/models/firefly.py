@@ -4,9 +4,8 @@ Counterpart of ``vocoder_tpu/models/firefly.py`` (the reference's
 firefly-gan-base.yaml, a UnifyGenerator of a ConvNeXtEncoder, depths
 (3, 3, 9, 3) and dims (128, 256, 384, 512), and a HiFiGANGenerator whose
 ``num_mels`` is the backbone's last width).  State_dict keys are the
-reference's, under ``backbone.`` and ``head.``.  Inference only: the
-backbone's stochastic depth (``drop_path_rate``) is a training knob the port
-does not have yet, so ``train/gan.py`` refuses to train this family.  No
+reference's, under ``backbone.`` and ``head.``.  In training the backbone
+drops paths (``drop_path_rate``) with draws from the ``noise`` generator.  No
 kernel of its own: cuBLAS, cuDNN on the card.
 """
 
@@ -29,14 +28,16 @@ class FireflyConfig:
 class Firefly(nn.Module):
     """mel (B, num_mels, F) -> waveform (B, 1, F * hop)."""
 
+    draws_noise = True  # forward takes ``noise``, the generator of the backbone's drop_path draws
+
     def __init__(self, cfg: FireflyConfig, device=None):
         super().__init__()
         self.cfg = cfg
         self.backbone = convnext.ConvNeXtEncoder(cfg.backbone, device)
         self.head = hifigan.HiFiGAN(cfg.head, device)
 
-    def forward(self, mel: torch.Tensor) -> torch.Tensor:
-        x = self.backbone(mel.to(self.head.conv_post.bias.dtype))  # (B, F, dim), channels last
+    def forward(self, mel: torch.Tensor, noise: torch.Generator | None = None) -> torch.Tensor:
+        x = self.backbone(mel.to(self.head.conv_post.bias.dtype), noise=noise)  # (B, F, dim), channels last
         return self.head(x.transpose(1, 2))
 
 

@@ -1,14 +1,15 @@
 """Generator registry: name -> (config class, module class).
 
-The JAX package's registry's five names: bigvgan, hifigan, vocos, refinegan
-and firefly_gan_base.
+The JAX package's registry's five names (bigvgan, hifigan, vocos, refinegan
+and firefly_gan_base), and the vae and vqvae families' generators, which the
+JAX package builds outside its registry (``train/gan.py::create_train_state``).
 """
 
 from __future__ import annotations
 
 import dataclasses
 
-PORTED = ("bigvgan", "hifigan", "vocos", "refinegan", "firefly_gan_base")
+PORTED = ("bigvgan", "hifigan", "vocos", "refinegan", "firefly_gan_base")  # the JAX registry's
 
 
 @dataclasses.dataclass(frozen=True)
@@ -38,4 +39,12 @@ def get_generator(name: str) -> GeneratorDef:
         from vocoder_tpu_torch.models.firefly import Firefly, FireflyConfig
 
         return GeneratorDef(FireflyConfig, Firefly)
-    raise KeyError(f"unknown generator {name!r}; available: {list(PORTED)}")
+    if name == "vae":
+        from vocoder_tpu_torch.models.vae import VAEGenerator, VAEGeneratorConfig
+
+        return GeneratorDef(VAEGeneratorConfig, VAEGenerator)
+    if name == "vqvae":
+        from vocoder_tpu_torch.models.vae import VQVAEGenerator, VQVAEGeneratorConfig
+
+        return GeneratorDef(VQVAEGeneratorConfig, VQVAEGenerator)
+    raise KeyError(f"unknown generator {name!r}; available: {[*PORTED, 'vae', 'vqvae']}")

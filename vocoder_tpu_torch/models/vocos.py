@@ -94,16 +94,19 @@ class ISTFTHead(nn.Module):
 class Vocos(nn.Module):
     """mel (B, num_mels, F) -> waveform (B, 1, F * hop)."""
 
+    draws_noise = True  # forward takes ``noise``, the generator of the backbone's drop_path draws
+
     def __init__(self, cfg: VocosConfig, device=None):
         super().__init__()
         self.cfg = cfg
         self.backbone = ConvNeXtEncoder(cfg.backbone, device)
         self.head = ISTFTHead(cfg.head, device)
 
-    def forward(self, mel: torch.Tensor, frame_lengths=None) -> torch.Tensor:
-        """mel (B, num_mels, F) -> (B, 1, F * hop); ``frame_lengths`` (B,): each item's frames."""
+    def forward(self, mel: torch.Tensor, frame_lengths=None, noise: torch.Generator | None = None) -> torch.Tensor:
+        """mel (B, num_mels, F) -> (B, 1, F * hop); ``frame_lengths`` (B,): each item's frames; ``noise``: the
+        generator of the backbone's drop_path draws in training mode."""
         dtype = self.head.out.weight.dtype
-        x = self.backbone(mel.to(dtype), frame_lengths)
+        x = self.backbone(mel.to(dtype), frame_lengths, noise)
         return self.head(x, frame_lengths)[:, None, :].to(dtype)
 
 

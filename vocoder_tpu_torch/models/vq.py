@@ -1,0 +1,125 @@
+"""Vector quantisation with EMA codebooks (encodec-style), as a ``torch.nn.Module``.
+
+Counterpart of ``vocoder_tpu/models/vq.py``: ``num_quantizers`` codebooks
+in a residual stack, each coding what the ones before it left.  A codebook's
+``embed`` (K, D), ``embed_avg`` (K, D) and ``cluster_size`` (K,) are
+registered buffers: they ride in ``state_dict()`` and in checkpoints, and no
+optimizer sees them.  They learn by an exponential moving average of the
+frames assigned to each code, never by gradient.
+
+``forward`` (B, D, T) -> (quantized (B, D, T), codes (Q, B, T), loss): the
+nearest code of each frame by the distance |x|^2 - 2 x.E^T + |E|^2, written
+as the JAX package writes it (``torch.cdist`` orders its sums otherwise);
+the straight-through estimator (the gradient reaches the input as if
+quantisation were the identity); and the commitment loss, the mean over the
+quantisers of mean((q - residual)^2) with q detached.  The distance product
+runs in full fp32 whatever the TF32 flags say: rounded to TF32 (about three
+decimal digits) it picks another code wherever two distances lie within its
+rounding, and the codec's codes would then depend on the flags.
+
+``ema_update(x, codes)`` is the EMA step of a training forward, apart: from
+the step's input and codes it computes every codebook's new buffers against
+the codebooks the forward used, then writes them.  A trainer calls it after
+the generator's backward, as the JAX step writes its new state at the end
+(``vocoder_tpu/train/gan.py``), so no buffer that autograd saved changes
+before the backward reads it.  ``from_codes`` is the codec's decode path.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+
+@dataclasses.dataclass(frozen=True)
+class VQConfig:
+    dim: int
+    codebook_size: int
+    num_quantizers: int = 1
+    decay: float = 0.99
+    eps: float = 1e-5
+    commitment_weight: float = 1.0
+
+
+@contextlib.contextmanager
+def full_fp32_matmul():
+    """cuBLAS fp32 matmuls in full fp32 inside the block (TF32 off), the flag restored after it."""
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+
+
+def distances(x: torch.Tensor, embed: torch.Tensor) -> torch.Tensor:
+    """(N, D) frames, (K, D) codes -> (N, K) squared distances |x|^2 - 2 x.E^T + |E|^2, in full fp32."""
+    with full_fp32_matmul():
+        cross = x @ embed.T
+    return x.square().sum(1, keepdim=True) - 2.0 * cross + embed.square().sum(1)[None, :]
+
+
+class Codebook(nn.Module):
+    def __init__(self, cfg: VQConfig, device=None):
+        super().__init__()
+        embed = torch.randn(cfg.codebook_size, cfg.dim, device=device)  # uniform random init, no k-means
+        self.register_buffer("embed", embed)
+        self.register_buffer("embed_avg", embed.clone())
+        self.register_buffer("cluster_size", torch.zeros(cfg.codebook_size, device=device))
+
+
+class VectorQuantizer(nn.Module):
+    def __init__(self, cfg: VQConfig, device=None):
+        super().__init__()
+        self.cfg = cfg
+        self.layers = nn.ModuleList([Codebook(cfg, device) for _ in range(cfg.num_quantizers)])
+
+    @staticmethod
+    def _flat(x: torch.Tensor) -> torch.Tensor:
+        return x.transpose(1, 2).reshape(-1, x.shape[1])
+
+    def forward(self, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        b, d, t = x.shape
+        residual = self._flat(x)
+        total = torch.zeros_like(residual)
+        codes, losses = [], []
+        for layer in self.layers:
+            with torch.no_grad():
+                c = torch.argmin(distances(residual.detach(), layer.embed), dim=1)
+            q = layer.embed[c]
+            losses.append(torch.mean(torch.square(q - residual)) * self.cfg.commitment_weight)
+            total = total + (residual + (q - residual).detach())  # straight-through
+            residual = residual - q
+            codes.append(c)
+        quantized = total.reshape(b, t, d).transpose(1, 2)
+        return quantized, torch.stack(codes).reshape(len(codes), b, t), torch.stack(losses).mean()
+
+    @torch.no_grad()
+    def ema_update(self, x: torch.Tensor, codes: torch.Tensor) -> None:
+        """One EMA step from a training forward's input x (B, D, T) and its codes (Q, B, T)."""
+        cfg = self.cfg
+        residual = self._flat(x.detach())
+        new = []
+        for layer, c in zip(self.layers, codes.reshape(len(self.layers), -1)):
+            onehot = F.one_hot(c, cfg.codebook_size).to(residual.dtype)
+            with full_fp32_matmul():
+                embed_sums = onehot.T @ residual
+            cluster_size = layer.cluster_size * cfg.decay + onehot.sum(0) * (1 - cfg.decay)
+            embed_avg = layer.embed_avg * cfg.decay + embed_sums * (1 - cfg.decay)
+            n = cluster_size.sum()
+            smoothed = (cluster_size + cfg.eps) / (n + cfg.codebook_size * cfg.eps) * n
+            new.append((embed_avg / smoothed[:, None], embed_avg, cluster_size))
+            residual = residual - layer.embed[c]
+        for layer, (embed, embed_avg, cluster_size) in zip(self.layers, new):
+            layer.embed.copy_(embed)
+            layer.embed_avg.copy_(embed_avg)
+            layer.cluster_size.copy_(cluster_size)
+
+    def from_codes(self, codes: torch.Tensor) -> torch.Tensor:
+        """codes (Q', B, T), Q' <= num_quantizers -> the latent (B, D, T): the sum of the codes' vectors."""
+        total = sum(layer.embed[c] for layer, c in zip(self.layers, codes))
+        return total.transpose(1, 2)

@@ -2,7 +2,11 @@
 
 Counterpart of ``vocoder_tpu/nn.py``: ``get_padding``, ``length_mask``,
 weight-normed Conv1d / ConvTranspose1d, the inference-time weight-norm
-fold, and ``set_full_precision`` (the JAX package's ``Precision.HIGHEST``).
+fold, ``set_full_precision`` (the JAX package's ``Precision.HIGHEST``),
+``drop_path`` (stochastic depth) and ``normal_like``.  Both draw from an
+explicit ``torch.Generator`` on that generator's own device and move the
+draw to the input's, so a generator on the CPU gives the same draws to a
+model on the card as to one on the CPU.
 The modules are plain ``torch.nn`` layers carrying
 ``torch.nn.utils.parametrizations.weight_norm``, so their state_dict keys are
 the reference's (``<name>.parametrizations.weight.original{0,1}``, ``bias``).
@@ -45,6 +49,25 @@ def length_mask(x: torch.Tensor, lens: torch.Tensor | None, time_dim: int = -1) 
     shape = [x.shape[0]] + [1] * (x.dim() - 1)
     shape[time_dim] = t
     return x * m.reshape(shape).to(x.dtype)
+
+
+def drop_path(x: torch.Tensor, p: float, training: bool, generator: torch.Generator | None) -> torch.Tensor:
+    """Stochastic depth per sample: each item of the batch is kept with probability 1 - p and scaled
+    by 1 / (1 - p), or zeroed (a mask of shape (B, 1, ...)).  The identity when ``p`` is 0 or when not
+    ``training``; otherwise the draw comes from ``generator``, which must be given."""
+    if p == 0.0 or not training:
+        return x
+    if generator is None:
+        raise ValueError("drop_path in training needs a torch.Generator for its draws")
+    keep = 1.0 - p
+    shape = (x.shape[0],) + (1,) * (x.dim() - 1)
+    mask = (torch.rand(shape, generator=generator, device=generator.device) < keep).to(x.device, x.dtype)
+    return x * mask / keep
+
+
+def normal_like(x: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
+    """Standard normal draws of x's shape and dtype from ``generator``, on x's device."""
+    return torch.randn(x.shape, generator=generator, device=generator.device, dtype=x.dtype).to(x.device)
 
 
 def conv1d(in_ch: int, out_ch: int, kernel_size: int, *, dilation: int = 1, padding: int = 0,

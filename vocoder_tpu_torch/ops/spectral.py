@@ -1,7 +1,7 @@
 """Magnitude STFT and log-mel on ``torch.stft``, and the Vocos "same" iSTFT.
 
 Counterpart of ``stft_magnitude``, ``mel_filterbank``, ``log_mel_spectrogram``,
-``overlap_add`` and ``istft_same`` in
+``linear_spectrogram``, ``overlap_add`` and ``istft_same`` in
 ``vocoder_tpu/ops/spectral.py``.  ``stft_magnitude`` takes the JAX package's
 padding modes, all reflect: "same_win" ((win - hop) / 2 per side, the
 log-mel's), "same_nfft" ((n_fft - hop) / 2, the MRD's) and "center" (n_fft / 2,
@@ -9,7 +9,9 @@ the MR-STFT loss's); windows "hann" (periodic, ``win_length`` centred in
 ``n_fft``) and "boxcar" (the MRD's torch.stft without a window); magnitudes
 "eps_inside" sqrt(power + 1e-6), "clamp_inside" sqrt(max(power, 1e-6)) and
 "plain" sqrt(power), whose subgradient at zero power is 0 as torch.norm's is
-(a plain sqrt would send inf, and NaN the generator's gradient).  The log-mel
+(a plain sqrt would send inf, and NaN the generator's gradient).  The linear
+spectrogram (the vae and vqvae families' input) is "same_win" and
+"eps_inside", the log-mel's magnitude before the filterbank.  The log-mel
 is the reference's LinearSpectrogram -> slaney MelScale -> log: "same_win",
 "eps_inside", the slaney filterbank and ``log(clamp(mel, 1e-5))``.  The iSTFT is an inverse real FFT
 per frame (``torch.fft.irfft``; not ``torch.istft``, which pads and
@@ -112,6 +114,12 @@ def stft_magnitude(x: torch.Tensor, *, n_fft: int, hop_length: int, win_length: 
         nonzero = power > 0
         return torch.where(nonzero, torch.sqrt(torch.where(nonzero, power, 1.0)), 0.0)
     raise ValueError(f"unknown mag_mode {mag_mode!r}")
+
+
+def linear_spectrogram(x: torch.Tensor, *, n_fft: int, hop_length: int, win_length: int) -> torch.Tensor:
+    """The reference's LinearSpectrogram of (B, T) audio -> (B, n_fft // 2 + 1, frames), fp32."""
+    return stft_magnitude(x, n_fft=n_fft, hop_length=hop_length, win_length=win_length, padding="same_win",
+                          mag_mode="eps_inside")
 
 
 def log_mel_spectrogram(

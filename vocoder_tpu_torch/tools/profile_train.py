@@ -1,19 +1,22 @@
 """Where a GAN training step spends its time, by phase and by part, on one CUDA card.
 
-    python -m vocoder_tpu_torch.tools.profile_train [--model bigvgan|hifigan|refinegan] [--batch 16] [--steps 8]
+    python -m vocoder_tpu_torch.tools.profile_train [--model bigvgan|hifigan|refinegan|vocos|firefly_gan_base]
+        [--family gan|vae|vqvae] [--batch 16] [--steps 8]
 
 Builds the preset's training state (44.1 kHz; RefineGAN at 24 kHz, the only
-resolution it builds at; the generator's random weights from numpy seed 0,
-the discriminators from the torch seed), a batch of ``--batch`` 128-frame
-crops (65,536 samples at 44.1 kHz, 32,768 at 24 kHz) of sines and noise from
+resolution it builds at; ``--family vae|vqvae``: that family's generator,
+``--model`` ignored; the generator's random weights from numpy seed 0, the
+discriminators from the torch seed), a batch of ``--batch`` crops of the
+task's ``num_frames`` (128 frames, 65,536 samples at 44.1 kHz and 32,768 at
+24 kHz; the vqvae's 32 frames) of sines and noise from
 a numpy seed, with each sine's f0 template where the generator consumes one,
 and runs ``--steps`` steps of ``make_train_step`` in fp32 with TF32 off.  Each
 step's generator phase and discriminator phase are timed with CUDA events;
 the median over the steps from the third on is reported, with the training
 rate in audio seconds a second and the peak device memory.  Then one more
-step runs under ``torch.profiler``, and ``step_parts`` splits the card's
-busy time: K1's forward (the ``aa_snake_kernel`` launches), the aa-snake
-backward (``AASnakeFunction.backward``), cuDNN's convolutions (forward,
+step runs under ``torch.profiler``: its top kernels by card time, and
+``step_parts`` splits the card's busy time: K1's forward (the
+``aa_snake_kernel`` launches), the aa-snake backward (``AASnakeFunction.backward``), cuDNN's convolutions (forward,
 transposed and backward, generator and discriminators), the discriminators
 (their forwards in both phases and the backward nodes those forwards
 created) and the MR-STFT loss (its forward and its backward nodes).  The
@@ -58,6 +61,21 @@ def _outermost(events, pred) -> list:
     return [e for e in events if pred(e) and not any(pred(a) for a in _ancestors(e))]
 
 
+def launched_kernels(prof) -> list:
+    """The kernels the traced host ops launched (not the ``record_function`` ranges the trace also shows
+    on the card's timeline)."""
+    return [k for e in prof.events() if e.device_type == torch.autograd.DeviceType.CPU for k in e.kernels]
+
+
+def top_kernels(prof, top: int) -> list[dict]:
+    """The ``top`` kernels by card time: name, ms and launches."""
+    by_name: dict[str, list[float]] = {}
+    for k in launched_kernels(prof):
+        by_name.setdefault(k.name, []).append(k.duration)
+    ranked = sorted(by_name.items(), key=lambda kv: -sum(kv[1]))[:top]
+    return [{"kernel": name[:120], "ms": sum(v) / 1e3, "launches": len(v)} for name, v in ranked]
+
+
 def step_parts(prof) -> dict[str, float]:
     """The traced step's card time by part, in µs: each host op's ``device_time_total`` (the card time
     of the kernels it launched, its children's included).  ``busy`` is every kernel's time."""
@@ -73,7 +91,7 @@ def step_parts(prof) -> dict[str, float]:
         return (sum(e.device_time_total for e in forward)
                 + total(lambda e: "Backward" in e.name and e.sequence_nr in seqs and "::" not in e.name))
 
-    kernels = [k for e in cpu for k in e.kernels]
+    kernels = launched_kernels(prof)
     return {
         "busy": float(sum(k.duration for k in kernels)),
         "k1_forward": float(sum(k.duration for k in kernels if "aa_snake_kernel" in k.name)),
@@ -101,9 +119,10 @@ def synthetic_batch(batch: int, samples: int, sampling_rate: int, seed: int, dev
     return out
 
 
-def measure_step(state, step_fn, batch: dict, task, steps: int) -> dict:
+def measure_step(state, step_fn, batch: dict, task, steps: int, top: int = 6) -> dict:
     """Per-phase CUDA-event ms of ``steps`` training steps (median over the third on), the rate, the
-    peak memory over the timed steps, and one more step's parts under ``torch.profiler``."""
+    peak memory over the timed steps, and one more step's parts and ``top`` kernels by card time under
+    ``torch.profiler``."""
     torch.cuda.reset_peak_memory_stats()
     times = []
     for _ in range(steps):
@@ -133,6 +152,7 @@ def measure_step(state, step_fn, batch: dict, task, steps: int) -> dict:
         "peak_memory_bytes": peak, "profiled_busy_ms": busy / 1e3,
         "shares_of_busy": {k: v / busy for k, v in parts.items() if k != "busy"} if busy else None,
         "parts_ms": {k: v / 1e3 for k, v in parts.items()},
+        "top": top_kernels(prof, top),
     }
 
 
@@ -159,16 +179,19 @@ def f0_seconds(task, batch: dict, threads: int) -> dict:
             "openblas_num_threads": os.environ.get("OPENBLAS_NUM_THREADS")}
 
 
-def training_setup(model: str, batch: int, seed: int, device="cuda"):
-    """(task, state, batch): the preset's training state with the generator's random weights from
-    ``seed`` and a synthetic batch of the preset's crops (with templates where the generator needs them)."""
+def training_setup(model: str, batch: int, seed: int, device="cuda", family: str = "gan"):
+    """(task, state, batch): the preset's (or the family's) training state with the generator's random
+    weights from ``seed`` and a synthetic batch of the task's crops (with templates where the generator
+    needs them)."""
     from vocoder_tpu_torch.config import build_task_config
+    from vocoder_tpu_torch.models.vae import vae_random_state_dict, vqvae_random_state_dict
     from vocoder_tpu_torch.tools.profile_forward import RANDOM_WEIGHTS, RESOLUTION
     from vocoder_tpu_torch.train import gan
 
-    task = build_task_config(model, RESOLUTION.get(model, "44100_512_2048"))
+    task = build_task_config(model, RESOLUTION.get(model, "44100_512_2048"), family)
     state = gan.create_train_state(task, seed, device)
-    state.generator.load_state_dict(RANDOM_WEIGHTS[model](task.generator, seed))
+    weights = {**RANDOM_WEIGHTS, "vae": vae_random_state_dict, "vqvae": vqvae_random_state_dict}
+    state.generator.load_state_dict(weights[task.generator_name](task.generator, seed))
     hop = task.hop_length if gan.needs_template(task) else None
     return task, state, synthetic_batch(batch, task.hop_length * task.num_frames, task.sampling_rate, seed, device,
                                         hop)
@@ -177,11 +200,13 @@ def training_setup(model: str, batch: int, seed: int, device="cuda"):
 def main(argv: list[str] | None = None) -> int:
     from vocoder_tpu_torch.config import DataConfig
     from vocoder_tpu_torch.nn import set_full_precision
+    from vocoder_tpu_torch.tools.profile_forward import RANDOM_WEIGHTS
     from vocoder_tpu_torch.tools.timing import card_line
     from vocoder_tpu_torch.train import gan
 
     ap = argparse.ArgumentParser(description="A GAN training step, by phase and by part, on the card")
-    ap.add_argument("--model", choices=gan.TRAINABLE, default="bigvgan")
+    ap.add_argument("--model", choices=sorted(RANDOM_WEIGHTS), default="bigvgan", help="the gan family's preset")
+    ap.add_argument("--family", choices=("gan", "vae", "vqvae"), default="gan")
     ap.add_argument("--batch", type=int, default=16)
     ap.add_argument("--steps", type=int, default=8)
     args = ap.parse_args(argv)
@@ -189,11 +214,11 @@ def main(argv: list[str] | None = None) -> int:
         print("profile_train: no CUDA device", file=sys.stderr)
         return 2
     set_full_precision()
-    task, state, batch = training_setup(args.model, args.batch, 0)
+    task, state, batch = training_setup(args.model, args.batch, 0, family=args.family)
     rec = measure_step(state, gan.make_train_step(task), batch, task, args.steps)
     if gan.needs_template(task):
         rec.update(f0_seconds(task, batch, DataConfig().num_workers))
-    print(json.dumps({"card": card_line(), "model": args.model, "batch": args.batch, "dtype": "fp32", **rec}),
+    print(json.dumps({"card": card_line(), "model": task.generator_name, "batch": args.batch, "dtype": "fp32", **rec}),
           flush=True)
     return 0
 

@@ -1,12 +1,14 @@
 """The GAN training step: generator, then discriminators, on one random crop.
 
-Counterpart of ``vocoder_tpu/train/gan.py`` (the "gan" family) and the
-reference's GANModel with manual optimization: per step the generator loss
+Counterpart of ``vocoder_tpu/train/gan.py`` (the "gan", "vae" and "vqvae"
+families) and the reference's GANModel with manual optimization: per step
+the generator loss
 
-    2.5 * (spectral convergence + log-mag MR-STFT) + 45 * mel-L1
+    base + 2.5 * (spectral convergence + log-mag MR-STFT) + 45 * mel-L1
         + mean over {mpd, mrd} of (LSGAN adversarial + feature matching)
 
-is computed on the masked audio, with the log-mel input made on the card and
+is computed on the masked audio, with the input (``input_transform``: the
+log-mel of the "gan" family, the linear spectrogram of the others) made on the card and
 a random crop of ``crop_length`` samples before the discriminators; the
 generator takes an AdamW(0.8, 0.99, eps 1e-6, weight decay 0.01) step on the
 warmup-cosine lr, then the discriminators take theirs on the same crop, with
@@ -14,7 +16,18 @@ the pre-update generator's fake detached.  Metrics carry the JAX package's
 names (``train/generator/*``, ``train/discriminator/*``, ``grad_norm*``,
 ``lr``) and stay on the card as 0-d tensors until the caller reads them.
 
-Three places where PyTorch differs from the JAX program, each handled here:
+The families (``generator_forward``): "gan" feeds the generator the log-mel,
+base 0; "vae" (the reference's VAEModel) decodes z = mean + eps * exp(logvar
+/ 2) and takes the KL divergence 0.5 * mean(mean^2 + e^logvar - logvar - 1)
+as base, logged as ``train/generator/kl``; "vqvae" decodes the quantised
+latent, fixed to the audio's length within one hop, base 0 and the VQ's
+commitment loss logged as ``train/generator/vq`` (the reference keeps it out
+of the total).  The EMA codebook update of a vqvae step is written after the
+generator's backward, from the forward's codes and latent, as the JAX step
+writes its new state at the end: the discriminators see the fake of the
+codebook before the update.
+
+Where PyTorch differs from the JAX program, each handled here:
 - The generator's backward would also fill the discriminators' ``.grad``
   (JAX differentiates the generator loss w.r.t. the generator's parameters
   only).  The generator phase runs the discriminators with
@@ -23,10 +36,12 @@ Three places where PyTorch differs from the JAX program, each handled here:
 - The crop start comes from the state's ``torch.Generator`` (``rng``, on the
   CPU), which cannot reproduce ``jax.random``; ``make_train_step``'s step
   takes an optional ``crop_start`` so that a parity test can pass the JAX
-  program's start.  RefineGAN's AdaIN noise comes from a second generator
-  (``noise``, on the model's device, seeded from the same seed and saved in
-  the checkpoint beside ``rng``); validation draws it from the seeded-0
-  default, as the JAX package's eval step does.
+  program's start.  The generator's own draws (RefineGAN's AdaIN noise,
+  ConvNeXt's drop_path masks in Vocos and Firefly-GAN, the vae's eps) come
+  from a second generator (``noise``, on the model's device, seeded from the
+  same seed and saved in the checkpoint beside ``rng``); validation draws
+  RefineGAN's from the seeded-0 default, as the JAX package's eval step does,
+  and the others draw nothing in eval mode.
 - Generators that consume an f0 template (``needs_template``: RefineGAN, and
   HiFiGAN or BigVGAN with ``use_template``) take ``batch["template"]``
   (B, 1, T), which the data pipeline builds from each element's final audio.
@@ -34,9 +49,8 @@ Three places where PyTorch differs from the JAX program, each handled here:
   gradient is near 0, a rounding difference flips the sign of the update.
   Compare gradients tightly and updated parameters with that in mind.
 
-Not ported: the vae, vqvae and ssl families, bf16 compute (``compute_dtype``)
-and Vocos' and Firefly-GAN's training, whose ConvNeXt ``drop_path`` is not
-ported (ROADMAP.md Queue 1); ``spectral_precision``
+Not ported: the ssl family (a ``transformers`` HuBERT backbone) and bf16
+compute (``compute_dtype``) (ROADMAP.md Queue 1); ``spectral_precision``
 (a TPU MXU pass count) and the split step (an XLA compile workaround) are
 TPU machinery.  ``run.precision`` sets TF32 in the trainer.
 """
@@ -59,11 +73,11 @@ from vocoder_tpu_torch.losses import (
 from vocoder_tpu_torch.models.mpd import MPDConfig, MultiPeriodDiscriminator
 from vocoder_tpu_torch.models.mrd import MRDConfig, MultiResolutionDiscriminator
 from vocoder_tpu_torch.models.registry import get_generator
-from vocoder_tpu_torch.ops.spectral import log_mel_spectrogram
+from vocoder_tpu_torch.ops.spectral import linear_spectrogram, log_mel_spectrogram
 from vocoder_tpu_torch.train.schedule import WarmupCosineConfig, warmup_cosine
 
 DEFAULT_RESOLUTIONS = ((2048, 512, 2048), (1024, 120, 600), (2048, 240, 1200), (4096, 480, 2400), (512, 50, 240))
-TRAINABLE = ("bigvgan", "hifigan", "refinegan")
+TRAINABLE = ("bigvgan", "hifigan", "refinegan", "vocos", "firefly_gan_base", "vae", "vqvae")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -85,8 +99,8 @@ class GANTaskConfig:
 
     num_frames: int = 128
     crop_length: int | None = 512 * 32  # hop * 32
-    input_transform: str = "mel"  # only "mel" is ported ("linear" feeds the vae family)
-    family: str = "gan"  # only "gan" is ported
+    input_transform: str = "mel"  # "mel" | "linear" (the vae and vqvae families')
+    family: str = "gan"  # "gan" | "vae" | "vqvae" ("ssl" is not ported)
 
     schedule: WarmupCosineConfig = WarmupCosineConfig()
     adam_b1: float = 0.8
@@ -104,18 +118,18 @@ class GANTaskConfig:
 
 def check_trainable(cfg: GANTaskConfig) -> None:
     """Raise for what the port does not train yet."""
-    if cfg.family != "gan":
-        raise NotImplementedError(f"task family {cfg.family!r} is not yet ported (ROADMAP.md Queue 1); use 'gan'")
+    if cfg.family == "ssl":
+        from vocoder_tpu_torch.models.vae import SSL_NOT_PORTED
+
+        raise NotImplementedError(SSL_NOT_PORTED)
+    if cfg.family not in ("gan", "vae", "vqvae"):
+        raise ValueError(f"unknown task family {cfg.family!r}")
     if cfg.compute_dtype != "float32":
         raise NotImplementedError(
             f"compute_dtype {cfg.compute_dtype!r}: bf16 training is not yet ported (ROADMAP.md Queue 1); "
             "the port trains in float32")
     if cfg.generator_name not in TRAINABLE:
-        raise NotImplementedError(f"training {cfg.generator_name!r} is not yet ported: its ConvNeXt backbone's "
-                                  "drop_path (stochastic depth) is not (ROADMAP.md Queue 1 item 2); "
-                                  f"trainable: {list(TRAINABLE)}")
-    if cfg.input_transform != "mel":
-        raise NotImplementedError(f"input transform {cfg.input_transform!r} is not yet ported (ROADMAP.md Queue 1)")
+        raise NotImplementedError(f"training {cfg.generator_name!r} is not ported; trainable: {list(TRAINABLE)}")
 
 
 def needs_template(cfg: GANTaskConfig) -> bool:
@@ -164,12 +178,15 @@ def make_optimizer(cfg: GANTaskConfig, params) -> torch.optim.AdamW:
 
 
 def reference_init(generator: nn.Module) -> nn.Module:
-    """The reference's ``init_weights`` on the generator: the upsample, resblock and post convs'
-    directions drawn from normal(0, 0.01), each gain the norm of its direction (what weight norm
-    gives a freshly wrapped conv).  conv_pre and the biases keep PyTorch's default init."""
+    """The reference's ``init_weights`` on the generator, or on its HiFiGAN ``decoder`` or ``head``: the
+    upsample, resblock and post convs' directions drawn from normal(0, 0.01), each gain the norm of its
+    direction (what weight norm gives a freshly wrapped conv).  conv_pre and the biases keep PyTorch's
+    default init."""
     with torch.no_grad():
         for name, m in generator.named_modules():
-            if name.split(".")[0] in ("ups", "resblocks", "conv_post") and parametrize.is_parametrized(m, "weight"):
+            parts = name.split(".")
+            top = parts[1] if parts[0] in ("decoder", "head") and len(parts) > 1 else parts[0]
+            if top in ("ups", "resblocks", "conv_post") and parametrize.is_parametrized(m, "weight"):
                 wn = m.parametrizations.weight
                 wn.original1.normal_(0.0, 0.01)
                 v = wn.original1
@@ -206,13 +223,40 @@ def loss_mel_transform(cfg: GANTaskConfig, audio: torch.Tensor) -> torch.Tensor:
                                win_length=cfg.win_length, n_mels=cfg.num_mels, f_max=cfg.sampling_rate // 2)
 
 
+def input_transform(cfg: GANTaskConfig, audio: torch.Tensor) -> torch.Tensor:
+    """audio (B, T) -> the generator's input (B, C, frames): the log-mel ("mel") or the linear spectrogram."""
+    if cfg.input_transform == "mel":
+        return loss_mel_transform(cfg, audio)
+    if cfg.input_transform == "linear":
+        return linear_spectrogram(audio, n_fft=cfg.n_fft, hop_length=cfg.hop_length, win_length=cfg.win_length)
+    raise ValueError(f"unknown input transform {cfg.input_transform!r}")
+
+
+def _length_fix(fake: torch.Tensor, t_audio: int, hop: int) -> torch.Tensor:
+    """A codec's output, within one hop of the audio's length, cut or zero-padded to it."""
+    t_f = fake.shape[2]
+    if abs(t_f - t_audio) > hop:
+        raise ValueError(f"the generator's {t_f} samples are more than a hop ({hop}) from the audio's {t_audio}")
+    return fake[:, :, :t_audio] if t_f >= t_audio else torch.nn.functional.pad(fake, (0, t_audio - t_f))
+
+
 def generator_forward(generator: nn.Module, audio: torch.Tensor, cfg: GANTaskConfig, plain: bool = False,
-                      template: torch.Tensor | None = None, noise: torch.Generator | None = None) -> torch.Tensor:
-    """audio (B, 1, T) [+ template (B, 1, T)] -> the generator's fake (B, 1, T), fp32.  ``plain``:
+                      template: torch.Tensor | None = None, noise: torch.Generator | None = None):
+    """audio (B, 1, T) [+ template (B, 1, T)] -> (fake (B, 1, T) fp32, base loss, the family's metrics, the
+    EMA update to call after the backward or None).  Training or not is the generator's mode.  ``plain``:
     through the kernels' plain versions (``forward_plain``, where the generator has kernels), as the
     card checks compare.  ``noise``: the noise generator of a generator that ``draws_noise`` (RefineGAN's
-    AdaIN; None: the seeded-0 default)."""
-    spec = loss_mel_transform(cfg, audio[:, 0, :])  # the gan family's input transform is the log-mel
+    AdaIN, None: the seeded-0 default; ConvNeXt's drop_path and the vae's eps in training)."""
+    spec = input_transform(cfg, audio[:, 0, :])
+    zero = torch.zeros((), device=audio.device)
+    if cfg.family == "vae":
+        fake, mean, logvar = generator(spec, noise=noise)
+        kl = 0.5 * torch.mean(torch.square(mean) + torch.exp(logvar) - logvar - 1.0)
+        return fake.float(), kl, {"train/generator/kl": kl}, None
+    if cfg.family == "vqvae":
+        fake, latent, codes, vq_loss = generator(spec)
+        ema = (lambda: generator.vq.ema_update(latent, codes)) if generator.training else None
+        return _length_fix(fake, audio.shape[2], cfg.hop_length).float(), zero, {"train/generator/vq": vq_loss}, ema
     forward = generator.forward_plain if plain and hasattr(generator, "forward_plain") else generator
     kw = {}
     if needs_template(cfg):
@@ -222,7 +266,7 @@ def generator_forward(generator: nn.Module, audio: torch.Tensor, cfg: GANTaskCon
         kw["template"] = template
     if getattr(generator, "draws_noise", False):
         kw["noise"] = noise
-    return forward(spec, **kw).float()
+    return forward(spec, **kw).float(), zero, {}, None
 
 
 def _discriminators(discriminators: nn.ModuleDict, audio: torch.Tensor) -> dict:
@@ -240,8 +284,9 @@ def draw_crop_start(state: TrainState, cfg: GANTaskConfig, t: int) -> int | None
 
 def _generator_loss(generator, discriminators, audio, mask, cfg: GANTaskConfig, start: int | None,
                     plain: bool = False, template=None, noise=None):
-    """(loss, metrics, audio_c, fake_c): the generator loss, and the crops the discriminators see."""
-    fake = generator_forward(generator, audio, cfg, plain, template, noise)
+    """(loss, metrics, audio_c, fake_c, ema): the generator loss, the crops the discriminators see, and
+    the EMA update to call after the backward (or None)."""
+    fake, base, fwd_metrics, ema = generator_forward(generator, audio, cfg, plain, template, noise)
     if fake.shape != audio.shape:
         raise ValueError(f"generator output {tuple(fake.shape)} does not match the audio {tuple(audio.shape)}")
     audio_m, fake_m = audio * mask, fake * mask
@@ -256,7 +301,7 @@ def _generator_loss(generator, discriminators, audio, mask, cfg: GANTaskConfig, 
         audio_c = audio_m[..., start : start + cfg.crop_length]
         fake_c = fake_m[..., start : start + cfg.crop_length]
 
-    metrics = {}
+    metrics = dict(fwd_metrics)
     loss_adv_all = 0.0
     discriminators.requires_grad_(False)  # no G-phase gradient reaches D's .grad
     try:
@@ -273,11 +318,10 @@ def _generator_loss(generator, discriminators, audio, mask, cfg: GANTaskConfig, 
         loss_adv_all = loss_adv_all + loss_fake + loss_fm
     loss_adv_all = loss_adv_all / len(fake_outs)
 
-    base = torch.zeros((), device=audio.device)
     loss = base + loss_stft * cfg.stft_weight + loss_mel * cfg.mel_weight + loss_adv_all
     metrics.update({"train/generator/stft": loss_stft, "train/generator/mel": loss_mel,
                     "train/generator/base": base, "train/generator/all": loss})
-    return loss, metrics, audio_c, fake_c
+    return loss, metrics, audio_c, fake_c, ema
 
 
 def _discriminator_loss(discriminators, audio_c, fake_c):
@@ -308,12 +352,13 @@ def make_train_step(cfg: GANTaskConfig, plain: bool = False):
     check_trainable(cfg)
 
     def g_phase(state: TrainState, batch: dict, crop_start: int | None = None):
-        """The generator's loss, backward and AdamW update: (metrics, audio_c, fake_c)."""
+        """The generator's loss, backward and AdamW update, then a vqvae's EMA codebook update:
+        (metrics, audio_c, fake_c)."""
         audio, lengths = batch["audio"], batch["lengths"]
         mask = sequence_mask(lengths, audio.shape[2])
         start = draw_crop_start(state, cfg, audio.shape[2]) if crop_start is None else crop_start
         state.opt_g.zero_grad(set_to_none=True)
-        loss, metrics, audio_c, fake_c = _generator_loss(
+        loss, metrics, audio_c, fake_c, ema = _generator_loss(
             state.generator, state.discriminators, audio, mask, cfg, start, plain, batch.get("template"),
             state.noise)
         loss.backward()
@@ -321,6 +366,8 @@ def make_train_step(cfg: GANTaskConfig, plain: bool = False):
         for group in state.opt_g.param_groups:
             group["lr"] = warmup_cosine(state.step, cfg.schedule)
         state.opt_g.step()
+        if ema is not None:
+            ema()
         return metrics, audio_c, fake_c
 
     def d_phase(state: TrainState, audio_c: torch.Tensor, fake_c: torch.Tensor) -> dict:
@@ -349,7 +396,7 @@ def make_train_step(cfg: GANTaskConfig, plain: bool = False):
 def make_eval_step(cfg: GANTaskConfig):
     """(state, batch) -> ({"val/metrics/mel": masked mel-L1 on the full clip}, masked fake): the
     generator in eval mode under ``torch.no_grad`` (BigVGAN: the inference path, K2 and K1; RefineGAN:
-    the seeded-0 noise of inference)."""
+    the seeded-0 noise of inference; vae: z = mean; vqvae: the codebooks as they are)."""
 
     def step(state: TrainState, batch: dict):
         audio, lengths = batch["audio"], batch["lengths"]
@@ -357,7 +404,7 @@ def make_eval_step(cfg: GANTaskConfig):
         state.generator.eval()
         try:
             with torch.no_grad():
-                fake = generator_forward(state.generator, audio, cfg, template=batch.get("template"))
+                fake = generator_forward(state.generator, audio, cfg, template=batch.get("template"))[0]
                 audio_m, fake_m = audio * mask, fake * mask
                 loss_mel = torch.mean(torch.abs(loss_mel_transform(cfg, audio_m[:, 0])
                                                 - loss_mel_transform(cfg, fake_m[:, 0])))

@@ -10,6 +10,11 @@ validation mel-L1 every ``run.val_interval`` steps with
 ``run.early_stop_patience``, a checkpoint every ``run.ckpt_interval`` steps
 and a forced one at the end, and ``crash.log`` when a step raises.
 
+Every family that ``train/gan.py`` trains runs through it unchanged: the
+step makes the family's input (log-mel or linear spectrogram), validation
+runs the family's eval forward, and a vqvae's EMA codebooks, buffers of the
+generator, are saved and restored with its ``state_dict``.
+
 ``run.precision="highest"`` (the default) runs the library's convs and
 matmuls in full fp32 (TF32 off), as the JAX package's ``Precision.HIGHEST``;
 "default" lets them use TF32, as its ``Precision.DEFAULT`` lets the MXU round.
