@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's inference (BigVGAN, HiFiGAN, Vocos, RefineGAN, Firefly-GAN; BigVGAN also with an
-f0 template), training (those, and the vae and vqvae families) and the vqvae codec on one CUDA card and
-check it.
+f0 template), training (those, and the vae and vqvae families), the vqvae codec, FLAC/Ogg/MP3 input and
+evaluation on one CUDA card and check it.
 
     python3 chip_smoke.py          # from the repository root; needs one NVIDIA H100
 
@@ -93,7 +93,24 @@ Phases, in order; any failure exits non-zero:
      same step on the CPU, the same draws (drop_path, eps) on both: losses,
      gradients, updated parameters and the vqvae's EMA codebook;
  18. `cli.train --family vqvae` at the preset's batch 16 x 32 frames: 4 steps
-     with validation every 2, a resume to 6, the codebooks checkpointed.
+     with validation every 2, a resume to 6, the codebooks checkpointed;
+ 19. the host audio library (vocoder_tpu_torch/csrc/audio_host.cc, built by the
+     system C++ compiler): its build seconds and which codec libraries load;
+ 20. decoders on fixtures from the port's own encoders: FLAC at 16 / 24 bit,
+     mono / stereo, 44.1 / 22.05 kHz (native and numpy decodes equal to the
+     quantised source, bit for bit), Ogg q0.6 (native loop equal to the pull
+     loop, the numpy Vorbis decoder within 5e-6), MP3 (gapless, SNR > 25 dB);
+     each path's decode audio-s/s on this host; a format whose library is
+     absent prints `"skipped"`;
+ 21. `cli.train --model bigvgan` at the preset's batch 16 x 128 frames over a
+     FLAC + Ogg + MP3 corpus, 2 steps, validation at step 2 over FLAC clips with
+     the default `run.val_pesq`: a PESQ in [1, 4.65], K1 at least 182 launches,
+     K2 in validation, native FLAC decodes, the input wait, the validation split
+     into eval forwards (CUDA events) and host PESQ, the media PNG;
+ 22. `cli.infer` from that workdir over the FLAC clips, then `cli.evaluate
+     val synth --sr 44100 --glob-pattern '*.flac'` on the card with `--workers 1`
+     and `4` (PESQ and SI-SDR equal, spec_diff and MCD within 1e-4), an
+     identity run at PESQ's fixed points, seconds per pair.
 
 A `timeline` line gives the seconds from the start to the end of each phase.
 
@@ -1570,6 +1587,277 @@ def check_cli_train_vqvae(root: Path, dev, paths: dict) -> None:
         raise SystemExit("cli.train --family vqvae did not resume from step 4 and end at step 6")
 
 
+# Slice 9: the host's audio decoders, training over FLAC/Ogg/MP3 with validation PESQ, and evaluation.
+FLAC_FIXTURES = list(itertools.product((16, 24), (1, 2), (44100, 22050)))  # bits, channels, rate
+VORBIS_ATOL = 5e-6  # tests/test_vorbis_native.py: the numpy Vorbis decoder against libvorbisfile
+MP3_SNR_DB = 25.0  # tests/test_mp3.py:32: a transparent-bitrate bound on tonal content
+PESQ_RANGE = (1.0, 4.65)  # the MOS-LQO scale of P.862.1 / P.862.2
+IDENTITY_NB, IDENTITY_WB = 4.5486, 4.6439  # the maps at raw 4.5 (tests/test_pesq.py:33), to 4 decimals
+SPEC_RTOL = 1e-4  # spec_diff and MCD, card against CPU
+EVAL_KEYS = {"pesq_nb", "pesq_wb", "spec_diff", "si_sdr", "mcd"}
+# Training files' seconds, uniform: from the crop (65,536 samples) to a mean of 5.85 s, near LibriTTS
+# train-clean-100's mean utterance (53.78 h over 33,236 utterances, 5.83 s; Zen et al. 2019, Table 1).
+TRAIN_SECONDS = (1.5, 10.2)
+
+
+def tone(sr: int, seconds: float, rng, channels: int = 1):
+    """A sine with a vibrato plus a little noise, (channels, T) float32 in [-0.5, 0.5]."""
+    import numpy as np
+
+    t = np.arange(int(sr * seconds)) / sr
+    out = []
+    for _ in range(channels):
+        f0 = rng.uniform(100.0, 400.0)
+        out.append(0.3 * np.sin(2 * np.pi * f0 * t + 2.0 * np.sin(2 * np.pi * 5.0 * t))
+                   + 0.1 * np.sin(2 * np.pi * 3 * f0 * t) + 0.01 * rng.standard_normal(t.size))
+    return np.stack(out).astype(np.float32)
+
+
+def host_audio() -> dict:
+    """19. Build the host audio library (csrc/audio_host.cc, the system C++ compiler) and report which codec
+    libraries load.  FLAC's native decoder is never optional here."""
+    from vocoder_tpu_torch.data import mp3, native, ogg
+
+    built = native.available()
+    libs = {"libmpg123": mp3.decoder_available(), "libmp3lame": mp3.encoder_available(),
+            "libvorbisfile": ogg.system_decoder_available(), "libvorbisenc": ogg.encoder_available()}
+    log({"phase": "host_audio", "built": built, "build_seconds": native.build_seconds,
+         "build_error": native.build_error, "codec_libraries": libs, "ok": built})
+    if not built:
+        raise SystemExit(f"the host audio library did not build: {native.build_error}")
+    return libs
+
+
+def decode_rate(fn, files: list, audio_s: float, rounds: int) -> float:
+    """audio-s/s of ``fn`` over ``files`` (their audio seconds together), ``rounds`` times over."""
+    t0 = time.perf_counter()
+    for _ in range(rounds):
+        for f in files:
+            fn(f)
+    return rounds * audio_s / (time.perf_counter() - t0)
+
+
+def check_decoders(root: Path, libs: dict, stamp: dict) -> None:
+    """20. Fixtures written by the port's own encoders: FLAC at 16 / 24 bit, mono / stereo, 44.1 / 22.05 kHz
+    (the native and numpy decodes each equal to the quantised source, bit for bit); Ogg q0.6 (the native
+    loop equal to the pull loop, the numpy decoder within VORBIS_ATOL); MP3 (gapless length, SNR); each
+    path's decode audio-s/s on this host.  A format whose codec library is absent prints why it skipped.
+    The committed Ogg fixture (tools/vorbis_fixture.py) goes through the numpy Vorbis decoder on every host,
+    held against its committed decode within VORBIS_ATOL, with its audio-s/s."""
+    import numpy as np
+
+    from vocoder_tpu_torch.data import flac, mp3, native, ogg, vorbis
+    from vocoder_tpu_torch.tools import vorbis_fixture
+
+    rng = np.random.default_rng(SEED + 19)
+    root.mkdir()
+    files, audio_s, ok = [], 0.0, True
+    before = native.decodes["flac"]
+    for bits, ch, sr in FLAC_FIXTURES:
+        full = float(1 << (bits - 1))
+        pcm = np.clip(np.rint(tone(sr, 1.0, rng, ch) * full), -full, full - 1).astype(np.int64)
+        path = root / f"f{bits}_{ch}_{sr}.flac"
+        flac.write_flac(path, pcm, sr, bits_per_sample=bits)
+        want = (pcm.astype(np.float32) / np.float32(full)).astype(np.float32)
+        got, got_sr = flac.read_flac(path)
+        pure, pure_sr = flac.read_flac_pure(path)
+        case_ok = got_sr == pure_sr == sr and np.array_equal(got, want) and np.array_equal(pure, want)
+        log({"phase": "decoders", "format": "flac", "bits": bits, "channels": ch, "rate": sr, "ok": case_ok})
+        ok = ok and case_ok
+        files.append(path)
+        audio_s += pcm.shape[-1] / sr
+    native_flac = native.decodes["flac"] - before
+    rates = {"flac_native": decode_rate(flac.read_flac, files, audio_s, 20),
+             "flac_numpy": decode_rate(flac.read_flac_pure, files, audio_s, 1)}
+    ok = ok and native_flac == len(FLAC_FIXTURES)
+
+    # The committed fixture: the numpy Vorbis decoder is what reads Ogg on a host without libvorbisfile.
+    want = np.load(vorbis_fixture.EXPECTED)
+    pure, pure_sr = vorbis.read_ogg_pure(vorbis_fixture.FIXTURE)
+    err = float(np.abs(pure - want).max()) if pure.shape == want.shape else None
+    case_ok = pure_sr == vorbis_fixture.RATE and err is not None and err < VORBIS_ATOL
+    log({"phase": "decoders", "format": "ogg", "fixture": vorbis_fixture.FIXTURE.name,
+         "quality": vorbis_fixture.QUALITY, "channels": int(want.shape[0]), "rate": pure_sr,
+         "numpy_vs_expected_max_abs": err, "ok": case_ok})
+    ok = ok and case_ok
+    rates["ogg_numpy_fixture"] = decode_rate(vorbis.read_ogg_pure, [vorbis_fixture.FIXTURE],
+                                             vorbis_fixture.SECONDS, 4)
+
+    if libs["libvorbisenc"]:
+        files, audio_s = [], 0.0
+        for ch, sr in ((1, 44100), (2, 22050)):
+            x = tone(sr, 1.0, rng, ch)
+            path = root / f"o{ch}_{sr}.ogg"
+            ogg.write_ogg(path, x, sr, quality=0.6)
+            got = native.ogg_decode(path)
+            pull, pull_sr = ogg.read_ogg_pull(path)
+            pure, pure_sr = vorbis.read_ogg_pure(path)
+            case_ok = (got is not None and got[1] == pull_sr == pure_sr == sr and got[0].shape == x.shape
+                       and np.array_equal(got[0], pull) and pure.shape == x.shape
+                       and float(np.abs(pure - pull).max()) < VORBIS_ATOL)
+            log({"phase": "decoders", "format": "ogg", "quality": 0.6, "channels": ch, "rate": sr,
+                 "numpy_vs_pull_max_abs": float(np.abs(pure - pull).max()), "ok": case_ok})
+            ok = ok and case_ok
+            files.append(path)
+            audio_s += x.shape[-1] / sr
+        rates["ogg_native"] = decode_rate(native.ogg_decode, files, audio_s, 20)
+        rates["ogg_pull"] = decode_rate(ogg.read_ogg_pull, files, audio_s, 5)
+        rates["ogg_numpy"] = decode_rate(vorbis.read_ogg_pure, files, audio_s, 1)
+    else:
+        log({"phase": "decoders", "format": "ogg", "encoded_here": "skipped", "skipped": "libvorbisenc absent"})
+
+    if libs["libmp3lame"] and libs["libmpg123"]:
+        files, audio_s = [], 0.0
+        for ch, sr in ((1, 44100), (2, 32000)):
+            x = tone(sr, 1.0, rng, ch)
+            path = root / f"m{ch}_{sr}.mp3"
+            mp3.write_mp3(path, x, sr)
+            y, y_sr = mp3.read_mp3(path)
+            snr = (float(min(10 * np.log10(np.mean(x[c] ** 2) / np.mean((y[c] - x[c]) ** 2)) for c in range(ch)))
+                   if y.shape == x.shape else None)
+            case_ok = y_sr == sr and y.shape == x.shape and snr > MP3_SNR_DB
+            log({"phase": "decoders", "format": "mp3", "channels": ch, "rate": sr, "samples": y.shape[-1],
+                 "expected": x.shape[-1], "snr_db": snr, "ok": case_ok})
+            ok = ok and case_ok
+            files.append(path)
+            audio_s += x.shape[-1] / sr
+        rates["mp3"] = decode_rate(mp3.read_mp3, files, audio_s, 5)
+    else:
+        log({"phase": "decoders", "format": "mp3",
+             "skipped": f"{'libmp3lame' if not libs['libmp3lame'] else 'libmpg123'} absent"})
+    log({"metric": "decode_audio_s_per_s", "host": "the card machine's host, one thread", **rates,
+         "native_flac_decodes": native_flac, **stamp})
+    if not ok:
+        raise SystemExit("a decoder disagrees with its source or with another path")
+
+
+def write_formats_corpus(root: Path, sr: int, libs: dict, rng) -> dict:
+    """32 training files (FLAC 16 and 24 bit, Ogg q0.6 and MP3 where their encoders load, else FLAC) of
+    TRAIN_SECONDS and 4 validation FLAC clips of 2 s; the count of each format."""
+    from vocoder_tpu_torch.data import flac, mp3, ogg
+
+    counts = {}
+    for sub, n in (("train", 32), ("val", 4)):
+        (root / sub).mkdir(parents=True)
+        for i in range(n):
+            x = tone(sr, rng.uniform(*TRAIN_SECONDS) if sub == "train" else 2.0, rng)
+            kind = "flac" if sub == "val" else ("flac", "flac24", "ogg", "mp3")[i % 4]
+            if kind == "ogg" and not libs["libvorbisenc"] or kind == "mp3" and not libs["libmp3lame"]:
+                kind = "flac"
+            if kind == "ogg":
+                ogg.write_ogg(root / sub / f"{i:02d}.ogg", x, sr, quality=0.6)
+            elif kind == "mp3":
+                mp3.write_mp3(root / sub / f"{i:02d}.mp3", x, sr)
+            else:
+                flac.write_flac(root / sub / f"{i:02d}.flac", x, sr, bits_per_sample=24 if kind == "flac24" else 16)
+            counts[f"{sub}_{kind}"] = counts.get(f"{sub}_{kind}", 0) + 1
+    return counts
+
+
+def check_cli_train_formats(root: Path, libs: dict, paths: dict, stamp: dict) -> Path:
+    """21. cli.train --model bigvgan at the preset's batch 16 x 128 frames over a FLAC + Ogg + MP3 corpus of
+    LibriTTS-long files, 6 steps logged one by one, validation at step 6 over 4 FLAC clips with the default
+    run.val_pesq: a finite PESQ in range, K1 at least 91 a step and K2 in validation, native FLAC decodes,
+    each step's time and input wait, the validation's seconds split into the eval forwards (CUDA events)
+    and host PESQ, and the media PNG where matplotlib imports.  The workdir."""
+    import importlib.util
+
+    import numpy as np
+    import torch
+
+    from vocoder_tpu_torch.config import build_task_config
+    from vocoder_tpu_torch.data import native
+
+    task = build_task_config("bigvgan", "44100_512_2048")
+    counts = write_formats_corpus(root, task.sampling_rate, libs, np.random.default_rng(SEED + 21))
+    work = root / "run"
+    steps = 6
+    argv = ["--model", "bigvgan", "--device", "cuda", f"data.train_roots=('{root / 'train'}',)",
+            f"data.val_root={root / 'val'}", "run.log_interval=1", f"run.val_interval={steps}",
+            f"run.ckpt_interval={steps}", f"run.max_steps={steps}", f"run.workdir={work}"]
+    flac_before, ogg_before = native.decodes["flac"], native.decodes["ogg"]
+    tf32_defaults()
+    t0 = time.perf_counter()
+    state, _ = drive_path("cli_train_formats", lambda: run_train_cli(argv), ("aa_snake", FP32_K2), paths,
+                          blockwise=steps * len(task.generator.upsample_rates))
+    seconds = time.perf_counter() - t0
+    native_flac, native_ogg = native.decodes["flac"] - flac_before, native.decodes["ogg"] - ogg_before
+    launches = paths["cli_train_formats"]
+    records = [json.loads(line) for line in (work / "metrics.jsonl").read_text().splitlines()]
+    train_rec = [r for r in records if "train/generator/all" in r]  # steps 2..6: the first is taken apart
+    val_rec = [r for r in records if "val/metrics/mel" in r]
+    pesq = val_rec[0].get("val/metrics/pesq") if val_rec else None
+    media = sorted(p.name for p in (work / "media").glob("*.png")) if (work / "media").is_dir() else []
+    has_mpl = importlib.util.find_spec("matplotlib") is not None
+    val_pesq_default = json.loads((work / "config.json").read_text())["run"]["val_pesq"]
+    ok = (state.step == steps and val_pesq_default and len(train_rec) == steps - 1 and len(val_rec) == 1
+          and all(math.isfinite(v) for r in records for v in r.values())
+          and pesq is not None and PESQ_RANGE[0] <= pesq <= PESQ_RANGE[1]
+          and launches["aa_snake"] >= K1_PER_BIGVGAN_FORWARD * steps and launches[FP32_K2] > 0
+          and native_flac > 0 and all("perf/input_wait_s" in r for r in train_rec)
+          and (media == [f"val_mel_{steps:08d}.png"] if has_mpl else media == [])
+          and not (torch.backends.cudnn.allow_tf32 or torch.backends.cuda.matmul.allow_tf32))
+    v = val_rec[0] if val_rec else {}
+    step_s = [1.0 / r["perf/steps_per_s"] for r in train_rec]
+    wait_s = [r.get("perf/input_wait_s") for r in train_rec]
+    log({"phase": "cli_train_formats", "model": "bigvgan", "batch": 16, "frames": 128, "steps": steps,
+         "corpus": counts, "train_file_seconds": TRAIN_SECONDS, "val_pesq_default": val_pesq_default,
+         "val_pesq": pesq, "val_mel": v.get("val/metrics/mel"), "launches": launches,
+         "native_flac_decodes": native_flac, "native_ogg_decodes": native_ogg,
+         "logged_steps": [r["step"] for r in train_rec], "step_s": step_s, "input_wait_s": wait_s,
+         "step_s_median_3_on": float(np.median(step_s[1:])) if len(step_s) > 1 else None,
+         "input_wait_s_median_3_on": float(np.median(wait_s[1:])) if len(wait_s) > 1 else None,
+         "val_forward_s": v.get("perf/val_forward_s"), "val_pesq_s": v.get("perf/val_pesq_s"),
+         "run_seconds": seconds, "media": media,
+         "media_case": "matplotlib imports: a PNG required" if has_mpl else "no matplotlib: no PNG expected",
+         "ok": ok, **stamp})
+    if not ok:
+        raise SystemExit("cli.train over FLAC/Ogg/MP3 did not train, validate with PESQ and log as asked")
+    return work
+
+
+def check_cli_evaluate(root: Path, work: Path, infer, paths: dict, stamp: dict) -> None:
+    """22. cli.infer from the cli_train_formats workdir over its FLAC validation clips, then cli.evaluate
+    val synth --sr 44100 --glob-pattern '*.flac' with --workers 1 on the card (--device cuda) and then
+    --workers 4, whose spawned processes score on the CPU (--device cpu): the same keys, PESQ and SI-SDR
+    equal, spec_diff and MCD within SPEC_RTOL (card against CPU); an identity run on the card gives the
+    PESQ fixed points and spectral distances of 0; seconds per pair for each worker count."""
+    from vocoder_tpu_torch.cli import evaluate
+
+    synth = root / "synth"
+    argv = ["--model", "bigvgan", "--ckpt", str(work), "--input", str(root / "val"), "--output", str(synth),
+            "--device", "cuda"]
+    seconds = drive_path("cli_infer_flac", lambda: run_cli(infer, argv), ("aa_snake", FP32_K2), paths)
+    n_pairs = len(list((root / "val").glob("*.flac")))
+    ok = len(list(synth.glob("*.wav"))) == n_pairs
+    log({"phase": "cli_infer_flac", "files": n_pairs, "seconds": seconds, "launches": paths["cli_infer_flac"],
+         "ok": ok})
+    base = [str(root / "val"), str(synth), "--sr", "44100", "--glob-pattern", "*.flac"]
+    runs = {}
+    for workers, device in ((1, "cuda"), (4, "cpu")):
+        t0 = time.perf_counter()
+        runs[workers] = drive_path(f"cli_evaluate_w{workers}", lambda: evaluate.main(
+            [*base, "--workers", str(workers), "--device", device]), (), paths)
+        runs[workers] = (runs[workers], (time.perf_counter() - t0) / n_pairs)
+    (one, s1), (four, s4) = runs[1], runs[4]
+    t0 = time.perf_counter()
+    ident = evaluate.main([str(root / "val"), str(root / "val"), *base[2:], "--workers", "1", "--device", "cuda"])
+    s_ident = (time.perf_counter() - t0) / n_pairs
+    same = (set(one) == set(four) == set(ident) == EVAL_KEYS
+            and all(one[k] == four[k] for k in ("pesq_nb", "pesq_wb", "si_sdr"))
+            and all(math.isclose(one[k], four[k], rel_tol=SPEC_RTOL) for k in ("spec_diff", "mcd")))
+    fixed = (set(ident) == EVAL_KEYS and abs(ident["pesq_nb"] - IDENTITY_NB) <= 5e-5
+             and abs(ident["pesq_wb"] - IDENTITY_WB) <= 5e-5 and ident["spec_diff"] == 0.0 and ident["mcd"] == 0.0)
+    ok = ok and same and fixed and all(math.isfinite(v) for v in one.values())
+    log({"phase": "cli_evaluate", "pairs": n_pairs, "workers_1": one, "workers_4": four, "identity": ident,
+         "devices": {"workers_1": "cuda", "workers_4": "cpu", "identity": "cuda"},
+         "seconds_per_pair": {"workers_1": s1, "workers_4": s4, "identity_workers_1": s_ident},
+         "workers_agree": same, "identity_fixed_points": fixed, "ok": ok, **stamp})
+    if not ok:
+        raise SystemExit("cli.evaluate: worker counts disagree, the identity run missed its fixed points, or a "
+                         "synthesised file is missing")
+
+
 def main() -> int:
     import torch
 
@@ -1863,6 +2151,19 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         check_cli_train_vqvae(Path(tmp), dev, paths)
     mark("18 cli.train vqvae")
+
+    # 19-22. FLAC/Ogg/MP3 input through the host library, training with validation PESQ, evaluation.
+    libs = host_audio()
+    mark("19 host audio")
+    with tempfile.TemporaryDirectory() as tmp:
+        check_decoders(Path(tmp) / "decoders", libs, stamp)
+        mark("20 decoders")
+        work = check_cli_train_formats(Path(tmp) / "formats", libs, paths, stamp)
+        tf32_off()
+        mark("21 cli.train formats")
+        check_cli_evaluate(Path(tmp) / "formats", work, infer, paths, stamp)
+        tf32_off()
+    mark("22 cli.evaluate")
     log({"phase": "timeline", "seconds_at_end": timeline})
 
     def launches(name):  # over the main paths' runs; each path's count beside it

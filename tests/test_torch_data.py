@@ -60,8 +60,9 @@ def test_list_audio_files_matches_jax(wav_dirs):
 
 
 def test_dataset_refuses_undecodable_files_at_construction(wav_dirs):
-    """A corpus with a file the port cannot decode yet fails when the dataset is built, not as silence later."""
-    (wav_dirs[0] / "x.flac").write_bytes(b"fLaC")
+    """A corpus with a file the port cannot decode (an audio suffix without a decoder) fails when the
+    dataset is built, not as silence later."""
+    (wav_dirs[0] / "x.m4a").write_bytes(b"\x00\x00\x00\x20ftypM4A ")
     with pytest.raises(ValueError, match="not decodable"):
         dataset.VocoderDataset(root=wav_dirs[0], transform=transforms.val_transform(16000, 64))
 

@@ -342,8 +342,8 @@ def test_wav_io_and_resample_match_jax_package(tmp_path):
     np.testing.assert_allclose(got, audio, atol=1.0 / 32768)
     np.testing.assert_allclose(resample.resample(got, 22050, 44100), jres.resample(got, 22050, 44100),
                                rtol=1e-5, atol=1e-6)
-    with pytest.raises(audio_io.UnsupportedFormatError, match="no decoder"):
-        audio_io.read_audio(tmp_path / "a.flac")
+    with pytest.raises(audio_io.UnsupportedFormatError, match="no decoder"):  # an audio suffix without a decoder
+        audio_io.read_audio(tmp_path / "a.m4a")
 
 
 def test_chunked_synthesis_matches_jax():

@@ -146,32 +146,37 @@ TINY = ["task.sampling_rate=8000", "task.n_fft=64", "task.win_length=64", "task.
 
 
 def test_cli_train_checkpoints_resumes_and_guards(tmp_path, capsys):
-    """4 steps on the CPU with validation and checkpoints every 2, a resume to 6, the guard against a
-    workdir of another task, the PESQ refusal, and cli.infer from the run's workdir."""
+    """4 steps on the CPU with validation (the default config: mel-L1, PESQ and media) and checkpoints
+    every 2, a resume to 6, the guard against a workdir of another task, and cli.infer from the run's
+    workdir."""
     rng = np.random.default_rng(0)
     _wavs(tmp_path / "train", 4, rng)
     _wavs(tmp_path / "val", 2, rng)
     work = tmp_path / "run"
     base = ["--model", "bigvgan", "--device", "cpu", f"data.train_roots=('{tmp_path / 'train'}',)",
             f"data.val_root={tmp_path / 'val'}", f"run.workdir={work}", *TINY]
-    with pytest.raises(SystemExit, match="run.val_pesq=False"):
-        train_cli.main(base)
-    state = train_cli.main([*base, "run.val_pesq=False", "run.max_steps=4"])
+    assert tconfig.RunConfig().val_pesq
+    state = train_cli.main([*base, "run.max_steps=4"])
     assert state.step == 4
     records = [json.loads(line) for line in (work / "metrics.jsonl").read_text().splitlines()]
     assert [r["step"] for r in records if "train/generator/all" in r] == [2, 3, 4]
     assert [r["step"] for r in records if "val/metrics/mel" in r] == [2, 4]
+    pesqs = [r["val/metrics/pesq"] for r in records if "val/metrics/pesq" in r]
+    assert [r["step"] for r in records if "val/metrics/pesq" in r] == [2, 4]
+    assert all(1.0 <= v <= 4.65 for v in pesqs), pesqs
+    assert all({"perf/val_forward_s", "perf/val_pesq_s"} <= set(r) for r in records if "val/metrics/mel" in r)
+    assert sorted(p.name for p in (work / "media").iterdir()) == ["val_mel_00000002.png", "val_mel_00000004.png"]
     assert all(np.isfinite(v) for r in records for v in r.values())
     assert {"perf/steps_per_s", "perf/audio_s_per_s", "perf/input_wait_s", "lr"} <= set(records[0])
     assert CheckpointManager(work / "checkpoints").steps() == [2, 4]
     capsys.readouterr()
 
-    state = train_cli.main([*base, "run.val_pesq=False", "run.max_steps=6"])
+    state = train_cli.main([*base, "run.max_steps=6"])
     assert state.step == 6 and "auto-resumed from step 4" in capsys.readouterr().err
     assert CheckpointManager(work / "checkpoints").steps() == [2, 4, 6]
 
     with pytest.raises(SystemExit, match="different task config"):
-        train_cli.main([*base, "run.val_pesq=False", "run.max_steps=8", "task.mel_weight=99.0"])
+        train_cli.main([*base, "run.max_steps=8", "task.mel_weight=99.0"])
     assert not (work / "checkpoints" / "8.pt").exists()
 
     wav = tmp_path / "val" / "0.wav"

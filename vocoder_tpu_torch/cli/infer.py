@@ -29,8 +29,9 @@ masking makes every row equal to that item's own forward.  Files longer than
 at a time, as every file does at ``--batch 1``.
 
 Runs on ``cuda`` unless ``--device cpu`` is given; it never falls back to the
-CPU by itself.  Orbax checkpoints (the JAX package's) and FLAC/Ogg/MP3 input
-are not yet ported.
+CPU by itself.  It reads WAV, FLAC, Ogg/Vorbis and (where libmpg123 loads)
+MP3 (``data/audio_io.py``).  Orbax checkpoints (the JAX package's) are not
+ported.
 """
 
 from __future__ import annotations

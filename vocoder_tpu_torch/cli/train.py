@@ -3,7 +3,7 @@
 Counterpart of ``vocoder_tpu/cli/train.py``:
 
     python -m vocoder_tpu_torch.cli.train --model bigvgan --resolution 44100_512_2048 \\
-        "data.train_roots=('/data/wavs',)" data.val_root=/data/val run.val_pesq=False \\
+        "data.train_roots=('/data/wavs',)" data.val_root=/data/val \\
         run.workdir=logs/bigvgan [--family gan|vae|vqvae] [--device cuda|cpu]
 
 Any dotted override of the ``TrainConfig`` tree (``vocoder_tpu_torch/config.py``)

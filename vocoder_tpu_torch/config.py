@@ -244,7 +244,7 @@ class RunConfig:
     resume_weights_only: bool = False
     workdir: str = "logs/train"
     early_stop_patience: int | None = None  # validations without a val mel-L1 improvement
-    val_pesq: bool = True  # PESQ is not yet ported: the trainer refuses True with a val_root
+    val_pesq: bool = True  # host-side val PESQ-WB at 16 kHz (eval_metrics.pesq), as the JAX package's
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,9 +1,12 @@
-"""WAV read/write with the standard library and numpy, and the audio-file lister.
+"""Audio file I/O: ``read_audio`` for WAV, FLAC, Ogg/Vorbis and MP3, WAV out, the audio-file lister.
 
-A copy of the WAV codec and ``list_audio_files`` in
-``vocoder_tpu/data/audio_io.py`` (PCM 8/16/24/32 and IEEE float in, 16-bit
-PCM out).  FLAC, Ogg and MP3 are not yet ported:
-``read_audio`` raises a clear error for any suffix but ``.wav``.
+A copy of ``vocoder_tpu/data/audio_io.py``.  WAV (PCM 8/16/24/32 and IEEE
+float) is decoded here with the standard library and numpy; FLAC by
+``data/flac.py`` (the host library's C++ decoder, else numpy), Ogg/Vorbis by
+``data/ogg.py`` (the C++ loop, libvorbisfile's pull loop, else the numpy
+Vorbis decoder) and MP3 by ``data/mp3.py`` when libmpg123 loads.  Other
+audio suffixes raise ``UnsupportedFormatError``, which the datasets refuse
+when they are built.
 """
 
 from __future__ import annotations
@@ -15,17 +18,55 @@ from pathlib import Path
 import numpy as np
 
 AUDIO_EXTENSIONS = {".mp3", ".wav", ".flac", ".ogg", ".m4a", ".wma", ".aac", ".aiff", ".aif", ".aifc"}
-DECODABLE_EXTENSIONS = {".wav"}
 
+# What this host can decode: WAV and FLAC always, MP3 when libmpg123 loads,
+# Ogg when its decoder is available (always: the numpy decoder backs it).
+DECODABLE_EXTENSIONS = {".wav", ".flac"}
 
-class UnsupportedFormatError(ValueError):
+try:
+    from vocoder_tpu_torch.data.mp3 import decoder_available as _mp3_decodable
+
+    if _mp3_decodable():
+        DECODABLE_EXTENSIONS.add(".mp3")
+except Exception:  # a broken libmpg123 must not break WAV/FLAC I/O
+    pass
+
+try:
+    from vocoder_tpu_torch.data.ogg import decoder_available as _ogg_decodable
+
+    if _ogg_decodable():
+        DECODABLE_EXTENSIONS.add(".ogg")
+except Exception:  # a broken libvorbisfile must not break I/O
     pass
 
 
+class UnsupportedFormatError(ValueError):
+    """The container format is recognised as audio but has no decoder here."""
+
+
 def read_audio(path: str | Path) -> tuple[np.ndarray, int]:
-    """Decode an audio file -> (float32 (channels, T) in [-1, 1], sample_rate)."""
+    """Decode an audio file -> (float32 (channels, T) in [-1, 1], sample_rate).
+
+    Audio suffixes without a decoder raise UnsupportedFormatError, so that a
+    caller can tell "wrong format" (fail fast) from "corrupt file" (ValueError,
+    recoverable); an unknown suffix is read as RIFF/WAVE.
+    """
     suffix = Path(path).suffix.lower()
-    if suffix == ".wav":
+    if suffix == ".flac":
+        from vocoder_tpu_torch.data.flac import read_flac
+
+        return read_flac(path)
+    if suffix == ".mp3":
+        if ".mp3" in DECODABLE_EXTENSIONS:
+            from vocoder_tpu_torch.data.mp3 import read_mp3
+
+            return read_mp3(path)
+        raise UnsupportedFormatError(f"{path}: .mp3 needs libmpg123, which is unavailable")
+    if suffix == ".ogg":
+        from vocoder_tpu_torch.data.ogg import read_ogg
+
+        return read_ogg(path)
+    if suffix in DECODABLE_EXTENSIONS or suffix not in AUDIO_EXTENSIONS:
         return read_wav(path)
     raise UnsupportedFormatError(f"{path}: no decoder for {suffix!r} (supported: {sorted(DECODABLE_EXTENSIONS)})")
 

@@ -9,9 +9,9 @@ a ``template_fn`` is given.  Each batch element draws from its own rng
 keyed (seed, host, step, slot), so for the same files and seed the stream
 is the JAX package's, and it resumes at any step.  The JAX package's ``DevicePrefetcher`` is not
 ported: the trainer copies each batch to the card itself and times the wait
-(``perf/input_wait_s``).  ``DECODABLE_EXTENSIONS`` is ``{".wav"}`` until the
-FLAC, Ogg and MP3 decoders are ported, so a corpus with other files fails at
-construction, as the JAX package's does for what it cannot decode.
+(``perf/input_wait_s``).  A corpus with a file whose suffix is not in
+``audio_io.DECODABLE_EXTENSIONS`` (WAV, FLAC, Ogg, and MP3 where libmpg123
+loads) fails at construction, as the JAX package's does.
 """
 
 from __future__ import annotations

@@ -1,7 +1,7 @@
 """Host-side waveform transforms (the augmentation pipeline), numpy.
 
 A copy of ``vocoder_tpu/data/transforms.py`` (the reference's data/transforms),
-on the port's WAV reader and resampler: load, HQ pitch shift (resample
+on the port's audio reader and resampler: load, HQ pitch shift (resample
 trick), random loudness, random crop, pad: the transforms of the
 training and validation chains.  They run on the host and feed raw audio; the spectral
 features are computed on the card.

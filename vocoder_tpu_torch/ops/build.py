@@ -3,7 +3,10 @@
 At first use every ``csrc/*.cu`` is compiled by its own ``nvcc`` process,
 all started together, into a shared library with a plain C interface under
 ``build/kernels/`` at the repository root, named by a hash of the sources
-and flags so an edit rebuilds.  The libraries are loaded with ``ctypes``;
+and flags so an edit rebuilds, under a file lock so that processes starting
+together build each library once.  ``compile_libraries`` is that builder; the
+host audio library (``data/native.py``) is built by it too.  The libraries
+are loaded with ``ctypes``;
 pointers and the stream pass as ``c_void_p``.  Every C entry returns
 ``cudaGetLastError()`` after its launch, and its wrapper raises when that is
 not 0.  PyTorch's headers are kept out of the sources: with them one file takes
@@ -13,12 +16,15 @@ minutes to compile, without them seconds.
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
 import subprocess
 import threading
+from collections.abc import Callable
 from pathlib import Path
+from typing import NamedTuple
 
 import torch
 
@@ -44,40 +50,63 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit (nvcc on PATH or CUDA_HOME)")
 
 
-def _target(name: str) -> Path:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))]:
-        h.update(src.name.encode())
-        h.update(src.read_bytes())
-    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
+class Library(NamedTuple):
+    """One shared library, built as ``<compiler> *flags -o <target> source *link``."""
+
+    stem: str
+    flags: tuple[str, ...]
+    source: Path
+    link: tuple[str, ...] = ()
+    headers: tuple[Path, ...] = ()  # hashed into the name with the source
+    host: str = ""  # what else the binary depends on, hashed too (the compiler and CPU, for -march=native)
+
+    def target(self) -> Path:
+        h = hashlib.sha256(" ".join((*self.flags, *self.link, self.host)).encode())
+        for src in (self.source, *self.headers):
+            h.update(src.name.encode())
+            h.update(src.read_bytes())
+        return BUILD_DIR / f"{self.stem}-{h.hexdigest()[:16]}.so"
+
+
+def compile_libraries(libs: list[Library], compiler: Callable[[], str]) -> dict[str, Path]:
+    """Compile every missing library, one ``compiler()`` process each, all started together; stem -> path.
+
+    The compiler is looked up only when a library is missing.  Raises RuntimeError with the compilers'
+    logs when any of them fails."""
+    targets = {lib.stem: lib.target() for lib in libs}
+    if all(t.is_file() for t in targets.values()):
+        return targets
+    cc = compiler()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    failed = []
+    with open(BUILD_DIR / "build.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)  # released when the file closes
+        procs = {}
+        for lib in libs:
+            if targets[lib.stem].is_file():  # built by a process that held the lock first
+                continue
+            tmp = targets[lib.stem].with_suffix(f".{os.getpid()}.tmp")
+            cmd = [cc, *lib.flags, "-o", str(tmp), str(lib.source), *lib.link]
+            procs[lib.stem] = (lib, tmp, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                                          text=True))
+        for stem, (lib, tmp, proc) in procs.items():
+            log, _ = proc.communicate()
+            (BUILD_DIR / f"{stem}.log").write_text(log)
+            if proc.returncode != 0:
+                failed.append(f"{lib.source.name} ({Path(cc).name} exit {proc.returncode}):\n{log}")
+                tmp.unlink(missing_ok=True)
+            else:
+                os.replace(tmp, targets[stem])
+    if failed:
+        raise RuntimeError("build failed:\n" + "\n".join(failed))
+    return targets
 
 
 def build_all() -> dict[str, Path]:
     """Compile every missing kernel library in parallel; name -> path."""
-    names = sorted(p.stem for p in CSRC.glob("*.cu"))
-    targets = {n: _target(n) for n in names}
-    missing = [n for n in names if not targets[n].is_file()]
-    if not missing:
-        return targets
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    nvcc = _nvcc()
-    procs = {}
-    for n in missing:
-        tmp = targets[n].with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{n}.cu")]
-        procs[n] = (tmp, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-    failed = []
-    for n, (tmp, proc) in procs.items():
-        log, _ = proc.communicate()
-        (BUILD_DIR / f"{n}.log").write_text(log)
-        if proc.returncode != 0:
-            failed.append(f"{n}.cu (nvcc exit {proc.returncode}):\n{log}")
-            tmp.unlink(missing_ok=True)
-        else:
-            os.replace(tmp, targets[n])
-    if failed:
-        raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
-    return targets
+    headers = tuple(sorted(CSRC.glob("*.cuh")))
+    libs = [Library(p.stem, NVCC_FLAGS, p, headers=headers) for p in sorted(CSRC.glob("*.cu"))]
+    return compile_libraries(libs, _nvcc)
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -6,9 +6,14 @@ checkpoint, auto-resume from the latest checkpoint (or a weights-only start
 from ``run.ckpt_path``), the first step, then the loop with its log window
 (``perf/steps_per_s``, ``perf/audio_s_per_s``, ``perf/input_wait_s``, which
 holds the host's f0 templates where the generator consumes them), the
-validation mel-L1 every ``run.val_interval`` steps with
-``run.early_stop_patience``, a checkpoint every ``run.ckpt_interval`` steps
-and a forced one at the end, and ``crash.log`` when a step raises.
+validation every ``run.val_interval`` steps (the mel-L1, with
+``run.early_stop_patience``; PESQ-WB on the host with ``run.val_pesq``, the
+default; GT-vs-generated audio and mel figures of the first clip in
+``<workdir>/media`` and TensorBoard), a checkpoint every ``run.ckpt_interval``
+steps and a forced one at the end, and ``crash.log`` when a step raises.
+Each validation also records its seconds in the eval forwards
+(``perf/val_forward_s``, CUDA events on the card) and in host PESQ
+(``perf/val_pesq_s``).
 
 Every family that ``train/gan.py`` trains runs through it unchanged: the
 step makes the family's input (log-mel or linear spectrogram), validation
@@ -20,10 +25,8 @@ matmuls in full fp32 (TF32 off), as the JAX package's ``Precision.HIGHEST``;
 "default" lets them use TF32, as its ``Precision.DEFAULT`` lets the MXU round.
 
 Not ported yet (ROADMAP.md): the distributed init and meshes, the profiler
-window, PESQ and media in validation (so a ``data.val_root`` needs
-``run.val_pesq=False``), TensorBoard and W&B, and the pinned-memory prefetcher:
-each batch is copied to the card when the step needs it, and the wait counts
-as input time.
+window, W&B, and the pinned-memory prefetcher: each batch is copied to the
+card when the step needs it, and the wait counts as input time.
 """
 
 from __future__ import annotations
@@ -41,10 +44,13 @@ from vocoder_tpu_torch.config import TrainConfig
 from vocoder_tpu_torch.data import transforms as T
 from vocoder_tpu_torch.data.dataset import MixDataset, VocoderDataset, batch_iterator
 from vocoder_tpu_torch.data.f0 import f0_template
+from vocoder_tpu_torch.data.resample import resample
+from vocoder_tpu_torch.eval_metrics import pesq as pesq_metric
 from vocoder_tpu_torch.nn import set_full_precision
 from vocoder_tpu_torch.train import gan
 from vocoder_tpu_torch.utils.checkpoint import CheckpointManager
 from vocoder_tpu_torch.utils.logging import MetricsLogger, log
+from vocoder_tpu_torch.utils.viz import plot_mel
 
 
 def set_precision(precision: str) -> None:
@@ -109,10 +115,7 @@ def to_device(batch: dict, device: torch.device) -> dict:
 
 def _check_config(cfg: TrainConfig, workdir: Path, ckpt: CheckpointManager) -> None:
     """Refuse a workdir whose checkpoint was trained with another task config (the keys its config.json
-    records, so fields added since do not block a resume); refuse PESQ, which is not ported."""
-    if cfg.data.val_root is not None and cfg.run.val_pesq:
-        raise SystemExit("validation PESQ is not yet ported (ROADMAP.md Queue 1, evaluation); "
-                         "pass run.val_pesq=False to validate by mel-L1 alone")
+    records, so fields added since do not block a resume)."""
     task_now = json.loads(json.dumps(dataclasses.asdict(cfg.task), default=str))
     cfg_path = workdir / "config.json"
     if cfg_path.exists() and ckpt.latest_step() is not None:
@@ -123,6 +126,104 @@ def _check_config(cfg: TrainConfig, workdir: Path, ckpt: CheckpointManager) -> N
                 f"workdir {workdir} holds a checkpoint (step {ckpt.latest_step()}) trained with a different "
                 f"task config (differs in: {', '.join(diff)}). Point run.workdir at a fresh directory, or pass "
                 "the old model/resolution flags to resume it.")
+
+
+def _make_val_pesq(task):
+    """Host-side validation PESQ (ref models/vocoder.py:40-46): each clip and its generated audio, cut to
+    the clip's length, resampled to 16 kHz and scored PESQ-WB.  fn((B, 1, T) fake, host batch) -> a list
+    of MOS-LQO floats; a clip of length 0 and a degenerate one (all silence etc.) are skipped."""
+
+    def run(fake: np.ndarray, batch: dict) -> list:
+        out = []
+        audio = np.asarray(batch["audio"])
+        lengths = np.asarray(batch["lengths"])
+        for i in range(audio.shape[0]):
+            n = int(lengths[i])
+            if n <= 0:
+                continue
+            ref16 = resample(audio[i, 0, :n], task.sampling_rate, 16000)
+            deg16 = resample(fake[i, 0, :n], task.sampling_rate, 16000)
+            try:
+                out.append(pesq_metric(ref16, deg16, 16000, mode="wb"))
+            except Exception:
+                pass  # degenerate clip
+        return out
+
+    return run
+
+
+class _Timer:
+    """Seconds of work queued on ``device`` between ``start`` and ``stop``: CUDA events on a card (read
+    once the card is done), the host's clock on the CPU."""
+
+    def __init__(self, device: torch.device):
+        self.cuda = device.type == "cuda"
+        self.spans, self.host_s = [], 0.0
+
+    def start(self) -> None:
+        if self.cuda:
+            self.spans.append((torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)))
+            self.spans[-1][0].record()
+        else:
+            self._t = time.perf_counter()
+
+    def stop(self) -> None:
+        if self.cuda:
+            self.spans[-1][1].record()
+        else:
+            self.host_s += time.perf_counter() - self._t
+
+    def seconds(self) -> float:
+        if self.cuda:
+            torch.cuda.synchronize()
+            return sum(a.elapsed_time(b) for a, b in self.spans) / 1e3
+        return self.host_s
+
+
+def validate(state: gan.TrainState, eval_fn, val_batches: list[dict], pesq_fn, device: torch.device):
+    """One validation, as the JAX loop runs it: for each batch the eval forward, then host PESQ on its
+    clips.  -> (scalars, (first batch's fake (B, 1, T) numpy, its host batch))."""
+    mels, pesqs, first = [], [], None
+    fwd = _Timer(device)
+    pesq_s = 0.0
+    for vb in val_batches:
+        batch = to_device(vb, device)
+        fwd.start()
+        vmetrics, fake = eval_fn(state, batch)
+        fwd.stop()
+        fake = fake.cpu().numpy()
+        mels.append(float(vmetrics["val/metrics/mel"]))
+        if first is None:
+            first = (fake, vb)
+        if pesq_fn is not None:
+            t = time.perf_counter()
+            pesqs.extend(pesq_fn(fake, vb))
+            pesq_s += time.perf_counter() - t
+    scalars = {"val/metrics/mel": float(np.mean(mels))}
+    if pesqs:
+        scalars["val/metrics/pesq"] = float(np.mean(pesqs))
+    scalars["perf/val_forward_s"] = fwd.seconds()
+    scalars["perf/val_pesq_s"] = pesq_s
+    return scalars, first
+
+
+def log_val_media(metrics_logger: MetricsLogger, step: int, task, first, device: torch.device) -> None:
+    """GT and generated audio, and their log-mel figure, of the first validation clip (JAX's
+    report_val_metrics analogue)."""
+    fake, vb = first
+    n = int(vb["lengths"][0])
+    if n <= 0:
+        return
+    gt = np.asarray(vb["audio"])
+    metrics_logger.add_audio(step, "val/audio/gt", gt[0, 0, :n], task.sampling_rate)
+    metrics_logger.add_audio(step, "val/audio/pred", fake[0, 0, :n], task.sampling_rate)
+    nf = max(n // task.hop_length, 1)
+    with torch.no_grad():
+        mels = [gan.loss_mel_transform(task, torch.from_numpy(np.ascontiguousarray(a[:1, 0])).to(device))
+                [0, :, :nf].cpu().numpy() for a in (gt, fake)]
+    fig = plot_mel(mels, ["ground truth", "generated"])
+    if fig is not None:
+        metrics_logger.add_figure(step, "val/mel", fig)
 
 
 def train(cfg: TrainConfig, device: str | torch.device = "cuda") -> gan.TrainState:
@@ -157,6 +258,7 @@ def train(cfg: TrainConfig, device: str | torch.device = "cuda") -> gan.TrainSta
                              seed=cfg.run.seed, start_step=state.step, num_workers=cfg.data.num_workers,
                              template_fn=template_fn(task))
     val_batches = _build_val_batches(cfg)
+    pesq_fn = _make_val_pesq(task) if cfg.run.val_pesq else None
     metrics_logger = MetricsLogger(workdir)
     wait_s = 0.0
 
@@ -192,10 +294,11 @@ def train(cfg: TrainConfig, device: str | torch.device = "cuda") -> gan.TrainSta
                     f"({sps:.2f} steps/s, {scalars['perf/audio_s_per_s']:.1f} audio-s/s)")
                 t0 = time.perf_counter()
             if val_batches and step % cfg.run.val_interval == 0:
-                val_mel = float(np.mean([float(eval_fn(state, to_device(vb, device))[0]["val/metrics/mel"])
-                                         for vb in val_batches]))
-                metrics_logger.write(step, {"val/metrics/mel": val_mel})
-                log(f"step {step}: val mel-L1 {val_mel:.4f}")
+                val_scalars, first = validate(state, eval_fn, val_batches, pesq_fn, device)
+                val_mel = val_scalars["val/metrics/mel"]
+                metrics_logger.write(step, val_scalars)
+                log(f"step {step}: val mel-L1 {val_mel:.4f}"
+                    + (f", PESQ {val_scalars['val/metrics/pesq']:.3f}" if "val/metrics/pesq" in val_scalars else ""))
                 if cfg.run.early_stop_patience is not None:
                     if val_mel < best_val - 1e-6:
                         best_val, stale_vals = val_mel, 0
@@ -204,6 +307,7 @@ def train(cfg: TrainConfig, device: str | torch.device = "cuda") -> gan.TrainSta
                         if stale_vals >= cfg.run.early_stop_patience:
                             log(f"early stop: no val improvement in {stale_vals} validations")
                             break
+                log_val_media(metrics_logger, step, task, first, device)
             ckpt.save(step, state)
         if ckpt.latest_step() != state.step:
             ckpt.save(state.step, state, force=True)

@@ -1,10 +1,11 @@
-"""Console logging and the ``metrics.jsonl`` stream.
+"""Console logging, the ``metrics.jsonl`` stream, media and TensorBoard.
 
 Counterpart of ``log`` and ``MetricsLogger`` in ``vocoder_tpu/utils/logging.py``:
-timestamped lines on stderr, and one JSON object a write in
-``<workdir>/metrics.jsonl`` ({"step": ..., metric: value}).  One process, so
-no rank filter.  TensorBoard, W&B and media logging are not yet ported
-(ROADMAP.md).
+timestamped lines on stderr, one JSON object a write in
+``<workdir>/metrics.jsonl`` ({"step": ..., metric: value}), figures as PNGs
+under ``<workdir>/media/``, and scalars, audio and figures in TensorBoard
+(``<workdir>/tb``) when tensorboardX imports.  One process, so no rank
+filter.  W&B is not ported (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -23,11 +24,50 @@ class MetricsLogger:
     def __init__(self, workdir: str | Path):
         workdir = Path(workdir)
         workdir.mkdir(parents=True, exist_ok=True)
+        self.workdir = workdir
         self.jsonl = open(workdir / "metrics.jsonl", "a")
+        try:
+            from tensorboardX import SummaryWriter
+
+            self.tb = SummaryWriter(str(workdir / "tb"))
+        except Exception:
+            self.tb = None
 
     def write(self, step: int, metrics: dict) -> None:
-        self.jsonl.write(json.dumps({"step": step, **{k: float(v) for k, v in metrics.items()}}) + "\n")
+        scalars = {k: float(v) for k, v in metrics.items()}
+        self.jsonl.write(json.dumps({"step": step, **scalars}) + "\n")
         self.jsonl.flush()
+        if self.tb is not None:
+            for k, v in scalars.items():
+                self.tb.add_scalar(k, v, step)
+
+    def add_audio(self, step: int, tag: str, audio, sample_rate: int) -> None:
+        """(T,) float audio to TensorBoard, when it is there."""
+        if self.tb is not None:
+            try:  # tensorboardX's audio encoding needs soundfile, which may be absent
+                self.tb.add_audio(tag, audio.reshape(-1, 1), step, sample_rate=sample_rate)
+            except Exception:
+                pass
+
+    def add_figure(self, step: int, tag: str, fig) -> None:
+        """A matplotlib figure as ``media/<tag>_<step>.png`` (``/`` in the tag as ``_``) and to
+        TensorBoard; closes the figure.  None (no matplotlib) logs nothing."""
+        if fig is None:
+            return
+        try:
+            media = self.workdir / "media"
+            media.mkdir(parents=True, exist_ok=True)
+            fig.savefig(media / f"{tag.replace('/', '_')}_{step:08d}.png", dpi=110)
+            if self.tb is not None:
+                self.tb.add_figure(tag, fig, step)
+        except Exception:
+            pass
+        finally:
+            import matplotlib.pyplot as plt
+
+            plt.close(fig)
 
     def close(self) -> None:
         self.jsonl.close()
+        if self.tb is not None:
+            self.tb.close()
