@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's inference (BigVGAN, HiFiGAN, Vocos, RefineGAN, Firefly-GAN; BigVGAN also with an
-f0 template), training (those, and the vae and vqvae families), the vqvae codec, FLAC/Ogg/MP3 input and
-evaluation on one CUDA card and check it.
+f0 template), training (those, and the vae and vqvae families; fp32 and bf16, with and without activation
+checkpointing), the vqvae codec, FLAC/Ogg/MP3 input and evaluation on one CUDA card and check it.
 
     python3 chip_smoke.py          # from the repository root; needs one NVIDIA H100
 
@@ -73,7 +73,7 @@ Phases, in order; any failure exits non-zero:
      shares of its parts at b16 (vocoder_tpu_torch/tools/profile_train.py);
  14. `cli.train.main --model refinegan --resolution 24000_256_1024` at the
      preset's batch 16 x 128 frames (f0 templates made on the host), 4 steps
-     with validation every 2, a resume to 6 (the AdaIN noise generator on the
+     with validation every 2, a resume to 5 (the AdaIN noise generator on the
      card, restored from the checkpoint) and `cli.infer --ckpt <workdir>`;
      then the RefineGAN step at b16 as in 13, with the host's f0 seconds for
      one batch and the CLI run's input wait;
@@ -95,7 +95,9 @@ Phases, in order; any failure exits non-zero:
  18. `cli.train --family vqvae` at the preset's batch 16 x 32 frames: 4 steps
      with validation every 2, a resume to 6, the codebooks checkpointed;
  19. the host audio library (vocoder_tpu_torch/csrc/audio_host.cc, built by the
-     system C++ compiler): its build seconds and which codec libraries load;
+     system C++ compiler): its build seconds and which codec libraries load; its
+     resample of 30 s of 44.1 kHz audio to 16 kHz against the numpy path (equal
+     within rtol 1e-4, counted in native.resamples) and the speed-up;
  20. decoders on fixtures from the port's own encoders: FLAC at 16 / 24 bit,
      mono / stereo, 44.1 / 22.05 kHz (native and numpy decodes equal to the
      quantised source, bit for bit), Ogg q0.6 (native loop equal to the pull
@@ -110,7 +112,30 @@ Phases, in order; any failure exits non-zero:
  22. `cli.infer` from that workdir over the FLAC clips, then `cli.evaluate
      val synth --sr 44100 --glob-pattern '*.flac'` on the card with `--workers 1`
      and `4` (PESQ and SI-SDR equal, spec_diff and MCD within 1e-4), an
-     identity run at PESQ's fixed points, seconds per pair.
+     identity run at PESQ's fixed points, seconds per pair;
+ 23. one BigVGAN bf16 training step (task.compute_dtype=bfloat16, b2 x 65,536
+     samples, full width) through K1 against the same step through the plain
+     versions; the run's floor first (the plain bf16 step against the plain fp32
+     step): the kernel step's losses and generator gradients (relative L2 of the
+     vectors) within twice that floor, capped at 2e-2 and 5e-2; K1 91 launches;
+ 24. K1's bf16 route under autograd at phase 10's shapes (bf16 x, alpha, beta cast
+     from fp32 leaves): dx, d alpha, d beta against the plain version's, within
+     twice the plain bf16-vs-fp32 distance (capped at 5e-2);
+ 25. an fp32 b16 BigVGAN step with task.generator.checkpointing=True against the
+     step without it: losses within 1e-5, gradients within rel L2 1e-4, K1 91 and
+     181 launches, the peak memory of each;
+ 26. the bf16 step and the checkpointed fp32 step at b16 by phase, rate, peak memory
+     and card-time shares (tools/profile_train.py);
+ 27. `cli.train task.compute_dtype=bfloat16` over phase 21's corpus, 6 steps with the
+     default validation at steps 3 and 6: steps 3-6 and their input wait through the
+     DevicePrefetcher, K1 and K2's bf16 route launched (K2 fp32 not), each
+     validation's first fake within rel L2 5e-3 of the plain bf16 eval of the same
+     weights (the weights change between them: K2's plan cache must follow);
+ 28. `run.profile_steps=(3,5)`: the Chrome trace under <workdir>/profile/ names K1;
+ 29. `cli.bench_train` for BigVGAN and HiFiGAN at b16 in bf16 and fp32 with
+     --memory-stats, one timed step each (a smoke of the CLI);
+ 30. `cli.bench_input --prefetch` over phase 21's corpus at 1 and 4 workers, the
+     consumer holding each batch for phase 27's step time: host batches/s, the wait.
 
 A `timeline` line gives the seconds from the start to the end of each phase.
 
@@ -954,7 +979,7 @@ def time_train_step(dev, stamp: dict) -> dict:
     state.generator.load_state_dict(random_state_dict(task.generator, SEED))
     batch = synthetic_batch(16, task.hop_length * task.num_frames, task.sampling_rate, SEED, dev)
     rec = {"metric": "train_step_ms", "model": "bigvgan", "batch": 16, "samples": task.hop_length * task.num_frames,
-           "dtype": "fp32", **measure_step(state, gan.make_train_step(task), batch, task, 8), **stamp}
+           "dtype": "fp32", **measure_step(state, gan.make_train_step(task), batch, task, TIMED_STEPS), **stamp}
     log(rec)
     del state
     torch.cuda.empty_cache()
@@ -1181,7 +1206,7 @@ def time_refinegan_cli(infer, root: Path, models: dict, stamp: dict) -> None:
 
 def check_cli_train_refinegan(root: Path, infer, paths: dict) -> dict:
     """cli.train --model refinegan at the 24 kHz preset's batch 16 x 128 frames on 32 generated WAVs, the
-    preset's data workers: 4 steps with validation every 2, a resume to 6, then cli.infer --ckpt <workdir>.  Returns
+    preset's data workers: 4 steps with validation every 2, a resume to 5 (its final checkpoint), then cli.infer --ckpt <workdir>.  Returns
     the first run's last log record (input wait included)."""
     import numpy as np
 
@@ -1211,12 +1236,12 @@ def check_cli_train_refinegan(root: Path, infer, paths: dict) -> dict:
         raise SystemExit("cli.train --model refinegan: the run did not train, validate and checkpoint as asked")
 
     tf32_defaults()
-    state, text = drive_path("cli_train_refinegan_resume", lambda: run_train_cli([*base, "run.max_steps=6"]), (),
+    state, text = drive_path("cli_train_refinegan_resume", lambda: run_train_cli([*base, "run.max_steps=5"]), (),
                              paths)
-    ok = state.step == 6 and "auto-resumed from step 4" in text and (work / "checkpoints" / "6.pt").is_file()
+    ok = state.step == 5 and "auto-resumed from step 4" in text and (work / "checkpoints" / "5.pt").is_file()
     log({"phase": "cli_train_resume", "model": "refinegan", "step": state.step, "ok": ok})
     if not ok:
-        raise SystemExit("cli.train --model refinegan did not resume from step 4 and end at step 6")
+        raise SystemExit("cli.train --model refinegan did not resume from step 4 and end at step 5")
 
     wav = root / "val" / "00.wav"
     n = read_wav(wav)[0].shape[-1]
@@ -1858,6 +1883,387 @@ def check_cli_evaluate(root: Path, work: Path, infer, paths: dict, stamp: dict) 
                          "synthesised file is missing")
 
 
+# Phases 23-30: bf16 training, checkpointing, the profiler window, the bench CLIs and the native resample.
+# The kernel-vs-plain steps run at TRAIN_CHECK_BATCH for the memory of the plain aa-snake's autograd (its
+# intermediates are fp32 in either dtype); the timings, the CLI and the bench CLIs at the preset's b16.
+BF16_LOSS_CAP, BF16_GRAD_CAP = 2e-2, 5e-2  # the bf16 rule's caps: kernel path within 2x the run's floor
+CKPT_LOSS_REL, CKPT_GRAD_REL_L2 = 1e-5, 1e-4  # a checkpointed step against the same step without
+K1_RECOMPUTED_PER_STEP = 90  # the AMP blocks' activations, run again in the backward (not activation_post)
+TIMED_STEPS = 4  # measure_step's steps in phases 13 and 26: the median of the third and fourth
+RESAMPLE_SECONDS = 30.0  # audio for the native resample's speed-up (44.1 -> 16 kHz, the PESQ path)
+
+
+def bf16_loss_keys(metrics: dict) -> list[str]:
+    return sorted(k for k in metrics if k.startswith("train/") and "grad_norm" not in k)
+
+
+def step_distance(a: tuple, b: tuple) -> dict:
+    """(metrics, generator gradients) of two steps -> the relative L2 of their loss vectors and of their
+    gradient vectors (every generator parameter's gradient in one vector)."""
+    import torch
+
+    keys = bf16_loss_keys(b[0])
+    la, lb = (torch.tensor([m[k] for k in keys], dtype=torch.float64) for m in (a[0], b[0]))
+    ga, gb = (torch.cat([g[n].double().flatten() for n in sorted(b[1])]) for g in (a[1], b[1]))
+    return {"losses": float((la - lb).norm() / lb.norm()), "gradients": float((ga - gb).norm() / gb.norm())}
+
+
+def check_bf16_step(dev, paths: dict) -> dict:
+    """23. One BigVGAN bf16 training step (44.1 kHz preset, full width, b2 x 65,536 samples, TF32 off) through
+    K1 against the same step through the plain versions, from equal weights, batch and crop.  The run's
+    floor first: the plain bf16 step against the plain fp32 step.  The kernel step within twice that floor of
+    the plain bf16 step (losses, generator gradients; capped), K1 launched 91 times, the masters fp32."""
+    import torch
+
+    from vocoder_tpu_torch.config import build_task_config
+    from vocoder_tpu_torch.models import bigvgan
+    from vocoder_tpu_torch.tools.profile_train import synthetic_batch
+    from vocoder_tpu_torch.train import gan
+
+    tf32_off()
+    task32 = build_task_config("bigvgan", "44100_512_2048")
+    t = task32.hop_length * task32.num_frames
+    batch = synthetic_batch(TRAIN_CHECK_BATCH, t, task32.sampling_rate, SEED, dev)
+    batch["lengths"][1] = t * 4 // 5
+    batch["audio"][1, :, t * 4 // 5 :] = 0.0
+    runs = {}
+    for name, dtype, plain in (("plain_fp32", "float32", True), ("plain_bf16", "bfloat16", True),
+                               ("kernel_bf16", "bfloat16", False)):
+        task = task32.replace(compute_dtype=dtype)
+        state = gan.create_train_state(task, SEED, dev)
+        state.generator.load_state_dict(bigvgan.random_state_dict(task.generator, SEED))
+        start = gan.draw_crop_start(state, task, t)
+        step = gan.make_train_step(task, plain=plain)
+        if plain:
+            metrics = step(state, batch, start)
+        else:
+            metrics = drive_path("train_step_bigvgan_bf16", lambda: step(state, batch, start), ("aa_snake",), paths,
+                                 len(task.generator.upsample_rates))
+        masters = all(p.dtype == torch.float32 and p.grad.dtype == torch.float32 for p in state.generator.parameters())
+        runs[name] = ({k: float(v) for k, v in metrics.items()},
+                      {n: p.grad.detach().clone() for n, p in state.generator.named_parameters()}, masters, start)
+        del state
+        torch.cuda.empty_cache()
+    floor = step_distance(runs["plain_bf16"][:2], runs["plain_fp32"][:2])
+    dist = step_distance(runs["kernel_bf16"][:2], runs["plain_bf16"][:2])
+    bound = {"losses": min(2 * floor["losses"], BF16_LOSS_CAP), "gradients": min(2 * floor["gradients"], BF16_GRAD_CAP)}
+    launches = paths["train_step_bigvgan_bf16"]
+    ok = (all(dist[k] <= bound[k] for k in bound) and launches["aa_snake"] == K1_PER_BIGVGAN_FORWARD
+          and all(r[2] for r in runs.values()) and len({r[3] for r in runs.values()}) == 1
+          and all(math.isfinite(v) for r in runs.values() for v in r[0].values()))
+    rec = {"phase": "train_step_check_bf16", "model": "bigvgan", "batch": TRAIN_CHECK_BATCH, "samples": t,
+           "kernel_vs_plain_bf16": dist, "plain_bf16_vs_plain_fp32": floor, "bound": bound,
+           "metrics_kernel_bf16": runs["kernel_bf16"][0], "metrics_plain_bf16": runs["plain_bf16"][0],
+           "launches": launches, "masters_fp32": all(r[2] for r in runs.values()), "ok": ok}
+    log(rec)
+    if not ok:
+        raise SystemExit("bigvgan bf16: the training step with the kernels is farther from the plain bf16 step "
+                         "than the rule allows, or skipped K1")
+    return rec
+
+
+def check_k1_autograd_bf16(dev) -> dict:
+    """24. K1's bf16 route under autograd at the K1 autograd shapes: bf16 x, alpha and beta cast from fp32
+    leaves (as bf16 training casts them), dx, d alpha and d beta at the leaves against autograd through the
+    plain version on the same bf16 inputs, within twice the plain bf16 gradients' distance from the plain
+    fp32 ones (capped at BF16_GRAD_CAP); the worst of each."""
+    import numpy as np
+    import torch
+
+    from vocoder_tpu_torch.ops.aa_snake import aa_snake
+    from vocoder_tpu_torch.ops.antialias import aa_snake_plain, snake_params
+
+    rng = np.random.default_rng(SEED + 24)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 24)
+    worst = {"dx": 0.0, "d_alpha": 0.0, "d_beta": 0.0}
+    ratio = dict(worst)
+    for c, t, b in K1_AUTOGRAD_SHAPES:
+        leaves = [torch.tensor(0.3 * rng.standard_normal(c), dtype=torch.float32, device=dev, requires_grad=True)
+                  for _ in range(2)]
+        x32 = torch.randn(b, c, t, device=dev, generator=gen).requires_grad_(True)
+        gz = torch.randn(b, c, t, device=dev, generator=gen)
+
+        def grads(fn, dtype):
+            z = fn(x32.to(dtype), *(p.to(dtype) for p in leaves))
+            return z.dtype, torch.autograd.grad(z, (x32, *leaves), gz.to(dtype))
+
+        def plain(x, a, be):
+            return aa_snake_plain(x, *snake_params(a, be, True))
+
+        before = aa_snake.launches
+        zdt, got = grads(lambda x, a, be: aa_snake(x, a, be, True), torch.bfloat16)
+        launched = aa_snake.launches - before
+        _, want = grads(plain, torch.bfloat16)
+        _, want32 = grads(plain, torch.float32)
+        rec = {}
+        ok = launched == 1 and zdt == torch.bfloat16
+        for name, g, w, w32 in zip(worst, got, want, want32):
+            d, f = rel_l2(g, w), rel_l2(w, w32)
+            rec[name] = {"kernel_vs_plain_bf16": d, "plain_bf16_vs_fp32": f}
+            ok = ok and d <= min(2 * f, BF16_GRAD_CAP) and bool(torch.isfinite(g).all())
+            worst[name] = max(worst[name], d)
+            ratio[name] = max(ratio[name], d / max(f, 1e-30))
+        log({"phase": "k1_autograd_check_bf16", "shape": [b, c, t], **rec, "ok": ok})
+        if not ok:
+            raise SystemExit(f"K1's bf16 route under autograd disagrees with its plain version at {(b, c, t)}")
+        del x32, gz, got, want, want32
+    log({"phase": "k1_autograd_bf16_worst", "rel_l2": worst,
+         "worst_share_of_2x_floor": {k: v / 2 for k, v in ratio.items()}})
+    return worst
+
+
+def check_checkpointing(dev, paths: dict, stamp: dict) -> dict:
+    """25. One fp32 BigVGAN step at the preset's b16 x 65,536 samples with checkpointing=True against the
+    same step without it (same weights, batch and crop; both through K1): losses within CKPT_LOSS_REL, each
+    generator gradient within CKPT_GRAD_REL_L2; K1's launches per step (91 and 91 + 90) and the peak
+    memory of each step."""
+    import dataclasses
+
+    import torch
+
+    from vocoder_tpu_torch.config import build_task_config
+    from vocoder_tpu_torch.models import bigvgan
+    from vocoder_tpu_torch.tools.profile_train import synthetic_batch
+    from vocoder_tpu_torch.train import gan
+
+    tf32_off()
+    base = build_task_config("bigvgan", "44100_512_2048")
+    t = base.hop_length * base.num_frames
+    batch = synthetic_batch(16, t, base.sampling_rate, SEED, dev)
+    runs = {}
+    for remat in (False, True):
+        task = base.replace(generator=dataclasses.replace(base.generator, checkpointing=remat))
+        state = gan.create_train_state(task, SEED, dev)
+        state.generator.load_state_dict(bigvgan.random_state_dict(task.generator, SEED))
+        start = gan.draw_crop_start(state, task, t)
+        step = gan.make_train_step(task)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        name = f"train_step_bigvgan_{'checkpointed' if remat else 'b16'}"
+        metrics = drive_path(name, lambda: step(state, batch, start), ("aa_snake",), paths,
+                             len(task.generator.upsample_rates))
+        peak = torch.cuda.max_memory_allocated()
+        runs[remat] = ({k: float(v) for k, v in metrics.items()},
+                       {n: p.grad.detach().clone() for n, p in state.generator.named_parameters()}, peak,
+                       paths[name]["aa_snake"])
+        del state
+        torch.cuda.empty_cache()
+    (m0, g0, peak0, k0), (m1, g1, peak1, k1) = runs[False], runs[True]
+    loss_rel = {k: rel(m1[k], m0[k]) for k in bf16_loss_keys(m0)}
+    grad_rel = {n: rel_l2(g1[n], g0[n]) for n in g0}
+    worst = max(grad_rel, key=grad_rel.get)
+    ok = (max(loss_rel.values()) <= CKPT_LOSS_REL and grad_rel[worst] <= CKPT_GRAD_REL_L2
+          and (k0, k1) == (K1_PER_BIGVGAN_FORWARD, K1_PER_BIGVGAN_FORWARD + K1_RECOMPUTED_PER_STEP))
+    rec = {"phase": "checkpointing_check", "model": "bigvgan", "batch": 16, "samples": t, "dtype": "fp32",
+           "max_loss_rel": max(loss_rel.values()), "max_grad_rel_l2": grad_rel[worst], "worst_grad": worst,
+           "k1_launches_per_step": {"without": k0, "with": k1},
+           "peak_memory_bytes": {"without": peak0, "with": peak1}, "peak_ratio": peak1 / peak0,
+           "limits": {"loss_rel": CKPT_LOSS_REL, "grad_rel_l2": CKPT_GRAD_REL_L2}, "ok": ok, **stamp}
+    log(rec)
+    if not ok:
+        raise SystemExit("checkpointing: the checkpointed step disagrees with the step without it, or K1's "
+                         "launches are not 91 and 181")
+    return rec
+
+
+def time_train_steps_bf16(dev, stamp: dict) -> dict:
+    """26. The BigVGAN preset's step at b16 x 65,536 samples by phase, its rate, peak memory and card-time
+    shares (tools/profile_train.py): in bf16, and in fp32 with checkpointing.  TF32 off."""
+    import torch
+
+    from vocoder_tpu_torch.tools.profile_train import measure_step, training_setup
+    from vocoder_tpu_torch.train import gan
+
+    tf32_off()
+    out = {}
+    for dtype, remat in (("bfloat16", False), ("float32", True)):
+        task, state, batch = training_setup("bigvgan", 16, SEED, dev, compute_dtype=dtype, checkpointing=remat)
+        rec = {"metric": "train_step_ms", "model": "bigvgan", "batch": 16, "samples": task.hop_length * task.num_frames,
+               "dtype": dtag(torch.bfloat16 if dtype == "bfloat16" else torch.float32), "checkpointing": remat,
+               **measure_step(state, gan.make_train_step(task), batch, task, TIMED_STEPS), **stamp}
+        log(rec)
+        out[(dtype, remat)] = rec
+        del state
+        torch.cuda.empty_cache()
+    return out
+
+
+def check_cli_train_bf16(root: Path, paths: dict, stamp: dict) -> float:
+    """27. cli.train --model bigvgan task.compute_dtype=bfloat16 at the preset's b16 x 128 frames over phase
+    21's LibriTTS-length FLAC corpus, 6 steps logged one by one, the default validation (PESQ) at steps 3
+    and 6: steps 3-6 by time, perf/input_wait_s through the prefetcher, K1 and K2's bf16 route launched.
+    Each validation's first fake is held, inside the run, to the plain bf16 eval of the same weights
+    (rel L2 <= GEN_BF16_REL_L2): the weights change between the two, so a stale K2 plan would show.
+    The median of steps 3-6 in seconds."""
+    import numpy as np
+    import torch
+
+    from vocoder_tpu_torch.config import build_train_config
+    from vocoder_tpu_torch.train import gan, trainer
+
+    work = root / "run_bf16"
+    steps = 6
+    argv = ["--model", "bigvgan", "--device", "cuda", f"data.train_roots=('{root / 'train'}',)",
+            f"data.val_root={root / 'val'}", "run.log_interval=1", "run.val_interval=3", f"run.ckpt_interval={steps}",
+            f"run.max_steps={steps}", f"run.workdir={work}", "task.compute_dtype=bfloat16"]
+    checks = []
+    validate = trainer.validate
+
+    def checked(state, eval_fn, val_batches, pesq_fn, device):
+        scalars, first = validate(state, eval_fn, val_batches, pesq_fn, device)
+        vb = trainer.to_device(first[1], device)
+        with torch.no_grad():
+            copy = gan.eval_generator(state.generator, task).eval()
+            mask = gan.sequence_mask(vb["lengths"], vb["audio"].shape[2])
+            want = (gan.generator_forward(copy, vb["audio"], task, plain=True)[0] * mask).cpu().numpy()
+        got = first[0]
+        err = float(np.linalg.norm(got - want) / np.linalg.norm(want))
+        checks.append({"step": state.step, "rel_l2_vs_plain_bf16": err, "fake": got})
+        return scalars, first
+
+    task = build_train_config("bigvgan", overrides=["task.compute_dtype=bfloat16"]).task
+    trainer.validate = checked
+    tf32_defaults()
+    try:
+        state, _ = drive_path("cli_train_bf16", lambda: run_train_cli(argv), ("aa_snake", BF16_K2), paths,
+                              blockwise=steps * len(task.generator.upsample_rates))
+    finally:
+        trainer.validate = validate
+    launches = paths["cli_train_bf16"]
+    records = [json.loads(line) for line in (work / "metrics.jsonl").read_text().splitlines()]
+    train_rec = [r for r in records if "train/generator/all" in r]
+    val_rec = [r for r in records if "val/metrics/mel" in r]
+    step_s = [1.0 / r["perf/steps_per_s"] for r in train_rec]
+    wait_s = [r.get("perf/input_wait_s") for r in train_rec]
+    moved = (float(np.linalg.norm(checks[1]["fake"] - checks[0]["fake"]) / np.linalg.norm(checks[0]["fake"]))
+             if len(checks) == 2 else 0.0)
+    errs = [c["rel_l2_vs_plain_bf16"] for c in checks]
+    ok = (state.step == steps and [c["step"] for c in checks] == [3, 6] and all(e <= GEN_BF16_REL_L2 for e in errs)
+          and moved > 10 * max(errs) and launches["aa_snake"] >= K1_PER_BIGVGAN_FORWARD * steps
+          and launches[BF16_K2] > 0 and launches[FP32_K2] == 0 and len(val_rec) == 2
+          and all(math.isfinite(v) for r in records for v in r.values())
+          and all(p.dtype == torch.float32 for p in state.generator.parameters()))
+    log({"phase": "cli_train_bf16", "model": "bigvgan", "batch": 16, "frames": 128, "steps": steps,
+         "launches": launches, "logged_steps": [r["step"] for r in train_rec], "step_s": step_s, "input_wait_s": wait_s,
+         "step_s_median_3_on": float(np.median(step_s[1:])), "input_wait_s_median_3_on": float(np.median(wait_s[1:])),
+         "validations": [{k: v for k, v in c.items() if k != "fake"} for c in checks],
+         "val_moved_rel_l2": moved, "val_pesq": [r.get("val/metrics/pesq") for r in val_rec],
+         "val_forward_s": [r.get("perf/val_forward_s") for r in val_rec], "limit": GEN_BF16_REL_L2, "ok": ok, **stamp})
+    if not ok:
+        raise SystemExit("cli.train in bf16: the run did not train through K1 and validate through K2's bf16 route "
+                         "on the weights it had, or a validation disagrees with the plain bf16 eval")
+    return float(np.median(step_s[1:]))
+
+
+def check_profile_steps(root: Path, paths: dict) -> None:
+    """28. cli.train in bf16 with run.profile_steps=(3,5) over the same corpus, 5 steps and no validation:
+    the Chrome trace under <workdir>/profile/ exists and names K1's kernel."""
+    from vocoder_tpu_torch.config import build_task_config
+
+    work = root / "run_profile"
+    steps = 5
+    argv = ["--model", "bigvgan", "--device", "cuda", f"data.train_roots=('{root / 'train'}',)",
+            "run.log_interval=1", f"run.max_steps={steps}", f"run.ckpt_interval={steps}", f"run.workdir={work}",
+            "task.compute_dtype=bfloat16", "run.profile_steps=(3,5)"]
+    tf32_defaults()
+    stages = len(build_task_config("bigvgan").generator.upsample_rates)
+    _, text = drive_path("cli_train_profile", lambda: run_train_cli(argv), ("aa_snake",), paths,
+                         blockwise=steps * stages)
+    trace = work / "profile" / "trace_3_5.json"
+    body = trace.read_text() if trace.is_file() else ""
+    ok = bool(body) and "aa_snake_kernel" in body and str(trace) in text
+    log({"phase": "profile_steps", "trace": trace.name, "trace_bytes": len(body),
+         "names_k1": "aa_snake_kernel" in body, "k1_events": body.count("aa_snake_kernel"),
+         "launches": paths["cli_train_profile"], "ok": ok})
+    if not ok:
+        raise SystemExit("run.profile_steps did not write a trace that names K1's kernel")
+
+
+def run_bench_train(stamp: dict) -> list:
+    """29. cli.bench_train for BigVGAN and HiFiGAN at b16 in bf16 and fp32, with --memory-stats, as a smoke of
+    the CLI: --iters 1 (a warm-up step, one timed step, one generator phase); phases 13 and 26 time
+    BigVGAN's steps over more."""
+    import contextlib
+    import io
+
+    from vocoder_tpu_torch.cli import bench_train
+
+    out = []
+    for model in ("bigvgan", "hifigan"):
+        for dtype in ("bfloat16", "float32"):
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                bench_train.main(["--model", model, "--batch", "16", "--compute-dtype", dtype, "--iters", "1",
+                                  "--memory-stats"])
+            lines = [json.loads(x) for x in buf.getvalue().splitlines() if x.startswith("{")]
+            step = next(r for r in lines if r["metric"] == "gan_train_step")
+            mem = next(r for r in lines if r["metric"] == "hbm_stats")
+            rec = {"phase": "bench_train", **step, "max_memory_allocated": mem["max_memory_allocated"],
+                   "hbm_stats_keys": len(mem), "ok": step["backend"] == "cuda" and step["total_ms"] > 0, **stamp}
+            log(rec)
+            out.append(rec)
+            if not rec["ok"]:
+                raise SystemExit(f"cli.bench_train --model {model} --compute-dtype {dtype} failed")
+    return out
+
+
+def run_bench_input(root: Path, step_s: float, stamp: dict) -> list:
+    """30. cli.bench_input --prefetch over phase 21's LibriTTS-length FLAC corpus at b16 x 128 frames, 1 and 4
+    workers, the consumer holding each batch for the bf16 run's step time: host batches/s, and through
+    DevicePrefetcher onto the card the wait a batch."""
+    import contextlib
+    import io
+
+    from vocoder_tpu_torch.cli import bench_input
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        recs = bench_input.main(["--corpus", str(root / "train"), "--workers", "1,4", "--batch", "16",
+                                 "--batches", "4", "--prefetch", "--device", "cuda", "--step-ms", str(1e3 * step_s)])
+    out = []
+    for r in recs:
+        rec = {"phase": "bench_input", **r, "ok": r["batch_on_device"].startswith("cuda") and r["value"] > 0, **stamp}
+        log(rec)
+        out.append(rec)
+        if not rec["ok"]:
+            raise SystemExit("cli.bench_input --prefetch did not deliver batches to the card")
+    return out
+
+
+def time_native_resample(stamp: dict) -> dict:
+    """The host library's resample (csrc/audio_host.cc resample_poly) against the numpy path on this host:
+    RESAMPLE_SECONDS of 44.1 kHz audio to 16 kHz (validation PESQ's and cli.evaluate's path), the best of
+    three calls each, equal within the parity test's rtol 1e-4 / atol 1e-5, counted in native.resamples,
+    and faster than numpy (1-D audio takes the native path only because it is)."""
+    import numpy as np
+
+    from vocoder_tpu_torch.data import native, resample
+
+    x = tone(44100, RESAMPLE_SECONDS, np.random.default_rng(SEED + 30))[0]
+    resample.resample(x, 44100, 16000)  # warm: the kernel table
+
+    def best(signal):
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            out = resample.resample(signal, 44100, 16000)
+            times.append(time.perf_counter() - t0)
+        return out, min(times)
+
+    before = native.resamples
+    got, native_s = best(x)
+    counted = native.resamples - before
+    want, numpy_s = best(x[None])  # 2-D: the numpy path
+    ok = counted == 3 and bool(np.allclose(got, want[0], rtol=1e-4, atol=1e-5)) and native_s < numpy_s
+    rec = {"phase": "native_resample", "audio_seconds": RESAMPLE_SECONDS, "native_s": native_s, "numpy_s": numpy_s,
+           "speedup": numpy_s / native_s, "native_audio_s_per_s": RESAMPLE_SECONDS / native_s,
+           "max_abs_diff": float(np.abs(got - want[0]).max()), "native_resamples": counted, "ok": ok, **stamp}
+    log(rec)
+    if not ok:
+        raise SystemExit("the native resample disagrees with the numpy path, was not counted or is slower")
+    return rec
+
+
 def main() -> int:
     import torch
 
@@ -2154,6 +2560,7 @@ def main() -> int:
 
     # 19-22. FLAC/Ogg/MP3 input through the host library, training with validation PESQ, evaluation.
     libs = host_audio()
+    time_native_resample(stamp)
     mark("19 host audio")
     with tempfile.TemporaryDirectory() as tmp:
         check_decoders(Path(tmp) / "decoders", libs, stamp)
@@ -2163,7 +2570,28 @@ def main() -> int:
         mark("21 cli.train formats")
         check_cli_evaluate(Path(tmp) / "formats", work, infer, paths, stamp)
         tf32_off()
-    mark("22 cli.evaluate")
+        mark("22 cli.evaluate")
+
+        # 23-30. bf16 training, checkpointing, the profiler window and the bench CLIs.
+        bf16_step = check_bf16_step(dev, paths)
+        mark("23 bf16 step")
+        k1_grad_bf16 = check_k1_autograd_bf16(dev)
+        mark("24 k1 autograd bf16")
+        ckpt_rec = check_checkpointing(dev, paths, stamp)
+        mark("25 checkpointing")
+        bf16_times = time_train_steps_bf16(dev, stamp)
+        mark("26 bf16 and checkpointed step timing")
+        step_s = check_cli_train_bf16(Path(tmp) / "formats", paths, stamp)
+        tf32_off()
+        mark("27 cli.train bf16")
+        check_profile_steps(Path(tmp) / "formats", paths)
+        tf32_off()
+        mark("28 profile_steps")
+        run_bench_train(stamp)
+        tf32_off()
+        mark("29 bench_train")
+        run_bench_input(Path(tmp) / "formats", step_s, stamp)
+        mark("30 bench_input")
     log({"phase": "timeline", "seconds_at_end": timeline})
 
     def launches(name):  # over the main paths' runs; each path's count beside it
@@ -2178,7 +2606,12 @@ def main() -> int:
                 "bound_by": k1["bound_by"], "library_ms": None, "host_us_per_launch": k1["host_us_per_launch"],
                 "ms_b16": entries["aa_snake"][16]["ms"], "bound_ms_b16": entries["aa_snake"][16]["bound_ms"],
                 "launches_train_step": k1_train_step, "autograd_worst": k1_grad,
-                "train_step_share_of_busy": (train_rec["shares_of_busy"] or {}).get("k1_forward")}]
+                "train_step_share_of_busy": (train_rec["shares_of_busy"] or {}).get("k1_forward"),
+                "launches_train_step_bf16": bf16_step["launches"]["aa_snake"],
+                "launches_train_step_checkpointed": ckpt_rec["k1_launches_per_step"]["with"],
+                "autograd_bf16_worst": k1_grad_bf16,
+                "train_step_bf16_share_of_busy": (bf16_times[("bfloat16", False)]["shares_of_busy"] or {}).get(
+                    "k1_forward")}]
     for name, dtype in ((FP32_K2, "fp32"), (BF16_K2, "bf16")):
         k2, k2_b16 = entries[name][1], entries[name][16]
         kernels.append({"name": name, "route": "cuda", "source": "vocoder_tpu_torch/csrc/amp_conv_mma.cu",

@@ -434,17 +434,15 @@ def test_ssl_is_refused_naming_what_is_missing(tmp_path):
 # -- presets, full-width shapes and the bridges -----------------------------------------------------------
 
 
-def _without_checkpointing(d: dict) -> dict:
-    d["generator"]["decoder"].pop("checkpointing", None)
-    for key in ("spectral_precision", "loss_stft_dtype"):  # an MXU pass count; the bf16 loss path
-        d.pop(key)
+def _without_tpu_fields(d: dict) -> dict:
+    d.pop("spectral_precision")  # an MXU pass count
     return d
 
 
 @pytest.mark.parametrize("resolution", sorted(jconfig.RESOLUTIONS))
 @pytest.mark.parametrize("family", ["vae", "vqvae"])
 def test_family_task_configs_equal_jax(family, resolution):
-    want = _without_checkpointing(dataclasses.asdict(jconfig.build_task_config(family=family, resolution=resolution)))
+    want = _without_tpu_fields(dataclasses.asdict(jconfig.build_task_config(family=family, resolution=resolution)))
     assert dataclasses.asdict(tconfig.build_task_config(family=family, resolution=resolution)) == want
 
 

@@ -386,6 +386,101 @@ def test_eval_step_follows_optimizer_updates(cuda_device):
     assert _rel_l2(after, before) > 1e-2
 
 
+def _bf16_floor_bound(got, plain, plain32, cap):
+    """The bf16 rule of the card checks: the kernel path no farther from the plain bf16 path than twice the
+    plain bf16 path is from the plain fp32 path, capped."""
+    return _rel_l2(got, plain) <= min(2 * _rel_l2(plain, plain32), cap)
+
+
+@pytest.mark.parametrize("t", [3969, 65536])
+def test_k1_bf16_under_autograd_matches_plain(cuda_device, t):
+    """bf16 x, alpha and beta (cast from fp32 leaves, as bf16 training casts them) through ``aa_snake``
+    with gradients on: K1's bf16 route forward (one launch, a bf16 output), the plain VJP backward (fp32
+    sums, bf16 gradients).  dx, d alpha and d beta at the fp32 leaves against autograd through the plain
+    version on the same bf16 inputs, within twice the plain bf16 gradients' distance from the plain fp32
+    ones (capped at 5e-2)."""
+    from vocoder_tpu_torch.ops.antialias import snake_params
+
+    c, batch = 256, 2
+    gen = torch.Generator(device=cuda_device).manual_seed(t)
+    leaves = [(0.3 * torch.randn(c, device=cuda_device, generator=gen)).requires_grad_(True) for _ in range(2)]
+    x32 = torch.randn(batch, c, t, device=cuda_device, generator=gen).requires_grad_(True)
+    gz = torch.randn(batch, c, t, device=cuda_device, generator=gen)
+
+    def grads(fn, dtype):
+        x, alpha, beta = x32.to(dtype), *(p.to(dtype) for p in leaves)
+        z = fn(x, alpha, beta)
+        return z, torch.autograd.grad(z, (x32, *leaves), gz.to(dtype))
+
+    before = aa_snake.launches
+    z, got = grads(lambda x, a, b: aa_snake(x, a, b, True), torch.bfloat16)
+    assert aa_snake.launches == before + 1 and z.dtype == torch.bfloat16
+
+    def plain(x, a, b):
+        return aa_snake_plain(x, *snake_params(a, b, True))
+
+    _, want = grads(plain, torch.bfloat16)
+    _, want32 = grads(plain, torch.float32)
+    for g, w, w32 in zip(got, want, want32):
+        assert _bf16_floor_bound(g, w, w32, 5e-2), (_rel_l2(g, w), _rel_l2(w, w32))
+
+
+def test_bf16_validations_with_changed_weights_match_plain(cuda_device):
+    """K2's plan cache against bf16 validation: each eval step under bf16 compute runs a fresh bf16 copy of
+    the generator through K2's bf16 route; a second validation after the weights changed (two AdamW steps
+    at lr 1e-2) must not run the first copy's packed weights.  Each fake within rel L2 5e-3 of the plain
+    bf16 forward of the same weights, and the weights' change moved the fake by more than 10 times that."""
+    from vocoder_tpu_torch.tools.profile_train import synthetic_batch
+    from vocoder_tpu_torch.train import gan
+    from vocoder_tpu_torch.train.schedule import WarmupCosineConfig
+
+    task = _tiny_task("bigvgan").replace(schedule=WarmupCosineConfig(val_base=1e-2), compute_dtype="bfloat16")
+    state = gan.create_train_state(task, 0, cuda_device)
+    batch = synthetic_batch(2, 512, 8000, 0, cuda_device)
+    eval_step, step = gan.make_eval_step(task), gan.make_train_step(task)
+    fakes = []
+    for _ in range(2):
+        launches = amp_stage.mma_launches
+        _, fake = eval_step(state, batch)
+        assert amp_stage.mma_launches - launches == 2 * 2 * 2 * 2  # K2's bf16 route, 16 convs
+        with torch.no_grad():
+            copy = gan.eval_generator(state.generator, task).eval()
+            want = gan.generator_forward(copy, batch["audio"], task, plain=True)[0]
+        assert _rel_l2(fake, want) <= 5e-3
+        fakes.append((fake, _rel_l2(fake, want)))
+        for _ in range(2):
+            step(state, batch, 100)
+    assert _rel_l2(fakes[1][0], fakes[0][0]) > 10 * max(fakes[0][1], fakes[1][1])
+    assert all(p.dtype == torch.float32 for p in state.generator.parameters())
+
+
+def test_prefetcher_on_the_card_equals_the_synchronous_copy(cuda_device):
+    """``DevicePrefetcher`` onto the card (pinned memory, a side stream) yields, bit for bit, what copying
+    the synchronous iterator's batches gives, and each batch is ready on the consumer's stream."""
+    from vocoder_tpu_torch.data.dataset import DevicePrefetcher, batch_iterator
+
+    def sample(rng):
+        return rng.standard_normal((1, int(rng.integers(3000, 9000)))).astype(np.float32)
+
+    def host():
+        return batch_iterator(sample, batch_size=4, target_length=8192, seed=3, num_workers=2)
+
+    want = host()
+    pf = DevicePrefetcher(host(), cuda_device)
+    try:
+        for _ in range(6):
+            got, ref = next(pf), next(want)
+            assert all(v.is_cuda for v in got.values())
+            doubled = got["audio"] * 2  # on the consumer's stream, after the copy
+            for k, v in ref.items():
+                assert torch.equal(got[k].cpu(), torch.from_numpy(v)), k
+            assert torch.equal(doubled.cpu(), torch.from_numpy(ref["audio"]) * 2)
+    finally:
+        pf.close()
+        want.close()
+    assert not pf._thread.is_alive()
+
+
 @pytest.mark.parametrize("upsample_initial_channel", [768])
 def test_bigvgan_stages_k2_does_not_take_run_blockwise(cuda_device, upsample_initial_channel):
     """Stage widths 384, 192, 96, 48 and 24: K2 takes the middle three; the first (C > 256) and the last

@@ -14,6 +14,7 @@ from vocoder_tpu.train import trainer as jtrainer
 from vocoder_tpu_torch import eval_metrics, pesq_native
 from vocoder_tpu_torch.cli import evaluate
 from vocoder_tpu_torch.data import flac
+from vocoder_tpu_torch.data import native as tnative
 from vocoder_tpu_torch.data.audio_io import write_wav
 from vocoder_tpu_torch.data.resample import resample
 from vocoder_tpu_torch.train import trainer
@@ -34,8 +35,10 @@ def _speechish(sr: int, seconds: float, seed: int) -> np.ndarray:
 
 @pytest.fixture
 def numpy_resample(monkeypatch):
-    """The JAX package's resample in numpy (its C++ polyphase kernel off), as the port's is."""
+    """Both packages' resample in numpy (their C++ polyphase kernels off), so that the scores compare the
+    numpy paths bit for bit (the native ones are held to them in tests/test_torch_native_resample.py)."""
     monkeypatch.setattr(jnative, "resample_native", lambda *a, **k: None)
+    monkeypatch.setattr(tnative, "resample_native", lambda *a, **k: None)
 
 
 @pytest.mark.parametrize("sr,mode", [(8000, "nb"), (16000, "wb")])

@@ -169,13 +169,12 @@ def test_vocos_bridge_round_trip_is_bit_exact():
 @pytest.mark.parametrize("preset", ["hifigan", "vocos", "vocos_small", "vocos_huge"])
 @pytest.mark.parametrize("resolution", sorted(jconfig.RESOLUTIONS))
 def test_presets_equal_jax_package(preset, resolution):
-    """Every field, nested configs included, except the JAX package's training knob ``checkpointing``."""
+    """Every field, nested configs included."""
     want = jconfig.build_task_config(preset, resolution)
     got = tconfig.build_task_config(preset.replace("_", "-"), resolution)
     for field in ("sampling_rate", "n_fft", "hop_length", "win_length", "num_mels", "generator_name"):
         assert getattr(got, field) == getattr(want, field), field
     jfields = dataclasses.asdict(want.generator)
-    jfields.pop("checkpointing", None)
     assert type(got.generator).__name__ == type(want.generator).__name__
     assert dataclasses.asdict(got.generator) == jfields
 

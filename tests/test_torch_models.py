@@ -172,7 +172,7 @@ def test_presets_equal_jax_package(resolution):
         assert getattr(got, field) == getattr(want, field), field
     tfields = {f.name for f in BigVGANConfig.__dataclass_fields__.values()}
     jfields = {f.name for f in jbigvgan.BigVGANConfig.__dataclass_fields__.values()}
-    assert tfields == jfields - {"checkpointing"}  # jax.checkpoint is a training knob
+    assert tfields == jfields
     for field in tfields:
         assert getattr(got.generator, field) == getattr(want.generator, field), field
 

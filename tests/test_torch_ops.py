@@ -274,9 +274,10 @@ def _bf16_exact(a: np.ndarray) -> np.ndarray:
 
 def test_amp_stage_plain_bf16_matches_pallas_kernel(monkeypatch):
     """bf16 x: the plain stage rounds each conv input to bf16 as the fused kernel
-    rounds its matmul operands to mm_dtype = x.dtype.  Interior rows only (the JAX
-    wrapper splices the edge rows from its XLA oracle); measured 1.0e-3 (1.6e-3
-    with the conv inputs left in fp32)."""
+    rounds its matmul operands to mm_dtype = x.dtype.  The snake parameters reach
+    the JAX stage in bf16, as its bf16 eval casts them, so both sides take their
+    exp in bf16.  Interior rows only (the JAX wrapper splices the edge rows from
+    its XLA oracle); measured 1.0e-3 (1.6e-3 with the conv inputs left in fp32)."""
     kernel_sizes, dilation_sizes, c, t = (3, 7, 11), ((1, 3, 5),) * 3, 128, 512
     cfg = _jax_stage_cfg(c, kernel_sizes, dilation_sizes)
     rng = np.random.default_rng(2)
@@ -289,7 +290,10 @@ def test_amp_stage_plain_bf16_matches_pallas_kernel(monkeypatch):
     # The edge oracle runs XLA convs, which need one dtype: run it in fp32 (those rows are not compared).
     oracle = jbigvgan._amp_apply
     monkeypatch.setattr(jbigvgan, "_amp_apply", lambda p, v, *a: oracle(p, v.astype(jnp.float32), *a).astype(v.dtype))
-    want = np.asarray(jamp.amp_stage_fused(jblocks, jnp.asarray(x, jnp.bfloat16), kernel_sizes, dilation_sizes,
+    jblocks16 = jax.tree_util.tree_map_with_path(
+        lambda path, v: v.astype(jnp.bfloat16) if jax.tree_util.keystr(path).endswith(("['alpha']", "['beta']")) else v,
+        jblocks)
+    want = np.asarray(jamp.amp_stage_fused(jblocks16, jnp.asarray(x, jnp.bfloat16), kernel_sizes, dilation_sizes,
                                            True, 1, interpret=True).astype(jnp.float32))
     blocks = [b.to(torch.bfloat16) for b in _port_blocks(jblocks, c, kernel_sizes, dilation_sizes)]
     got = _from_port(amp_stage(blocks, _to_port(x).to(torch.bfloat16), True).float())

@@ -11,8 +11,15 @@ follows the flags.  Runs on ``cuda`` unless ``--device cpu`` is given; it never
 falls back to the CPU by itself.  The "gan" family trains every generator
 preset (hifigan, bigvgan, refinegan, vocos, vocos_small, vocos_huge,
 firefly_gan_base); ``--family vae`` and ``--family vqvae`` train their own
-generators (``--model`` is then ignored).  ``--family ssl`` and bf16
-(``task.compute_dtype``) raise ``NotImplementedError`` (ROADMAP.md Queue 1).
+generators (``--model`` is then ignored).  ``task.compute_dtype=bfloat16``
+trains in mixed precision (bf16 forwards and backwards on fp32 master weights,
+BigVGAN through K1's and, in validation, K2's bf16 routes),
+``task.loss_stft_dtype=bfloat16`` takes the MR-STFT and mel losses of bf16
+waveforms, ``task.generator.checkpointing=True`` recomputes BigVGAN's AMP
+blocks (HiFiGAN's resblock groups) in the backward, and
+``run.profile_steps=(3,5)`` writes a ``torch.profiler`` trace of steps 3 and 4
+under ``<workdir>/profile/``.  ``--family ssl`` raises
+``NotImplementedError`` (ROADMAP.md Queue 1).
 """
 
 from __future__ import annotations

@@ -16,8 +16,8 @@ MRD resolutions and 32-frame crops; "ssl" raises ``NotImplementedError``),
 ``overlay_task_config``, which rebuilds a task config from a workdir's
 ``config.json``.  Each preset maps a resolution to the generator's registry
 name and its config.  The tests hold them equal to the JAX package's field by
-field.  ``RunConfig`` drops the JAX package's mesh, profiler and split-step
-fields, which the port does not have yet (ROADMAP.md).
+field.  ``RunConfig`` drops the JAX package's mesh fields, which the port does
+not have yet (ROADMAP.md), and its split step (an XLA compile workaround).
 """
 
 from __future__ import annotations
@@ -243,6 +243,7 @@ class RunConfig:
     ckpt_path: str | None = None
     resume_weights_only: bool = False
     workdir: str = "logs/train"
+    profile_steps: tuple | None = None  # (start, stop): torch.profiler over steps [start, stop) into workdir/profile
     early_stop_patience: int | None = None  # validations without a val mel-L1 improvement
     val_pesq: bool = True  # host-side val PESQ-WB at 16 kHz (eval_metrics.pesq), as the JAX package's
 

@@ -66,13 +66,18 @@ __device__ __forceinline__ void st_any(void* p, int dtype, int64_t i, float v) {
 
 __device__ __forceinline__ int clampi(int v, int lo, int hi) { return v < lo ? lo : (v > hi ? hi : v); }
 
-// exp'ed (under logscale) alpha and beta of channel c.
+// exp'ed (under logscale) alpha and beta of channel c, the exp rounded to the
+// parameters' dtype as the plain version (antialias.snake_params) rounds it.
 __device__ __forceinline__ float2 snake_params(const void* alpha, const void* beta, int pdtype, int logscale, int c) {
   float a = ld_any(alpha, pdtype, c);
   float b = ld_any(beta, pdtype, c);
   if (logscale) {
     a = expf(a);
     b = expf(b);
+    if (pdtype == BF16) {
+      a = __bfloat162float(__float2bfloat16_rn(a));
+      b = __bfloat162float(__float2bfloat16_rn(b));
+    }
   }
   return make_float2(a, b);
 }

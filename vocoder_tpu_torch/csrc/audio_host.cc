@@ -1,10 +1,10 @@
-// Host-side audio decoding for the PyTorch port's input pipeline: FLAC
-// (RFC 9639) and Ogg/Vorbis (libvorbisfile, dlopen'd at first use), each as
-// one call per file that holds no Python lock.  A copy of the FLAC and Ogg
-// parts of the JAX package's native/audio_kernels.cc, kept apart so that the
-// port builds and binds its own library; the numpy decoders in
-// vocoder_tpu_torch/data remain the fallback without a compiler and the
-// reference the tests hold this to.
+// Host-side audio work for the PyTorch port's input pipeline: FLAC
+// (RFC 9639) and Ogg/Vorbis (libvorbisfile, dlopen'd at first use) decoding,
+// each as one call per file that holds no Python lock, and the polyphase
+// resampler of 1-D audio.  A copy of those parts of the JAX package's
+// native/audio_kernels.cc, kept apart so that the port builds and binds its
+// own library; the numpy paths in vocoder_tpu_torch/data remain the fallback
+// without a compiler and the reference the tests hold this to.
 //
 // Built at first use by vocoder_tpu_torch/data/native.py (the system C++
 // compiler, -O3 -fPIC -march=native -std=c++17 -shared -ldl) into build/kernels/.
@@ -14,6 +14,57 @@
 #include <vector>
 
 extern "C" {
+
+// ---------------------------------------------------------------------------
+// Polyphase sinc resampler (same math as vocoder_tpu_torch/data/resample.py,
+// i.e. torchaudio.functional.resample semantics: sinc_interp_hann, width 6,
+// rolloff 0.99).  The kernel table is computed by the Python side and passed
+// in, so both paths share one filter design.  Unlike the JAX package's copy,
+// each phase sums only its run of nonzero taps (the window ends at
+// +-lowpass_filter_width, past which the table holds exact zeros: 441 -> 160
+// keeps ~34 of 475 taps) in 8 partial sums that the compiler vectorises, so
+// the rounding differs from a serial sum (within the parity test's rtol 1e-4).
+// ---------------------------------------------------------------------------
+
+// x: (T,), kernels: (new_freq, taps), y: (ceil(new_freq*T/orig_freq),)
+void resample_poly(const float* x, int64_t t, const float* kernels, int new_freq,
+                   int orig_freq, int taps, int width, float* y, int64_t y_len) {
+  constexpr int kLanes = 8;
+  std::vector<int64_t> first(new_freq), last(new_freq);  // each phase's nonzero taps [first, last)
+  for (int j = 0; j < new_freq; ++j) {
+    const float* k = kernels + (int64_t)j * taps;
+    int64_t a = 0, b = taps;
+    while (a < b && k[a] == 0.0f) ++a;
+    while (b > a && k[b - 1] == 0.0f) --b;
+    first[j] = a;
+    last[j] = b;
+  }
+  // Virtual left pad of `width` zeros; right pad width + orig_freq.
+  int64_t n_frames = (t + width + width + orig_freq - taps) / orig_freq + 1;
+  int64_t out_idx = 0;
+  for (int64_t f = 0; f < n_frames && out_idx < y_len; ++f) {
+    int64_t base = f * orig_freq - width;  // position of tap 0 in x
+    const float* xb = x + base;
+    for (int j = 0; j < new_freq && out_idx < y_len; ++j) {
+      const float* k = kernels + (int64_t)j * taps;
+      int64_t lo = first[j], hi = last[j];
+      if (base + lo < 0) lo = -base;
+      if (base + hi > t) hi = t - base;
+      float part[kLanes] = {0.0f};
+      int64_t i = lo;
+      for (; i + kLanes <= hi; i += kLanes)
+        for (int l = 0; l < kLanes; ++l) part[l] += xb[i + l] * k[i + l];
+      if (i + 4 <= hi) {
+        for (int l = 0; l < 4; ++l) part[l] += xb[i + l] * k[i + l];
+        i += 4;
+      }
+      float acc = 0.0f;
+      for (; i < hi; ++i) acc += xb[i] * k[i];
+      for (int l = 0; l < kLanes; ++l) acc += part[l];
+      y[out_idx++] = acc;
+    }
+  }
+}
 
 // ---------------------------------------------------------------------------
 // FLAC decoder (subset: the format produced by real encoders — CONSTANT /

@@ -7,21 +7,26 @@ mix, and ``batch_iterator``'s fixed-shape {audio (B, 1, T), lengths (B,)}
 batches, with the f0 template (B, 1, T) of each element's final audio when
 a ``template_fn`` is given.  Each batch element draws from its own rng
 keyed (seed, host, step, slot), so for the same files and seed the stream
-is the JAX package's, and it resumes at any step.  The JAX package's ``DevicePrefetcher`` is not
-ported: the trainer copies each batch to the card itself and times the wait
-(``perf/input_wait_s``).  A corpus with a file whose suffix is not in
+is the JAX package's, and it resumes at any step.  ``DevicePrefetcher``, the
+JAX package's counterpart, moves host batches onto the device in a background
+thread, two ahead of the consumer, and counts the time the consumer waits for
+one (the trainer's ``perf/input_wait_s``).  A corpus with a file whose suffix is not in
 ``audio_io.DECODABLE_EXTENSIONS`` (WAV, FLAC, Ogg, and MP3 where libmpg123
 loads) fails at construction, as the JAX package's does.
 """
 
 from __future__ import annotations
 
+import queue
+import threading
+import time
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
 from pathlib import Path
 from typing import Callable, Iterator, Sequence
 
 import numpy as np
+import torch
 
 from vocoder_tpu_torch.data.audio_io import DECODABLE_EXTENSIONS, list_audio_files
 
@@ -129,3 +134,98 @@ def batch_iterator(
     finally:
         if pool is not None:
             pool.shutdown(wait=False, cancel_futures=True)
+
+
+class DevicePrefetcher:
+    """Host batches (dicts of numpy arrays) -> dicts of tensors on ``device``, made ``depth`` ahead of the
+    consumer by a background thread, as the JAX package's ``DevicePrefetcher`` puts them on its devices.
+
+    On a CUDA device the thread copies each array into pinned host memory and from there to the card on a
+    side stream, and records an event after the copies; ``__next__`` makes the consumer's current stream
+    wait on that event and ties each tensor to that stream (``record_stream``), so the copies overlap the
+    step and no tensor's memory is reused while the step may still read it.  With ``device="cpu``"
+    (asked for by the caller) it is the same thread and queue, without pinning or streams; a CUDA device
+    without CUDA raises.  ``wait_seconds`` is the time the consumer blocked on the queue.  An exception
+    raised in the thread (a decode error, the iterator's own) is raised in the consumer, and ``close``
+    stops and joins the thread, then closes the iterator."""
+
+    def __init__(self, iterator: Iterator[dict], device, depth: int = 2):
+        self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("DevicePrefetcher: no CUDA device is available")
+        if self.device.type not in ("cuda", "cpu"):
+            raise ValueError(f"DevicePrefetcher: no path to device {self.device}")
+        self._iterator = iterator
+        self._queue: queue.Queue = queue.Queue(maxsize=depth)
+        self._stop = threading.Event()
+        self._stream = torch.cuda.Stream(self.device) if self.device.type == "cuda" else None
+        self._wait_seconds = 0.0
+        self._thread = threading.Thread(target=self._worker, daemon=True, name="device-prefetch")
+        self._thread.start()
+
+    def _put(self, item) -> bool:
+        """Queue ``item`` unless the prefetcher is closing (then False)."""
+        while not self._stop.is_set():
+            try:
+                self._queue.put(item, timeout=0.05)
+                return True
+            except queue.Full:
+                continue
+        return False
+
+    def _transfer(self, batch: dict):
+        """(tensors on the device, the event after their copies or None)."""
+        if self._stream is None:
+            return {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in batch.items()}, None
+        with torch.cuda.device(self.device), torch.cuda.stream(self._stream):
+            out = {k: torch.from_numpy(np.ascontiguousarray(v)).pin_memory().to(self.device, non_blocking=True)
+                   for k, v in batch.items()}
+            event = torch.cuda.Event()
+            event.record(self._stream)
+        return out, event
+
+    def _worker(self) -> None:
+        try:
+            for batch in self._iterator:
+                if self._stop.is_set() or not self._put(self._transfer(batch)):
+                    return
+        except BaseException as e:  # surfaced to the consumer by __next__
+            self._put(e)
+
+    def __iter__(self):
+        return self
+
+    def __next__(self) -> dict:
+        t0 = time.perf_counter()
+        item = self._queue.get()
+        self._wait_seconds += time.perf_counter() - t0
+        if isinstance(item, BaseException):
+            raise item
+        batch, event = item
+        if event is not None:
+            stream = torch.cuda.current_stream(self.device)
+            stream.wait_event(event)
+            for v in batch.values():
+                v.record_stream(stream)
+        return batch
+
+    def wait_seconds(self, reset: bool = False) -> float:
+        """Seconds the consumer blocked on the queue since the last reset: the input pipeline's starvation
+        of the step."""
+        w = self._wait_seconds
+        if reset:
+            self._wait_seconds = 0.0
+        return w
+
+    def close(self) -> None:
+        """Stop the thread (after the batch it is making), join it and close the iterator."""
+        self._stop.set()
+        while self._thread.is_alive():
+            try:
+                self._queue.get_nowait()
+            except queue.Empty:
+                pass
+            self._thread.join(timeout=0.05)
+        close = getattr(self._iterator, "close", None)
+        if close is not None:
+            close()

@@ -7,13 +7,15 @@ through the kernels' builder (``ops/build.compile_libraries``): into
 of the source, the flags, the compiler and the host's CPU (``-march=native``
 code runs only where it was built), under its file lock.  Bound as
 ``vocoder_tpu/data/native.py`` binds its own: FLAC (``flac_probe``/
-``flac_decode``) and Ogg/Vorbis (``ogg_probe``/``ogg_decode_file``), each one
-foreign call a file that holds no Python lock.
+``flac_decode``), Ogg/Vorbis (``ogg_probe``/``ogg_decode_file``), each one
+foreign call a file that holds no Python lock, and the polyphase resampler of
+1-D audio (``resample_poly``, ``resample_native``).
 
 Without a compiler, or when the build fails, ``available()`` is False,
 ``build_error`` says why and the decoders fall back to their Python paths.
-``decodes`` counts the files each native decoder returned, so a caller can
-tell that the native path ran (``chip_smoke.py`` requires it).
+``decodes`` counts the files each native decoder returned and ``resamples`` the
+signals the native resampler returned, so a caller can tell that the native
+path ran (``chip_smoke.py`` requires it).
 """
 
 from __future__ import annotations
@@ -34,6 +36,7 @@ SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "audio_host.cc"
 CXX_FLAGS = ("-O3", "-fPIC", "-march=native", "-std=c++17", "-shared")
 
 decodes = {"flac": 0, "ogg": 0}  # files decoded by the native library, by format
+resamples = 0  # 1-D signals resampled by the native library
 build_seconds: float | None = None  # this process's compile time; 0.0 when the library was already built
 build_error: str | None = None
 
@@ -45,6 +48,12 @@ _lock = threading.Lock()
 def _count(fmt: str) -> None:
     with _lock:
         decodes[fmt] += 1
+
+
+def _count_resample() -> None:
+    global resamples
+    with _lock:
+        resamples += 1
 
 
 def _compiler() -> str | None:
@@ -95,6 +104,9 @@ def _load():
         lib.ogg_probe.restype = ctypes.c_int
         lib.ogg_decode_file.argtypes = [ctypes.c_char_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int64]
         lib.ogg_decode_file.restype = ctypes.c_int64
+        lib.resample_poly.argtypes = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                                      ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_int64]
+        lib.resample_poly.restype = None
         _lib = lib
         return _lib
 
@@ -162,3 +174,19 @@ def ogg_decode(path) -> tuple[np.ndarray, int] | None:
         return None
     _count("ogg")
     return out[:, :got], rate
+
+
+def resample_native(x: np.ndarray, orig_freq: int, new_freq: int, kernels: np.ndarray, width: int) -> np.ndarray | None:
+    """1-D resample through the C++ polyphase kernel, with ``data/resample.py``'s kernel table
+    (new_freq, taps) and width; None when the library is unavailable."""
+    lib = _load()
+    if lib is None:
+        return None
+    x = np.ascontiguousarray(x, np.float32)
+    kernels = np.ascontiguousarray(kernels, np.float32)
+    y_len = -(-new_freq * x.shape[-1] // orig_freq)
+    y = np.empty(y_len, np.float32)
+    lib.resample_poly(x.ctypes.data, x.shape[-1], kernels.ctypes.data, new_freq, orig_freq, kernels.shape[1], width,
+                      y.ctypes.data, y_len)
+    _count_resample()
+    return y

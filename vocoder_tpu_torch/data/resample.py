@@ -1,7 +1,10 @@
-"""Polyphase sinc resampler (torchaudio.functional.resample semantics), numpy.
+"""Polyphase sinc resampler (torchaudio.functional.resample semantics).
 
-A copy of the numpy path of ``vocoder_tpu/data/resample.py``:
-sinc_interp_hann kernel, lowpass_filter_width=6, rolloff=0.99.
+A copy of ``vocoder_tpu/data/resample.py``: sinc_interp_hann kernel,
+lowpass_filter_width=6, rolloff=0.99.  1-D audio goes through the host
+library's C++ kernel (``data/native.py::resample_native``, counted in
+``native.resamples``) when it loaded, as the JAX package's does; other shapes,
+and every shape without the library, through numpy, with the same kernel table.
 """
 
 from __future__ import annotations
@@ -10,6 +13,8 @@ import functools
 import math
 
 import numpy as np
+
+from vocoder_tpu_torch.data import native
 
 
 @functools.lru_cache(maxsize=None)
@@ -34,6 +39,10 @@ def resample(x: np.ndarray, orig_sr: int, new_sr: int, lowpass_filter_width: int
     g = math.gcd(int(orig_sr), int(new_sr))
     orig_freq, new_freq = int(orig_sr) // g, int(new_sr) // g
     kernels, width = _kernel(orig_freq, new_freq, lowpass_filter_width, rolloff)
+    if np.ndim(x) == 1:
+        out = native.resample_native(np.asarray(x, np.float32), orig_freq, new_freq, kernels, width)
+        if out is not None:
+            return out
 
     x = np.asarray(x, dtype=np.float32)
     shape = x.shape

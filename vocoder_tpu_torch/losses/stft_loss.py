@@ -4,6 +4,8 @@ Counterpart of ``vocoder_tpu/losses/stft_loss.py`` (the reference's
 kan-bayashi formulation): per resolution, a center reflect-padded Hann
 magnitude STFT with sqrt(max(power, 1e-6)); spectral convergence
 ||y - x||_F / ||y||_F and log-magnitude L1, each averaged over resolutions.
+Magnitudes of bf16 waveforms (``task.loss_stft_dtype``) come back in bf16; the
+norms and logs accumulate in fp32, as the JAX package's.
 """
 
 from __future__ import annotations
@@ -17,7 +19,7 @@ def stft_loss_single(x: torch.Tensor, y: torch.Tensor, res: tuple) -> tuple[torc
     """x, y: (B, T) predicted and ground truth -> (spectral convergence, log-magnitude L1)."""
     n_fft, hop, win = res
     kw = dict(n_fft=n_fft, hop_length=hop, win_length=win, padding="center", mag_mode="clamp_inside")
-    x_mag, y_mag = stft_magnitude(x, **kw), stft_magnitude(y, **kw)
+    x_mag, y_mag = stft_magnitude(x, **kw).float(), stft_magnitude(y, **kw).float()
     sc = torch.linalg.vector_norm(y_mag - x_mag) / torch.linalg.vector_norm(y_mag)
     mag = torch.mean(torch.abs(torch.log(y_mag) - torch.log(x_mag)))
     return sc, mag

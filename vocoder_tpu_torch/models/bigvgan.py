@@ -24,6 +24,10 @@ forward only, as the JAX package's fused stage runs only ``not training``)
 or when K2 does not take its width (``amp_block.kernel_takes``, decided from
 the shape before any launch, as the JAX package's ``amp_stage_supported``).
 In training, K1 runs under autograd (``ops.aa_snake.AASnakeFunction``).
+With ``checkpointing`` (the JAX package's ``jax.checkpoint`` over
+``_amp_apply``) training keeps no activation inside an AMP block and runs
+the block again in the backward (``nn.checkpointed``), K1 included: a step
+launches K1 90 more times.  Eval mode ignores it.
 
 ``frame_lengths`` (B,) makes a right-padded batch exact: every time-mixing
 layer's output is masked past each item's length (scaled by each upsample
@@ -42,7 +46,7 @@ import torch
 from torch import nn
 
 from vocoder_tpu_torch.models.hifigan import add_noise, check_template, noise_conv_weight, noise_convs
-from vocoder_tpu_torch.nn import conv1d, conv_transpose1d, get_padding, length_mask
+from vocoder_tpu_torch.nn import checkpointed, conv1d, conv_transpose1d, get_padding, length_mask
 from vocoder_tpu_torch.ops.aa_snake import aa_snake
 from vocoder_tpu_torch.ops.amp_block import amp_stage, amp_stage_plain, kernel_takes
 from vocoder_tpu_torch.ops.antialias import aa_snake_plain, snake_params
@@ -62,6 +66,7 @@ class BigVGANConfig:
     use_template: bool = False
     pre_conv_kernel_size: int = 7
     post_conv_kernel_size: int = 7
+    checkpointing: bool = False  # training recomputes each AMP block in the backward
 
     def __post_init__(self):
         if prod(self.upsample_rates) != self.hop_length:
@@ -92,11 +97,12 @@ class Activation1d(nn.Module):
         self.logscale = logscale
 
     def forward(self, x: torch.Tensor, lengths=None, plain: bool = False) -> torch.Tensor:
-        """K1 (``aa_snake``), or with ``plain`` the plain version (under autograd: autograd through it)."""
+        """K1 (``aa_snake``), or with ``plain`` the plain version (under autograd: autograd through it, on
+        the parameters as ``AASnakeFunction`` takes them)."""
+        alpha, beta = self.activation.alpha, self.activation.beta
         if plain:
-            return aa_snake_plain(x, *snake_params(self.activation.alpha, self.activation.beta, self.logscale),
-                                  lengths)
-        return aa_snake(x, self.activation.alpha, self.activation.beta, self.logscale, lengths)
+            return aa_snake_plain(x, *snake_params(alpha, beta, self.logscale), lengths)
+        return aa_snake(x, alpha, beta, self.logscale, lengths)
 
 
 class AMPBlock(nn.Module):
@@ -180,6 +186,7 @@ class BigVGAN(nn.Module):
         stage = amp_stage_plain if plain else amp_stage
         dtype = self.conv_post.bias.dtype
         lens = None if frame_lengths is None else torch.as_tensor(frame_lengths, device=mel.device)
+        remat = cfg.checkpointing and self.training and torch.is_grad_enabled()
         x = length_mask(self.conv_pre(mel.to(dtype)), lens)
         for i, (up, u) in enumerate(zip(self.ups, cfg.upsample_rates)):
             x = up(x)
@@ -192,7 +199,7 @@ class BigVGAN(nn.Module):
             if self.training or not kernel_takes(x.shape[1]):
                 if not plain:
                     BigVGAN.blockwise_stages += 1
-                x = sum(blk(x, lens, plain) for blk in blocks) / n_k
+                x = sum(checkpointed(blk, x, lens, plain) if remat else blk(x, lens, plain) for blk in blocks) / n_k
             else:
                 x = stage(blocks, x, cfg.snake_logscale, lens)
         x = self.activation_post(x, lens, plain)

@@ -20,6 +20,11 @@ last stage) and its output is added to the stream (``NoiseConvs``).
 is masked past each item's length (scaled by each upsample rate), so row i
 equals item i's forward over its first ``frame_lengths[i]`` frames.
 
+With ``checkpointing`` (the JAX package's ``jax.checkpoint`` over
+``_parallel_block_apply``) training runs each stage's parallel resblock group
+again in the backward instead of keeping its activations
+(``nn.checkpointed``); eval mode ignores it.
+
 The model has no kernel of its own: the JAX package left its convs to XLA
 and no Pallas kernel, so here they are ``torch.nn`` layers (cuDNN on the
 card).
@@ -35,7 +40,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from vocoder_tpu_torch.nn import conv1d, conv_transpose1d, get_padding, length_mask
+from vocoder_tpu_torch.nn import checkpointed, conv1d, conv_transpose1d, get_padding, length_mask
 
 
 @dataclasses.dataclass(frozen=True)
@@ -50,6 +55,7 @@ class HiFiGANConfig:
     use_template: bool = False
     pre_conv_kernel_size: int = 7
     post_conv_kernel_size: int = 7
+    checkpointing: bool = False  # training recomputes each parallel resblock group in the backward
 
     def __post_init__(self):
         if prod(self.upsample_rates) != self.hop_length:
@@ -152,6 +158,7 @@ class HiFiGAN(nn.Module):
         check_template(self.cfg, template)
         dtype = self.conv_post.bias.dtype
         lens = None if frame_lengths is None else torch.as_tensor(frame_lengths, device=mel.device)
+        remat = self.cfg.checkpointing and self.training and torch.is_grad_enabled()
         x = length_mask(self.conv_pre(mel.to(dtype)), lens)
         for i, (up, block, u) in enumerate(zip(self.ups, self.resblocks, self.cfg.upsample_rates)):
             x = up(F.silu(x))
@@ -160,7 +167,7 @@ class HiFiGAN(nn.Module):
                 x = length_mask(x, lens)
             if template is not None:
                 x = add_noise(x, self.noise_convs[i], template.to(dtype), lens)
-            x = block(x, lens)
+            x = checkpointed(block, x, lens) if remat else block(x, lens)
         return length_mask(torch.tanh(self.conv_post(F.silu(x))), lens)
 
 

@@ -6,7 +6,11 @@ fold, ``set_full_precision`` (the JAX package's ``Precision.HIGHEST``),
 ``drop_path`` (stochastic depth) and ``normal_like``.  Both draw from an
 explicit ``torch.Generator`` on that generator's own device and move the
 draw to the input's, so a generator on the CPU gives the same draws to a
-model on the card as to one on the CPU.
+model on the card as to one on the CPU.  Mixed precision and memory:
+``cast_parameters`` (a forward on bf16 copies of a module's parameters whose
+gradients reach the fp32 masters, the JAX package's ``_cast_floats`` under
+``jax.value_and_grad``), ``cast_copy`` (a detached copy in another dtype) and
+``checkpointed`` (``jax.checkpoint``'s counterpart).
 The modules are plain ``torch.nn`` layers carrying
 ``torch.nn.utils.parametrizations.weight_norm``, so their state_dict keys are
 the reference's (``<name>.parametrizations.weight.original{0,1}``, ``bias``).
@@ -16,8 +20,12 @@ are not carried over: they are exact against the unfolded convs.
 
 from __future__ import annotations
 
+import contextlib
+import copy
+
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 from torch.nn.utils import parametrize
 from torch.nn.utils.parametrizations import weight_norm
 
@@ -91,3 +99,43 @@ def fold_weight_norm(module: nn.Module) -> nn.Module:
         if parametrize.is_parametrized(m, "weight"):
             parametrize.remove_parametrizations(m, "weight", leave_parametrized=True)
     return module
+
+
+@contextlib.contextmanager
+def cast_parameters(module: nn.Module, dtype: torch.dtype):
+    """Within the block, every floating parameter of ``module`` (weight-norm originals included, so the
+    norm runs in ``dtype`` too) is a ``dtype`` copy made by ``.to``: a forward computes in ``dtype`` and
+    its backward reaches the masters through the cast.  Buffers stay as they are.  A no-op for a
+    parameter already of ``dtype``."""
+    swapped = []
+    for m in module.modules():
+        for name, p in m._parameters.items():
+            if p is not None and p.is_floating_point() and p.dtype != dtype:
+                swapped.append((m, name, p))
+                m._parameters[name] = p.to(dtype)
+    try:
+        yield module
+    finally:
+        for m, name, p in swapped:
+            m._parameters[name] = p
+
+
+def cast_copy(module: nn.Module, dtype: torch.dtype) -> nn.Module:
+    """A copy of ``module`` whose floating parameters are detached ``dtype`` copies (buffers copied as
+    they are).  Its modules are new objects, so no cache keyed by module (K2's ``StagePlan``) can take
+    the copy for an earlier one."""
+    memo = {id(p): nn.Parameter(p.detach().to(dtype), requires_grad=False)
+            for p in module.parameters() if p.is_floating_point()}
+    return copy.deepcopy(module, memo)
+
+
+def checkpointed(module: nn.Module, *args):
+    """``module(*args)`` with its activations recomputed in the backward (non-reentrant
+    ``torch.utils.checkpoint``), on the parameters the module holds now: under ``cast_parameters`` the
+    recomputation, which runs after that block has ended, still sees the bf16 copies."""
+    params = dict(module.named_parameters())
+
+    def run(*a):
+        return torch.func.functional_call(module, params, a)
+
+    return checkpoint(run, *args, use_reentrant=False)

@@ -27,6 +27,12 @@ and the exp'ed alpha and beta only, as the JAX package's ``custom_vjp`` of
 autograd.  The JAX package's backward is XLA, not a Pallas kernel, so there is
 no backward kernel to port; one waits until its share of the training step
 calls for it.  ``aa_snake_kernel`` itself stays forward only.
+
+In bf16 training x, alpha and beta all arrive in bf16 (the parameters exp'ed
+in bf16, ``antialias.snake_params``): the forward launches K1's bf16
+route, and the backward accumulates in fp32 and returns bf16 gradients (see
+``aa_snake_plain_vjp``).  A failure to build or launch raises; nothing falls
+back to the plain version on the card.
 """
 
 from __future__ import annotations

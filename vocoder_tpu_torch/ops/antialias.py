@@ -168,9 +168,10 @@ def snake(v: torch.Tensor, alpha: torch.Tensor, beta: torch.Tensor) -> torch.Ten
 
 
 def snake_params(alpha: torch.Tensor, beta: torch.Tensor | None, logscale: bool) -> tuple[torch.Tensor, torch.Tensor]:
-    """Raw Snake/SnakeBeta parameters -> fp32 (alpha, beta) as the snake uses them."""
-    alpha = alpha.float()
-    beta = alpha if beta is None else beta.float()
+    """Raw Snake/SnakeBeta parameters -> (alpha, beta) as the snake uses them, exp'ed in their own dtype:
+    a bf16 parameter's exp is rounded to bf16, as the JAX package's ``jnp.exp`` of its bf16 parameters is
+    and as K1 and K2 round it (``csrc/aa_snake.cuh::snake_params``), in training and in eval alike."""
+    beta = alpha if beta is None else beta
     if logscale:
         return alpha.exp(), beta.exp()
     return alpha, beta

@@ -19,6 +19,14 @@ normalises otherwise), the Hann window, an explicit overlap-add and the
 division by the window-square envelope.  The JAX package computes both
 outside any Pallas kernel, so the FFTs here are the library's; cuFFT has no
 bf16 transform, so both run in fp32.
+
+A bf16 input (the MR-STFT and mel losses under ``task.loss_stft_dtype``, the
+MRD under ``task.compute_dtype``) is framed and transformed in fp32 and its
+magnitudes are rounded to bf16; the log-mel's filterbank product and log then
+run in bf16.  The JAX package's bf16 magnitudes come out of a bf16 DFT
+matmul (its basis cast to the input's dtype) instead, so the two differ by
+the rounding inside that matmul: held to each other by
+``tests/test_torch_bf16_train.py`` at the tolerance stated there.
 """
 
 from __future__ import annotations
@@ -93,9 +101,10 @@ _PADDING = {
 
 def stft_magnitude(x: torch.Tensor, *, n_fft: int, hop_length: int, win_length: int, padding: str = "same_win",
                    mag_mode: str = "eps_inside", window: str = "hann") -> torch.Tensor:
-    """Magnitude STFT of (B, T) audio -> (B, n_fft // 2 + 1, frames), fp32."""
+    """Magnitude STFT of (B, T) audio -> (B, n_fft // 2 + 1, frames), fp32; bf16 for a bf16 x (fp32 inside)."""
     if padding not in _PADDING:
         raise ValueError(f"unknown padding mode {padding!r}")
+    rounded = x.dtype == torch.bfloat16
     if window == "hann":
         win = torch.as_tensor(hann_window(win_length), device=x.device)
     elif window == "boxcar":
@@ -107,17 +116,19 @@ def stft_magnitude(x: torch.Tensor, *, n_fft: int, hop_length: int, win_length: 
                       return_complex=True)
     power = spec.real.square() + spec.imag.square()
     if mag_mode == "eps_inside":
-        return torch.sqrt(power + 1e-6)
-    if mag_mode == "clamp_inside":
-        return torch.sqrt(torch.clamp(power, min=1e-6))
-    if mag_mode == "plain":
+        mag = torch.sqrt(power + 1e-6)
+    elif mag_mode == "clamp_inside":
+        mag = torch.sqrt(torch.clamp(power, min=1e-6))
+    elif mag_mode == "plain":
         nonzero = power > 0
-        return torch.where(nonzero, torch.sqrt(torch.where(nonzero, power, 1.0)), 0.0)
-    raise ValueError(f"unknown mag_mode {mag_mode!r}")
+        mag = torch.where(nonzero, torch.sqrt(torch.where(nonzero, power, 1.0)), 0.0)
+    else:
+        raise ValueError(f"unknown mag_mode {mag_mode!r}")
+    return mag.to(torch.bfloat16) if rounded else mag
 
 
 def linear_spectrogram(x: torch.Tensor, *, n_fft: int, hop_length: int, win_length: int) -> torch.Tensor:
-    """The reference's LinearSpectrogram of (B, T) audio -> (B, n_fft // 2 + 1, frames), fp32."""
+    """The reference's LinearSpectrogram of (B, T) audio -> (B, n_fft // 2 + 1, frames), fp32 (bf16 for a bf16 x)."""
     return stft_magnitude(x, n_fft=n_fft, hop_length=hop_length, win_length=win_length, padding="same_win",
                           mag_mode="eps_inside")
 
@@ -133,9 +144,10 @@ def log_mel_spectrogram(
     f_min: float = 0.0,
     f_max: float | None = None,
 ) -> torch.Tensor:
-    """Log-mel features of (B, T) audio -> (B, n_mels, frames), fp32."""
+    """Log-mel features of (B, T) audio -> (B, n_mels, frames), fp32; bf16 for a bf16 x (the filterbank
+    product and the log in bf16, as the JAX package casts its filterbank to the magnitudes' dtype)."""
     mag = stft_magnitude(x, n_fft=n_fft, hop_length=hop_length, win_length=win_length)
-    fb = torch.as_tensor(mel_filterbank(sample_rate, n_fft, n_mels, f_min, f_max), device=x.device)
+    fb = torch.as_tensor(mel_filterbank(sample_rate, n_fft, n_mels, f_min, f_max), device=x.device).to(mag.dtype)
     mel = torch.einsum("bft,fm->bmt", mag, fb)
     return torch.log(torch.clamp(mel, min=1e-5))
 

@@ -1,7 +1,7 @@
 """Where a GAN training step spends its time, by phase and by part, on one CUDA card.
 
     python -m vocoder_tpu_torch.tools.profile_train [--model bigvgan|hifigan|refinegan|vocos|firefly_gan_base]
-        [--family gan|vae|vqvae] [--batch 16] [--steps 8]
+        [--family gan|vae|vqvae] [--batch 16] [--steps 8] [--compute-dtype float32|bfloat16] [--checkpointing]
 
 Builds the preset's training state (44.1 kHz; RefineGAN at 24 kHz, the only
 resolution it builds at; ``--family vae|vqvae``: that family's generator,
@@ -10,7 +10,9 @@ discriminators from the torch seed), a batch of ``--batch`` crops of the
 task's ``num_frames`` (128 frames, 65,536 samples at 44.1 kHz and 32,768 at
 24 kHz; the vqvae's 32 frames) of sines and noise from
 a numpy seed, with each sine's f0 template where the generator consumes one,
-and runs ``--steps`` steps of ``make_train_step`` in fp32 with TF32 off.  Each
+and runs ``--steps`` steps of ``make_train_step`` with TF32 off, in fp32 or, with
+``--compute-dtype bfloat16``, in the task's bf16 compute (``--checkpointing``: the
+generator recomputes its blocks in the backward, BigVGAN and HiFiGAN).  Each
 step's generator phase and discriminator phase are timed with CUDA events;
 the median over the steps from the third on is reported, with the training
 rate in audio seconds a second and the peak device memory.  Then one more
@@ -179,16 +181,22 @@ def f0_seconds(task, batch: dict, threads: int) -> dict:
             "openblas_num_threads": os.environ.get("OPENBLAS_NUM_THREADS")}
 
 
-def training_setup(model: str, batch: int, seed: int, device="cuda", family: str = "gan"):
+def training_setup(model: str, batch: int, seed: int, device="cuda", family: str = "gan",
+                   compute_dtype: str = "float32", checkpointing: bool = False):
     """(task, state, batch): the preset's (or the family's) training state with the generator's random
     weights from ``seed`` and a synthetic batch of the task's crops (with templates where the generator
-    needs them)."""
+    needs them); the task in ``compute_dtype``, the generator's ``checkpointing`` set where asked."""
+    import dataclasses
+
     from vocoder_tpu_torch.config import build_task_config
     from vocoder_tpu_torch.models.vae import vae_random_state_dict, vqvae_random_state_dict
     from vocoder_tpu_torch.tools.profile_forward import RANDOM_WEIGHTS, RESOLUTION
     from vocoder_tpu_torch.train import gan
 
     task = build_task_config(model, RESOLUTION.get(model, "44100_512_2048"), family)
+    task = task.replace(compute_dtype=compute_dtype)
+    if checkpointing:
+        task = task.replace(generator=dataclasses.replace(task.generator, checkpointing=True))
     state = gan.create_train_state(task, seed, device)
     weights = {**RANDOM_WEIGHTS, "vae": vae_random_state_dict, "vqvae": vqvae_random_state_dict}
     state.generator.load_state_dict(weights[task.generator_name](task.generator, seed))
@@ -209,17 +217,21 @@ def main(argv: list[str] | None = None) -> int:
     ap.add_argument("--family", choices=("gan", "vae", "vqvae"), default="gan")
     ap.add_argument("--batch", type=int, default=16)
     ap.add_argument("--steps", type=int, default=8)
+    ap.add_argument("--compute-dtype", choices=("float32", "bfloat16"), default="float32")
+    ap.add_argument("--checkpointing", action="store_true", help="the generator recomputes its blocks in the backward")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_train: no CUDA device", file=sys.stderr)
         return 2
     set_full_precision()
-    task, state, batch = training_setup(args.model, args.batch, 0, family=args.family)
+    task, state, batch = training_setup(args.model, args.batch, 0, family=args.family,
+                                        compute_dtype=args.compute_dtype, checkpointing=args.checkpointing)
     rec = measure_step(state, gan.make_train_step(task), batch, task, args.steps)
     if gan.needs_template(task):
         rec.update(f0_seconds(task, batch, DataConfig().num_workers))
-    print(json.dumps({"card": card_line(), "model": task.generator_name, "batch": args.batch, "dtype": "fp32", **rec}),
-          flush=True)
+    print(json.dumps({"card": card_line(), "model": task.generator_name, "batch": args.batch,
+                      "dtype": {"float32": "fp32", "bfloat16": "bf16"}[args.compute_dtype],
+                      "checkpointing": args.checkpointing, **rec}), flush=True)
     return 0
 
 

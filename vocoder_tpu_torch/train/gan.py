@@ -49,10 +49,29 @@ Where PyTorch differs from the JAX program, each handled here:
   gradient is near 0, a rounding difference flips the sign of the update.
   Compare gradients tightly and updated parameters with that in mind.
 
-Not ported: the ssl family (a ``transformers`` HuBERT backbone) and bf16
-compute (``compute_dtype``) (ROADMAP.md Queue 1); ``spectral_precision``
-(a TPU MXU pass count) and the split step (an XLA compile workaround) are
-TPU machinery.  ``run.precision`` sets TF32 in the trainer.
+Mixed precision, as the JAX package's: ``compute_dtype="bfloat16"`` runs the
+generator ("gan" family only) and the discriminators (every family) on bf16
+copies of their floating parameters (``nn.cast_parameters``: the weight-norm
+originals too, so the norms run in bf16; buffers such as the EMA codebooks
+stay as they are), with the input spectrum, the template and the
+discriminators' audio cast to bf16 and their outputs cast back to fp32 before
+the losses.  The gradients flow back through the casts to the fp32 masters,
+and AdamW's state stays fp32.  No ``torch.autocast``: it keeps some
+operations in fp32 and would compute another function than JAX's all-bf16
+forward.  The eval step runs the "gan" family's generator as a bf16 copy
+(``nn.cast_copy``), made anew when the weights changed and shared by the
+batches of one validation, so that BigVGAN's validation takes K2's bf16 route
+and K2's plan cache, keyed by module, never reuses the packed weights of an
+earlier copy.  ``loss_stft_dtype="bfloat16"`` rounds the masked waveforms to
+bf16 before the MR-STFT and mel losses; the port transforms them in fp32 and
+rounds the magnitudes and the loss mels to bf16 (``ops/spectral.py``), where
+the JAX package's magnitudes come out of a bf16 DFT; the norms and logs
+accumulate in fp32.  The MRD's STFT of bf16 audio follows the same rule.
+
+Not ported: the ssl family (a ``transformers`` HuBERT backbone, ROADMAP.md
+Queue 1); ``spectral_precision`` (a TPU MXU pass count) and the split step
+(an XLA compile workaround) are TPU machinery.  ``run.precision`` sets TF32
+in the trainer.
 """
 
 from __future__ import annotations
@@ -73,11 +92,13 @@ from vocoder_tpu_torch.losses import (
 from vocoder_tpu_torch.models.mpd import MPDConfig, MultiPeriodDiscriminator
 from vocoder_tpu_torch.models.mrd import MRDConfig, MultiResolutionDiscriminator
 from vocoder_tpu_torch.models.registry import get_generator
+from vocoder_tpu_torch.nn import cast_copy, cast_parameters
 from vocoder_tpu_torch.ops.spectral import linear_spectrogram, log_mel_spectrogram
 from vocoder_tpu_torch.train.schedule import WarmupCosineConfig, warmup_cosine
 
 DEFAULT_RESOLUTIONS = ((2048, 512, 2048), (1024, 120, 600), (2048, 240, 1200), (4096, 480, 2400), (512, 50, 240))
 TRAINABLE = ("bigvgan", "hifigan", "refinegan", "vocos", "firefly_gan_base", "vae", "vqvae")
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}  # compute_dtype and loss_stft_dtype
 
 
 @dataclasses.dataclass(frozen=True)
@@ -110,7 +131,11 @@ class GANTaskConfig:
 
     stft_weight: float = 2.5
     mel_weight: float = 45.0
-    compute_dtype: str = "float32"  # only "float32" is ported
+    # Mixed precision: the generator's ("gan" family) and the discriminators' forwards and backwards in
+    # bf16 on bf16 copies of the fp32 master parameters; the losses and AdamW in fp32.
+    compute_dtype: str = "float32"  # "float32" | "bfloat16"
+    # The waveforms' dtype entering the MR-STFT and mel losses (the generator's input transform stays fp32).
+    loss_stft_dtype: str = "float32"  # "float32" | "bfloat16"
 
     def replace(self, **kw) -> "GANTaskConfig":
         return dataclasses.replace(self, **kw)
@@ -124,10 +149,9 @@ def check_trainable(cfg: GANTaskConfig) -> None:
         raise NotImplementedError(SSL_NOT_PORTED)
     if cfg.family not in ("gan", "vae", "vqvae"):
         raise ValueError(f"unknown task family {cfg.family!r}")
-    if cfg.compute_dtype != "float32":
-        raise NotImplementedError(
-            f"compute_dtype {cfg.compute_dtype!r}: bf16 training is not yet ported (ROADMAP.md Queue 1); "
-            "the port trains in float32")
+    for field in ("compute_dtype", "loss_stft_dtype"):
+        if getattr(cfg, field) not in DTYPES:
+            raise ValueError(f"{field} {getattr(cfg, field)!r}: one of {' or '.join(map(repr, DTYPES))}")
     if cfg.generator_name not in TRAINABLE:
         raise NotImplementedError(f"training {cfg.generator_name!r} is not ported; trainable: {list(TRAINABLE)}")
 
@@ -240,13 +264,26 @@ def _length_fix(fake: torch.Tensor, t_audio: int, hop: int) -> torch.Tensor:
     return fake[:, :, :t_audio] if t_f >= t_audio else torch.nn.functional.pad(fake, (0, t_audio - t_f))
 
 
+def compute_dtype(cfg: GANTaskConfig) -> torch.dtype:
+    return DTYPES[cfg.compute_dtype]
+
+
+def _to_float(tree):
+    """Every tensor of a nested list/tuple of discriminator outputs, cast to fp32."""
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_to_float(t) for t in tree)
+    return tree.float()
+
+
 def generator_forward(generator: nn.Module, audio: torch.Tensor, cfg: GANTaskConfig, plain: bool = False,
                       template: torch.Tensor | None = None, noise: torch.Generator | None = None):
     """audio (B, 1, T) [+ template (B, 1, T)] -> (fake (B, 1, T) fp32, base loss, the family's metrics, the
     EMA update to call after the backward or None).  Training or not is the generator's mode.  ``plain``:
     through the kernels' plain versions (``forward_plain``, where the generator has kernels), as the
     card checks compare.  ``noise``: the noise generator of a generator that ``draws_noise`` (RefineGAN's
-    AdaIN, None: the seeded-0 default; ConvNeXt's drop_path and the vae's eps in training)."""
+    AdaIN, None: the seeded-0 default; ConvNeXt's drop_path and the vae's eps in training).  Under
+    ``compute_dtype="bfloat16"`` the "gan" family's generator runs on bf16 copies of its parameters with
+    the spectrum and template in bf16 (the vae and vqvae generators stay fp32, as the JAX package's)."""
     spec = input_transform(cfg, audio[:, 0, :])
     zero = torch.zeros((), device=audio.device)
     if cfg.family == "vae":
@@ -258,20 +295,25 @@ def generator_forward(generator: nn.Module, audio: torch.Tensor, cfg: GANTaskCon
         ema = (lambda: generator.vq.ema_update(latent, codes)) if generator.training else None
         return _length_fix(fake, audio.shape[2], cfg.hop_length).float(), zero, {"train/generator/vq": vq_loss}, ema
     forward = generator.forward_plain if plain and hasattr(generator, "forward_plain") else generator
+    dtype = compute_dtype(cfg)
     kw = {}
     if needs_template(cfg):
         if template is None:
             raise ValueError(f"{cfg.generator_name} needs an f0 template waveform in the batch "
                              "(batch['template'], which the trainer builds when needs_template(cfg))")
-        kw["template"] = template
+        kw["template"] = template.to(dtype)
     if getattr(generator, "draws_noise", False):
         kw["noise"] = noise
-    return forward(spec, **kw).float(), zero, {}, None
+    with cast_parameters(generator, dtype):
+        return forward(spec.to(dtype), **kw).float(), zero, {}, None
 
 
-def _discriminators(discriminators: nn.ModuleDict, audio: torch.Tensor) -> dict:
-    with torch.profiler.record_function("discriminators"):
-        return {key: d(audio) for key, d in discriminators.items()}
+def _discriminators(discriminators: nn.ModuleDict, audio: torch.Tensor, cfg: GANTaskConfig) -> dict:
+    """{key: (scores, feature maps)} of each discriminator, fp32; in ``compute_dtype`` inside."""
+    dtype = compute_dtype(cfg)
+    with torch.profiler.record_function("discriminators"), cast_parameters(discriminators, dtype):
+        outs = {key: d(audio.to(dtype)) for key, d in discriminators.items()}
+    return outs if dtype == torch.float32 else {key: _to_float(o) for key, o in outs.items()}
 
 
 def draw_crop_start(state: TrainState, cfg: GANTaskConfig, t: int) -> int | None:
@@ -290,10 +332,12 @@ def _generator_loss(generator, discriminators, audio, mask, cfg: GANTaskConfig, 
     if fake.shape != audio.shape:
         raise ValueError(f"generator output {tuple(fake.shape)} does not match the audio {tuple(audio.shape)}")
     audio_m, fake_m = audio * mask, fake * mask
+    loss_dtype = DTYPES[cfg.loss_stft_dtype]
+    audio_l, fake_l = audio_m[:, 0].to(loss_dtype), fake_m[:, 0].to(loss_dtype)
     with torch.profiler.record_function("mr_stft_loss"):
-        sc_loss, mag_loss = multi_resolution_stft_loss(fake_m[:, 0], audio_m[:, 0], cfg.stft_resolutions)
+        sc_loss, mag_loss = multi_resolution_stft_loss(fake_l, audio_l, cfg.stft_resolutions)
     loss_stft = sc_loss + mag_loss
-    loss_mel = torch.mean(torch.abs(loss_mel_transform(cfg, audio_m[:, 0]) - loss_mel_transform(cfg, fake_m[:, 0])))
+    loss_mel = torch.mean(torch.abs(loss_mel_transform(cfg, audio_l).float() - loss_mel_transform(cfg, fake_l).float()))
 
     if start is None:
         audio_c, fake_c = audio_m, fake_m
@@ -305,9 +349,9 @@ def _generator_loss(generator, discriminators, audio, mask, cfg: GANTaskConfig, 
     loss_adv_all = 0.0
     discriminators.requires_grad_(False)  # no G-phase gradient reaches D's .grad
     try:
-        fake_outs = _discriminators(discriminators, fake_c)
+        fake_outs = _discriminators(discriminators, fake_c, cfg)
         with torch.no_grad():  # the real audio does not depend on G
-            real_outs = _discriminators(discriminators, audio_c)
+            real_outs = _discriminators(discriminators, audio_c, cfg)
     finally:
         discriminators.requires_grad_(True)
     for key, (score_fakes, feat_fake) in fake_outs.items():
@@ -324,9 +368,9 @@ def _generator_loss(generator, discriminators, audio, mask, cfg: GANTaskConfig, 
     return loss, metrics, audio_c, fake_c, ema
 
 
-def _discriminator_loss(discriminators, audio_c, fake_c):
-    real_outs = _discriminators(discriminators, audio_c)
-    fake_outs = _discriminators(discriminators, fake_c.detach())
+def _discriminator_loss(discriminators, audio_c, fake_c, cfg: GANTaskConfig):
+    real_outs = _discriminators(discriminators, audio_c, cfg)
+    fake_outs = _discriminators(discriminators, fake_c.detach(), cfg)
     metrics = {f"train/discriminator/{key}": discriminator_loss(real_outs[key][0], fake_outs[key][0])
                for key in real_outs}
     loss = sum(metrics.values()) / len(real_outs)
@@ -373,7 +417,7 @@ def make_train_step(cfg: GANTaskConfig, plain: bool = False):
     def d_phase(state: TrainState, audio_c: torch.Tensor, fake_c: torch.Tensor) -> dict:
         """The discriminators' loss, backward and AdamW update on the crops; advances the step."""
         state.opt_d.zero_grad(set_to_none=True)
-        loss, metrics = _discriminator_loss(state.discriminators, audio_c, fake_c)
+        loss, metrics = _discriminator_loss(state.discriminators, audio_c, fake_c, cfg)
         loss.backward()
         for key, d in state.discriminators.items():
             metrics[f"train/discriminator/grad_norm_{key}"] = global_norm(d.parameters())
@@ -393,18 +437,41 @@ def make_train_step(cfg: GANTaskConfig, plain: bool = False):
     return step
 
 
+def eval_generator(generator: nn.Module, cfg: GANTaskConfig) -> nn.Module:
+    """The module an eval forward runs: the generator itself, or under bf16 compute a fresh bf16 copy of
+    a "gan" family generator (``nn.cast_copy``).  The copy's modules are new, so K2's plan cache (keyed
+    by module, and by each parameter's address and version) cannot hand it the packed weights of an
+    earlier validation's copy, whose freed bf16 tensors a new copy's could reuse with version 0."""
+    dtype = compute_dtype(cfg)
+    if cfg.family != "gan" or dtype == torch.float32:
+        return generator
+    return cast_copy(generator, dtype)
+
+
 def make_eval_step(cfg: GANTaskConfig):
     """(state, batch) -> ({"val/metrics/mel": masked mel-L1 on the full clip}, masked fake): the
     generator in eval mode under ``torch.no_grad`` (BigVGAN: the inference path, K2 and K1; RefineGAN:
-    the seeded-0 noise of inference; vae: z = mean; vqvae: the codebooks as they are)."""
+    the seeded-0 noise of inference; vae: z = mean; vqvae: the codebooks as they are), in bf16 under bf16
+    compute (``eval_generator``).  The bf16 copy is kept while the weights it was made from stay: the
+    same generator, step and parameter versions (every in-place change bumps a version), so the batches
+    of one validation share one copy and K2 packs its weights once."""
+    cached: dict = {}
+
+    def eval_module(state: TrainState) -> nn.Module:
+        key = (state.step, tuple(p._version for p in state.generator.parameters()))
+        if cached.get("master") is not state.generator or cached["key"] != key:
+            cached.clear()  # the old copy goes before the new one is made
+            cached.update(master=state.generator, key=key, module=eval_generator(state.generator, cfg))
+        return cached["module"]
 
     def step(state: TrainState, batch: dict):
         audio, lengths = batch["audio"], batch["lengths"]
         mask = sequence_mask(lengths, audio.shape[2])
-        state.generator.eval()
+        generator = eval_module(state)
+        generator.eval()
         try:
             with torch.no_grad():
-                fake = generator_forward(state.generator, audio, cfg, template=batch.get("template"))[0]
+                fake = generator_forward(generator, audio, cfg, template=batch.get("template"))[0]
                 audio_m, fake_m = audio * mask, fake * mask
                 loss_mel = torch.mean(torch.abs(loss_mel_transform(cfg, audio_m[:, 0])
                                                 - loss_mel_transform(cfg, fake_m[:, 0])))

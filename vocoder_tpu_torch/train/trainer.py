@@ -15,6 +15,18 @@ Each validation also records its seconds in the eval forwards
 (``perf/val_forward_s``, CUDA events on the card) and in host PESQ
 (``perf/val_pesq_s``).
 
+Every training batch, the first included, comes through
+``data.dataset.DevicePrefetcher``: a thread makes the host batches two ahead
+and copies them to the card from pinned memory on a side stream, and
+``perf/input_wait_s`` is the time the loop blocked on it in the log window.
+``run.profile_steps=(start, stop)`` traces steps [start, stop) with
+``torch.profiler`` (CPU and, on the card, CUDA activities) into a Chrome
+trace under ``<workdir>/profile/``, whose path the log names; the trace's
+kernel names are what a reading of the step's card time starts from.
+Under ``task.compute_dtype="bfloat16"`` validation runs a bf16 copy of the
+generator (``train/gan.py::eval_generator``), BigVGAN's stages on K2's bf16
+route.
+
 Every family that ``train/gan.py`` trains runs through it unchanged: the
 step makes the family's input (log-mel or linear spectrogram), validation
 runs the family's eval forward, and a vqvae's EMA codebooks, buffers of the
@@ -24,9 +36,9 @@ generator, are saved and restored with its ``state_dict``.
 matmuls in full fp32 (TF32 off), as the JAX package's ``Precision.HIGHEST``;
 "default" lets them use TF32, as its ``Precision.DEFAULT`` lets the MXU round.
 
-Not ported yet (ROADMAP.md): the distributed init and meshes, the profiler
-window, W&B, and the pinned-memory prefetcher: each batch is copied to the
-card when the step needs it, and the wait counts as input time.
+Not ported yet (ROADMAP.md): the distributed init and meshes, and W&B (the
+card's machine has neither ``wandb`` nor a network; ``metrics.jsonl``, the
+media PNGs and TensorBoard stand in).
 """
 
 from __future__ import annotations
@@ -42,7 +54,7 @@ import torch
 
 from vocoder_tpu_torch.config import TrainConfig
 from vocoder_tpu_torch.data import transforms as T
-from vocoder_tpu_torch.data.dataset import MixDataset, VocoderDataset, batch_iterator
+from vocoder_tpu_torch.data.dataset import DevicePrefetcher, MixDataset, VocoderDataset, batch_iterator
 from vocoder_tpu_torch.data.f0 import f0_template
 from vocoder_tpu_torch.data.resample import resample
 from vocoder_tpu_torch.eval_metrics import pesq as pesq_metric
@@ -152,7 +164,7 @@ def _make_val_pesq(task):
     return run
 
 
-class _Timer:
+class Timer:
     """Seconds of work queued on ``device`` between ``start`` and ``stop``: CUDA events on a card (read
     once the card is done), the host's clock on the CPU."""
 
@@ -184,7 +196,7 @@ def validate(state: gan.TrainState, eval_fn, val_batches: list[dict], pesq_fn, d
     """One validation, as the JAX loop runs it: for each batch the eval forward, then host PESQ on its
     clips.  -> (scalars, (first batch's fake (B, 1, T) numpy, its host batch))."""
     mels, pesqs, first = [], [], None
-    fwd = _Timer(device)
+    fwd = Timer(device)
     pesq_s = 0.0
     for vb in val_batches:
         batch = to_device(vb, device)
@@ -226,6 +238,44 @@ def log_val_media(metrics_logger: MetricsLogger, step: int, task, first, device:
         metrics_logger.add_figure(step, "val/mel", fig)
 
 
+class ProfileWindow:
+    """``run.profile_steps``: ``torch.profiler`` over the steps [start, stop), written as a Chrome trace to
+    ``<workdir>/profile/trace_<start>_<stop>.json`` (the JAX package's ``jax.profiler`` window).  Call
+    ``before(step)`` before each step and ``after(step)`` after it, with the state's step; ``close`` ends a
+    window that the run's end cut short."""
+
+    def __init__(self, steps, workdir: Path, device: torch.device):
+        self.steps = tuple(steps) if steps else None
+        if self.steps is not None and (len(self.steps) != 2 or not 0 <= self.steps[0] < self.steps[1]):
+            raise ValueError(f"run.profile_steps must be (start, stop) with 0 <= start < stop, got {steps!r}")
+        self.path = None if self.steps is None else workdir / "profile" / f"trace_{self.steps[0]}_{self.steps[1]}.json"
+        self.device = device
+        self._prof = None
+
+    def before(self, step: int) -> None:
+        if self.steps is not None and step == self.steps[0] and self._prof is None:
+            acts = [torch.profiler.ProfilerActivity.CPU]
+            if self.device.type == "cuda":
+                acts.append(torch.profiler.ProfilerActivity.CUDA)
+            self._prof = torch.profiler.profile(activities=acts)
+            self._prof.__enter__()
+
+    def after(self, step: int) -> None:
+        if self._prof is not None and step >= self.steps[1]:
+            self.close()
+
+    def close(self) -> None:
+        if self._prof is None:
+            return
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        prof, self._prof = self._prof, None
+        prof.__exit__(None, None, None)
+        self.path.parent.mkdir(parents=True, exist_ok=True)
+        prof.export_chrome_trace(str(self.path))
+        log(f"profiler trace written to {self.path}")
+
+
 def train(cfg: TrainConfig, device: str | torch.device = "cuda") -> gan.TrainState:
     """Train on ``device`` until ``run.max_steps`` (or an early stop); the final state."""
     device = torch.device(device)
@@ -254,40 +304,39 @@ def train(cfg: TrainConfig, device: str | torch.device = "cuda") -> gan.TrainSta
     step_fn = gan.make_train_step(task)
     eval_fn = gan.make_eval_step(task)
     target_len = task.hop_length * task.num_frames
+    profile = ProfileWindow(cfg.run.profile_steps, workdir, device)
     host_it = batch_iterator(_build_train_sampler(cfg), batch_size=cfg.data.batch_size, target_length=target_len,
                              seed=cfg.run.seed, start_step=state.step, num_workers=cfg.data.num_workers,
                              template_fn=template_fn(task))
     val_batches = _build_val_batches(cfg)
     pesq_fn = _make_val_pesq(task) if cfg.run.val_pesq else None
     metrics_logger = MetricsLogger(workdir)
-    wait_s = 0.0
+    prefetcher = DevicePrefetcher(host_it, device, depth=2)  # its thread starts here; closed in the finally
 
-    def next_batch() -> dict:
-        nonlocal wait_s
-        t = time.perf_counter()
-        batch = to_device(next(host_it), device)
-        wait_s += time.perf_counter() - t
-        return batch
+    def run_step():
+        profile.before(state.step)
+        metrics = step_fn(state, next(prefetcher))
+        profile.after(state.step)
+        return metrics
 
     start_step = state.step
     log(f"starting training at step {start_step} / {cfg.run.max_steps}")
     try:
         if start_step < cfg.run.max_steps:
-            step_fn(state, next_batch())  # the first step, which builds the kernels, apart
+            run_step()  # the first step, which builds the kernels, apart
             ckpt.save(state.step, state)
         t0 = time.perf_counter()
         window = max(cfg.run.log_interval, 1)
         best_val, stale_vals = float("inf"), 0
         while state.step < cfg.run.max_steps:
-            metrics = step_fn(state, next_batch())
+            metrics = run_step()
             step = state.step
             if step % window == 0:
                 scalars = {k: float(v) for k, v in metrics.items()}  # waits for the card
                 sps = window / (time.perf_counter() - t0)
                 scalars["perf/steps_per_s"] = sps
                 scalars["perf/audio_s_per_s"] = sps * cfg.data.batch_size * target_len / task.sampling_rate
-                scalars["perf/input_wait_s"] = wait_s
-                wait_s = 0.0
+                scalars["perf/input_wait_s"] = prefetcher.wait_seconds(reset=True)
                 metrics_logger.write(step, scalars)
                 log(f"step {step}: g={scalars['train/generator/all']:.3f} "
                     f"d={scalars['train/discriminator/all']:.3f} mel={scalars['train/generator/mel']:.3f} "
@@ -316,7 +365,8 @@ def train(cfg: TrainConfig, device: str | torch.device = "cuda") -> gan.TrainSta
         (workdir / "crash.log").write_text(traceback.format_exc())
         raise
     finally:
+        profile.close()
         ckpt.wait()
-        host_it.close()
+        prefetcher.close()
         metrics_logger.close()
     return state
