@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's inference (BigVGAN, HiFiGAN, Vocos, RefineGAN, Firefly-GAN; BigVGAN also with an
-f0 template), training (those, and the vae and vqvae families; fp32 and bf16, with and without activation
-checkpointing), the vqvae codec, FLAC/Ogg/MP3 input and evaluation on one CUDA card and check it.
+f0 template), training (those, and the vae, vqvae and ssl families; fp32 and bf16, with and without activation
+checkpointing), the vqvae and HuBERT (ssl) codecs, FLAC/Ogg/MP3 input, evaluation and the inference benchmark
+CLI on one CUDA card and check it.
 
     python3 chip_smoke.py          # from the repository root; needs one NVIDIA H100
 
@@ -67,7 +68,7 @@ Phases, in order; any failure exits non-zero:
      an f0 template (its batch carrying each item's template; K1 91 times);
  12. `cli.train.main --model bigvgan` at the preset's batch 16 x 128 frames on
      32 generated WAVs, 4 steps with validation every 2 (K2 in validation,
-     the blockwise AMP path in training only), then a resume to step 6, then
+     the blockwise AMP path in training only), then a resume to step 5, then
      `cli.infer --ckpt <workdir>` from that run;
  13. the training step's ms by phase, audio-s/s, peak memory and the card-time
      shares of its parts at b16 (vocoder_tpu_torch/tools/profile_train.py);
@@ -131,11 +132,25 @@ Phases, in order; any failure exits non-zero:
      DevicePrefetcher, K1 and K2's bf16 route launched (K2 fp32 not), each
      validation's first fake within rel L2 5e-3 of the plain bf16 eval of the same
      weights (the weights change between them: K2's plan cache must follow);
- 28. `run.profile_steps=(3,5)`: the Chrome trace under <workdir>/profile/ names K1;
+ 28. `run.profile_steps=(2,3)`: the Chrome trace under <workdir>/profile/ names K1;
  29. `cli.bench_train` for BigVGAN and HiFiGAN at b16 in bf16 and fp32 with
      --memory-stats, one timed step each (a smoke of the CLI);
  30. `cli.bench_input --prefetch` over phase 21's corpus at 1 and 4 workers, the
-     consumer holding each batch for phase 27's step time: host batches/s, the wait.
+     consumer holding each batch for phase 27's step time: host batches/s, the wait;
+ 31. the ssl family's frozen HuBERT (the port's own, 12 layers, 768 wide, the random
+     backbone of seed 0) on the card against the same weights on the CPU, fp32 with
+     TF32 off, b2 x 20,480 samples: rel L2 <= 1e-4, the max relative error, the TF32
+     flags restored after the call; then its ms a b16 x 20,480 batch (CUDA events);
+ 32. one ssl training step at the 16 kHz preset's full width (post-net, a 4,096 x 512
+     codebook, the 512-channel decoder at hop 640), b2, on the card against the same
+     step on the CPU with the same features and draws, by phase 17's rules;
+ 33. `cli.train --family ssl --resolution 16000_640_2048` at the preset's batch 16 x 32
+     frames: 4 steps with validation every 2, a resume to 6 with the codebooks
+     checkpointed; the steps' ms, audio-s/s and the backbone's share of each;
+ 34. `cli.codec --family ssl` as phase 15: encode and decode on the card and `encode
+     --device cpu`, codes equal above the margin, each WAV the eval forward; audio-s/s;
+ 35. `cli.bench_infer` for BigVGAN, HiFiGAN and Vocos at b16 x 256 frames in bf16 and
+     fp32, each within 15% of `profile_forward`'s generator ms in the same run.
 
 A `timeline` line gives the seconds from the start to the end of each phase.
 
@@ -908,7 +923,7 @@ def run_train_cli(argv: list[str]) -> tuple[object, str]:
 
 def check_cli_train(root: Path, infer, paths: dict) -> None:
     """cli.train at the BigVGAN preset's batch 16 x 128 frames: 4 steps with validation every 2 and a
-    checkpoint every 2, then a resume to 6, then cli.infer from the run's workdir."""
+    checkpoint every 2, then a resume to 5, then cli.infer from the run's workdir."""
     import numpy as np
     import torch
 
@@ -942,12 +957,12 @@ def check_cli_train(root: Path, infer, paths: dict) -> None:
         raise SystemExit("cli.train: the run did not train, validate and checkpoint as asked")
 
     tf32_defaults()
-    state, text = drive_path("cli_train_resume", lambda: run_train_cli([*base, "run.max_steps=6"]),
-                             ("aa_snake", FP32_K2), paths, blockwise=2 * len(task.generator.upsample_rates))
-    ok = state.step == 6 and "auto-resumed from step 4" in text and (work / "checkpoints" / "6.pt").is_file()
+    state, text = drive_path("cli_train_resume", lambda: run_train_cli([*base, "run.max_steps=5"]),
+                             ("aa_snake",), paths, blockwise=len(task.generator.upsample_rates))
+    ok = state.step == 5 and "auto-resumed from step 4" in text and (work / "checkpoints" / "5.pt").is_file()
     log({"phase": "cli_train_resume", "step": state.step, "launches": paths["cli_train_resume"], "ok": ok})
     if not ok:
-        raise SystemExit("cli.train did not resume from step 4 and end at step 6")
+        raise SystemExit("cli.train did not resume from step 4 and end at step 5")
 
     wav = root / "val" / "00.wav"
     n = read_wav(wav)[0].shape[-1]
@@ -1294,29 +1309,30 @@ CODEC_MARGIN_REL = 1e-4
 FAMILY_LOSS_REL, FAMILY_GRAD_REL_L2, FAMILY_EMA_REL_L2 = 1e-5, 1e-3, 1e-5
 
 
-def fit_codebook(model, spec, seed: int) -> None:
-    """Put the first codebook where a trained one would sit: on latent frames of ``spec`` (B, bins, F)
-    plus noise of 0.3 of their spread (``embed_avg`` with it).  A random encoder's latents vary little about
-    their mean, so against a unit-normal codebook every frame would take the same code."""
+def fit_codebook(model, inputs, seed: int) -> None:
+    """Put the first codebook where a trained one would sit: on latent frames of ``inputs`` (a vqvae's
+    spectrogram, an ssl codec's HuBERT features) plus noise of 0.3 of their spread (``embed_avg`` with it).
+    A random encoder's latents vary little about their mean, so against a unit-normal codebook every frame
+    would take the same code."""
     import torch
 
     with torch.no_grad():
-        frames = model.encoder(spec).transpose(1, 2).reshape(-1, model.cfg.vq.dim)
+        frames = model.encode(inputs).transpose(1, 2).reshape(-1, model.cfg.vq.dim)
         gen = torch.Generator().manual_seed(seed)
         k = model.cfg.vq.codebook_size
-        idx = torch.randint(0, frames.shape[0], (k,), generator=gen).to(spec.device)
-        noise = torch.randn(k, frames.shape[1], generator=gen).to(spec.device)
+        idx = torch.randint(0, frames.shape[0], (k,), generator=gen).to(inputs.device)
+        noise = torch.randn(k, frames.shape[1], generator=gen).to(inputs.device)
         rows = frames[idx] + 0.3 * frames.std(0) * noise
         model.vq.layers[0].embed.copy_(rows)
         model.vq.layers[0].embed_avg.copy_(rows)
 
 
-def codec_margins(model, spec):
-    """(codes (F,), margin over squared norm (F,)) of the first quantiser for one item's spectrogram, float64."""
+def codec_margins(model, inputs):
+    """(codes (F,), margin over squared norm (F,)) of the first quantiser for one item's inputs, float64."""
     import torch
 
     with torch.no_grad():
-        x = model.encoder(spec)[0].T.double()
+        x = model.encode(inputs)[0].T.double()
         d = torch.cdist(x, model.vq.layers[0].embed.double()).square()
         best = torch.topk(d, 2, dim=1, largest=False).values
     return torch.argmin(d, dim=1), (best[:, 1] - best[:, 0]) / x.square().sum(1)
@@ -1342,13 +1358,15 @@ def codec_wavs(root: Path, sr: int, rng) -> dict[str, float]:
     return out
 
 
-def check_codec(root: Path, dev, paths: dict, stamp: dict) -> None:
-    """cli.codec at the vqvae preset's full width (44.1 kHz; a 16-layer WaveNet of 256, a 4,096 x 512
-    codebook, a 512-channel HiFiGAN decoder): a seeded training state (random weights from numpy, the
-    codebook fitted to the inputs' latents) saved as a workdir, then `encode` and `decode` on the card over
-    the WAVs, and `encode --device cpu`.  The card's codes equal the CPU's on every frame whose margin
-    exceeds CODEC_MARGIN_REL of its squared norm; each decoded WAV equals the generator's eval forward on
-    the card within WAV_TOL.  Encode and decode audio-s/s and seconds."""
+def check_codec(root: Path, dev, paths: dict, stamp: dict, family: str = "vqvae", extractors: dict | None = None):
+    """cli.codec at a codec preset's full width: a seeded training state (random weights from numpy, the codebook
+    fitted to the inputs' latents) saved as a workdir, then `encode` and `decode` on the card over the WAVs,
+    and `encode --device cpu`.  vqvae (15): 44.1 kHz, a 16-layer WaveNet of 256 over the linear spectrogram, a
+    4,096 x 512 codebook, a 512-channel HiFiGAN decoder.  ssl (34): 16 kHz, the frozen HuBERT's features (the
+    CLI's random backbone of seed 0; ``extractors``, device -> extractor, hold the same for this check), a
+    768 -> 512 post-net, the same codebook and a decoder at hop 640.  The card's codes equal the CPU's on every
+    frame whose margin exceeds CODEC_MARGIN_REL of its squared norm; each decoded WAV equals the generator's
+    eval forward on the card within WAV_TOL.  Encode and decode audio-s/s and seconds."""
     import numpy as np
     import torch
 
@@ -1356,35 +1374,42 @@ def check_codec(root: Path, dev, paths: dict, stamp: dict) -> None:
     from vocoder_tpu_torch.config import TrainConfig, build_task_config
     from vocoder_tpu_torch.data.audio_io import read_audio, read_wav
     from vocoder_tpu_torch.data.resample import resample
-    from vocoder_tpu_torch.models.vae import vqvae_random_state_dict
+    from vocoder_tpu_torch.models.vae import ssl_random_state_dict, vqvae_random_state_dict
     from vocoder_tpu_torch.ops.spectral import linear_spectrogram
     from vocoder_tpu_torch.train import gan
     from vocoder_tpu_torch.utils.checkpoint import CheckpointManager
 
     tf32_off()
-    task = build_task_config(family="vqvae")
+    ssl = family == "ssl"
+    resolution = "16000_640_2048" if ssl else "44100_512_2048"
+    task = build_task_config(family=family, resolution=resolution)
     (root / "in").mkdir()
-    seconds = codec_wavs(root / "in", task.sampling_rate, np.random.default_rng(SEED + 16))
+    seconds = codec_wavs(root / "in", task.sampling_rate, np.random.default_rng(SEED + (34 if ssl else 16)))
 
-    def spec_of(name: str, device) -> torch.Tensor:  # the CLI's preprocessing of one file
+    def inputs_of(name: str, device) -> torch.Tensor:  # the CLI's preprocessing of one file
         audio, sr = read_audio(root / "in" / name)
         a = resample(audio.mean(0), sr, task.sampling_rate)
-        a = np.pad(a, (0, (-len(a)) % task.hop_length)).astype(np.float32)
-        return linear_spectrogram(torch.from_numpy(a)[None].to(device), n_fft=task.n_fft, hop_length=task.hop_length,
-                                  win_length=task.win_length)
+        a = torch.from_numpy(np.pad(a, (0, (-len(a)) % task.hop_length)).astype(np.float32))[None].to(device)
+        if ssl:
+            return extractors[str(device)](a)
+        return linear_spectrogram(a, n_fft=task.n_fft, hop_length=task.hop_length, win_length=task.win_length)
 
     state = gan.create_train_state(task, SEED, dev)
-    state.generator.load_state_dict(vqvae_random_state_dict(task.generator, SEED))
-    fit_codebook(state.generator, torch.cat([spec_of(n, dev) for n in ("0.wav", "1.wav")], dim=2), SEED + 16)
+    weights = ssl_random_state_dict if ssl else vqvae_random_state_dict
+    state.generator.load_state_dict(weights(task.generator, SEED))
+    fit_codebook(state.generator, torch.cat([inputs_of(n, dev) for n in ("0.wav", "1.wav")], dim=1 if ssl else 2),
+                 SEED + 16)
     work = root / "run"
     CheckpointManager(work / "checkpoints").save(0, state, force=True)
     (work / "config.json").write_text(json.dumps(dataclasses.asdict(TrainConfig(task=task)), default=str))
     del state
     torch.cuda.empty_cache()
+    tag = "_ssl" if ssl else ""
 
     def run(mode: str, src: Path, dst: Path, device: str, path: str | None = None) -> float:
         """The CLI from PyTorch's default TF32 flags; its seconds.  ``path``: a main path on the card."""
-        argv = [mode, "--ckpt", str(work), "--input", str(src), "--output", str(dst), "--device", device]
+        argv = [mode, "--family", family, "--resolution", resolution, "--ckpt", str(work), "--input", str(src),
+                "--output", str(dst), "--device", device]
         tf32_defaults()
         t0 = time.perf_counter()
         if path is None:
@@ -1395,8 +1420,8 @@ def check_codec(root: Path, dev, paths: dict, stamp: dict) -> None:
             raise SystemExit("cli.codec left TF32 on")
         return time.perf_counter() - t0
 
-    encode_s = run("encode", root / "in", root / "codes", str(dev), "codec_encode")
-    decode_s = run("decode", root / "codes", root / "out", str(dev), "codec_decode")
+    encode_s = run("encode", root / "in", root / "codes", str(dev), f"codec_encode{tag}")
+    decode_s = run("decode", root / "codes", root / "out", str(dev), f"codec_decode{tag}")
     cpu_s = run("encode", root / "in", root / "codes_cpu", "cpu")
     tf32_off()
     cpu_model = codec.load_codec(work, task, torch.device("cpu"))
@@ -1407,8 +1432,7 @@ def check_codec(root: Path, dev, paths: dict, stamp: dict) -> None:
         stem = name[: -len(".wav")]
         card = np.load(root / "codes" / f"{stem}.codes.npy")
         cpu = np.load(root / "codes_cpu" / f"{stem}.codes.npy")
-        spec_cpu = spec_of(name, "cpu")
-        _, rel_margin = codec_margins(cpu_model, spec_cpu)
+        _, rel_margin = codec_margins(cpu_model, inputs_of(name, "cpu"))
         clear = rel_margin.numpy() > CODEC_MARGIN_REL
         differ = card[0, 0] != cpu[0, 0]
         total["frames"] += differ.size
@@ -1417,34 +1441,36 @@ def check_codec(root: Path, dev, paths: dict, stamp: dict) -> None:
         total["differ_above_margin"] += int((differ & clear).sum())
         total["codes_used"] |= set(card[0, 0].tolist())
         with torch.no_grad():
-            want = card_model(spec_of(name, dev))[0][0, 0].cpu().numpy()
+            want = card_model(inputs_of(name, dev))[0][0, 0].cpu().numpy()
         wav, sr = read_wav(root / "out" / f"{stem}.wav")
         err = float(np.abs(wav[0] - want).max()) if wav.shape == (1, want.size) else float("inf")
         worst_wav = max(worst_wav, err)
-        log({"phase": "codec_file", "file": name, "frames": int(card.shape[-1]), "codes_shape": list(card.shape),
+        log({"phase": f"codec_file{tag}", "file": name, "frames": int(card.shape[-1]),
+             "codes_shape": list(card.shape),
              "differ": int(differ.sum()), "under_margin": int((~clear).sum()), "wav_vs_forward_max_abs": err,
              "decoded_peak": float(np.abs(wav).max()) if wav.size else None})
     audio_s = sum(seconds.values())
     ok = (total["differ_above_margin"] == 0 and worst_wav <= WAV_TOL and len(total["codes_used"]) > 10
           and total["under_margin"] < total["frames"])
-    log({"phase": "codec", "model": "vqvae", "files": len(seconds), "audio_s": audio_s, "frames": total["frames"],
+    log({"phase": "codec", "model": family, "files": len(seconds), "audio_s": audio_s, "frames": total["frames"],
          "codes_used": len(total["codes_used"]), "share_under_margin": total["under_margin"] / total["frames"],
          "margin_rel": CODEC_MARGIN_REL, "codes_differ_card_vs_cpu": total["differ"],
          "codes_differ_above_margin": total["differ_above_margin"], "wav_vs_forward_max_abs": worst_wav,
          "wav_limit": WAV_TOL, "ok": ok})
-    log({"metric": "codec_seconds", "model": "vqvae", "audio_s": audio_s, "encode_seconds": encode_s,
+    log({"metric": "codec_seconds", "model": family, "audio_s": audio_s, "encode_seconds": encode_s,
          "decode_seconds": decode_s, "encode_audio_s_per_s": audio_s / encode_s,
          "decode_audio_s_per_s": audio_s / decode_s, "cpu_encode_seconds": cpu_s, **stamp})
     if not ok:
-        raise SystemExit("cli.codec: the card's codes or decoded audio disagree, or the codes did not vary")
+        raise SystemExit(f"cli.codec --family {family}: the card's codes or decoded audio disagree, or the codes "
+                         "did not vary")
     del cpu_model, card_model
     torch.cuda.empty_cache()
 
 
 def time_family_steps(dev, stamp: dict) -> None:
     """The training step of vae, vqvae, Vocos (base) and Firefly-GAN at their presets' widths and the
-    trainer's default batch 16 (44.1 kHz; 128 frames, the vqvae's 32), fp32, TF32 off: ms by phase,
-    audio-s/s, peak memory, card busy and top kernels (tools/profile_train.py)."""
+    trainer's default batch 16 (44.1 kHz; 128 frames, the vqvae's 32), fp32, TF32 off: ms by phase of the third
+    step, audio-s/s, peak memory, card busy and top kernels (tools/profile_train.py)."""
     import torch
 
     from vocoder_tpu_torch.tools.profile_train import measure_step, training_setup
@@ -1453,7 +1479,7 @@ def time_family_steps(dev, stamp: dict) -> None:
     tf32_off()
     for name, model, family in FAMILY_STEPS:
         task, state, batch = training_setup(model, 16, SEED, dev, family)
-        rec = measure_step(state, gan.make_train_step(task), batch, task, 4)
+        rec = measure_step(state, gan.make_train_step(task), batch, task, 3)
         log({"metric": "train_step_ms", "model": name, "batch": 16, "samples": task.hop_length * task.num_frames,
              "dtype": "fp32", "params": sum(p.numel() for p in state.generator.parameters()),
              "busy_share_of_step": rec["profiled_busy_ms"] / rec["ms"], **rec, **stamp})
@@ -1499,12 +1525,8 @@ def adam_step_close(new_card, new_cpu, old, grad_cpu, grad_err: float, lr: float
 
 def check_family_steps_cpu(dev, paths: dict) -> None:
     """One step of each family at full width and reduced depth (``reduced_family_task``), b2, TF32 off, on
-    the card and on the CPU from the same weights, batch, crop start and draws (the noise generator a CPU
-    one on both sides: drop_path and eps draw on their generator's device): every loss, every generator
-    gradient, the updated generator parameters, and the vqvae's EMA codebook (fitted to the batch's latents
-    first, so that the step touches many codes)."""
-    import torch
-
+    the card and on the CPU from the same weights, batch, crop start and draws (``step_card_vs_cpu``), the
+    vqvae's EMA codebook fitted to the batch's latents first, so that the step touches many codes."""
     from vocoder_tpu_torch.models.vae import vae_random_state_dict, vqvae_random_state_dict
     from vocoder_tpu_torch.tools.profile_forward import RANDOM_WEIGHTS
     from vocoder_tpu_torch.tools.profile_train import synthetic_batch
@@ -1526,65 +1548,84 @@ def check_family_steps_cpu(dev, paths: dict) -> None:
             m.load_state_dict(sd)
             fit_codebook(m, gan.input_transform(task, batch["audio"][:, 0]), SEED)
             sd = m.state_dict()
-        runs = {}
-        for device in ("cpu", dev):
-            state = gan.create_train_state(task, SEED, device)
-            state.generator.load_state_dict(sd)
-            state.noise = torch.Generator().manual_seed(SEED)
-            b = {k: v.to(device) for k, v in batch.items()}
-            old = {k: v.detach().cpu().clone() for k, v in state.generator.state_dict().items()}
-            start = gan.draw_crop_start(state, task, t)
-            step = gan.make_train_step(task)
-            if device == "cpu":
-                metrics = step(state, b, start)
-            else:
-                metrics = drive_path(f"train_step_{name}", lambda: step(state, b, start), (), paths)
-            runs[device] = ({k: float(v) for k, v in metrics.items()},
-                            {n: p.grad.detach().cpu().clone() for n, p in state.generator.named_parameters()},
-                            {k: v.detach().cpu().clone() for k, v in state.generator.state_dict().items()}, old)
-            del state
-        (mk, gk, nk, _), (mc, gc, nc, old) = runs[dev], runs["cpu"]
-        lr = mc["lr"]
-        loss_rel = {k: rel(mk[k], mc[k]) for k in mk if "grad_norm" not in k and k != "lr"}
-        grad_rel = {n: rel_l2(gk[n], gc[n]) for n in gc}
-        worst = max(grad_rel, key=grad_rel.get)
-        params_ok = all(adam_step_close(nk[n], nc[n], old[n], gc[n], float((gk[n] - gc[n]).abs().max()), lr,
-                                        task.weight_decay) for n in gc)
-        ema = {k: rel_l2(nk[k], nc[k]) for k in nc if ".vq." in f".{k}" and "layers" in k}
-        ema_moved = {k: rel_l2(nc[k], old[k]) for k in ema}
-        ok = (max(loss_rel.values()) <= FAMILY_LOSS_REL and grad_rel[worst] <= FAMILY_GRAD_REL_L2 and params_ok
-              and all(v <= FAMILY_EMA_REL_L2 for v in ema.values()) and all(v > 0 for v in ema_moved.values())
-              and all(map(math.isfinite, list(mk.values()) + list(mc.values()))))
-        log({"phase": "family_step_card_vs_cpu", "model": name, "batch": TRAIN_CHECK_BATCH, "samples": t,
-             "generator": dataclasses.asdict(task.generator), "metrics_card": mk, "loss_rel": loss_rel,
-             "max_grad_rel_l2": grad_rel[worst], "worst_grad": worst, "params_adam_close": params_ok,
-             "ema_rel_l2": ema, "ema_moved_rel_l2": ema_moved, "launches": paths[f"train_step_{name}"],
-             "limits": {"loss_rel": FAMILY_LOSS_REL, "grad_rel_l2": FAMILY_GRAD_REL_L2,
-                        "ema_rel_l2": FAMILY_EMA_REL_L2},
-             "ok": ok})
-        if not ok:
-            raise SystemExit(f"{name}: the training step on the card disagrees with the step on the CPU")
-        torch.cuda.empty_cache()
+        step_card_vs_cpu(name, task, batch, sd, dev, paths)
 
 
-def check_cli_train_vqvae(root: Path, dev, paths: dict) -> None:
-    """cli.train --family vqvae at the preset's batch 16 x 32 frames on 32 generated WAVs: 4 steps with
-    validation every 2 and a checkpoint every 2, then a resume to 6; the codebooks move from step 2 to 4,
-    step 4's checkpoint holds the run's last codebook, and the resumed run moves it on."""
+def step_card_vs_cpu(name: str, task, batch: dict, sd: dict, dev, paths: dict) -> dict:
+    """One training step of ``task`` from the generator weights ``sd`` on the CPU batch ``batch``, on the
+    card (the main path ``train_step_<name>``) and on the CPU, from the same crop start and draws (the noise
+    generator a CPU one on both sides: drop_path and eps draw on their generator's device): every loss, every
+    generator gradient, the updated generator parameters, and any EMA codebook."""
+    import torch
+
+    from vocoder_tpu_torch.train import gan
+
+    t = batch["audio"].shape[2]
+    runs = {}
+    for device in ("cpu", dev):
+        state = gan.create_train_state(task, SEED, device)
+        state.generator.load_state_dict(sd)
+        state.noise = torch.Generator().manual_seed(SEED)
+        b = {k: v.to(device) for k, v in batch.items()}
+        old = {k: v.detach().cpu().clone() for k, v in state.generator.state_dict().items()}
+        start = gan.draw_crop_start(state, task, t)
+        step = gan.make_train_step(task)
+        if device == "cpu":
+            metrics = step(state, b, start)
+        else:
+            metrics = drive_path(f"train_step_{name}", lambda: step(state, b, start), (), paths)
+        runs[device] = ({k: float(v) for k, v in metrics.items()},
+                        {n: p.grad.detach().cpu().clone() for n, p in state.generator.named_parameters()},
+                        {k: v.detach().cpu().clone() for k, v in state.generator.state_dict().items()}, old)
+        del state
+    (mk, gk, nk, _), (mc, gc, nc, old) = runs[dev], runs["cpu"]
+    lr = mc["lr"]
+    loss_rel = {k: rel(mk[k], mc[k]) for k in mk if "grad_norm" not in k and k != "lr"}
+    grad_rel = {n: rel_l2(gk[n], gc[n]) for n in gc}
+    worst = max(grad_rel, key=grad_rel.get)
+    params_ok = all(adam_step_close(nk[n], nc[n], old[n], gc[n], float((gk[n] - gc[n]).abs().max()), lr,
+                                    task.weight_decay) for n in gc)
+    ema = {k: rel_l2(nk[k], nc[k]) for k in nc if ".vq." in f".{k}" and "layers" in k}
+    ema_moved = {k: rel_l2(nc[k], old[k]) for k in ema}
+    ok = (max(loss_rel.values()) <= FAMILY_LOSS_REL and grad_rel[worst] <= FAMILY_GRAD_REL_L2 and params_ok
+          and all(v <= FAMILY_EMA_REL_L2 for v in ema.values()) and all(v > 0 for v in ema_moved.values())
+          and all(map(math.isfinite, list(mk.values()) + list(mc.values()))))
+    rec = {"phase": "family_step_card_vs_cpu", "model": name, "batch": batch["audio"].shape[0], "samples": t,
+           "generator": dataclasses.asdict(task.generator), "metrics_card": mk, "loss_rel": loss_rel,
+           "max_grad_rel_l2": grad_rel[worst], "worst_grad": worst, "params_adam_close": params_ok,
+           "ema_rel_l2": ema, "ema_moved_rel_l2": ema_moved, "launches": paths[f"train_step_{name}"],
+           "limits": {"loss_rel": FAMILY_LOSS_REL, "grad_rel_l2": FAMILY_GRAD_REL_L2,
+                      "ema_rel_l2": FAMILY_EMA_REL_L2},
+           "ok": ok}
+    log(rec)
+    if not ok:
+        raise SystemExit(f"{name}: the training step on the card disagrees with the step on the CPU")
+    torch.cuda.empty_cache()
+    return rec
+
+
+def check_cli_train_codec(root: Path, dev, paths: dict, family: str = "vqvae", stamp: dict | None = None) -> None:
+    """cli.train --family vqvae (18; 44.1 kHz) or ssl (33; --resolution 16000_640_2048, the backbone's
+    features made on the card a step) at the preset's batch 16 x 32 frames on 32 generated WAVs: 4 steps
+    with validation every 2 and a checkpoint every 2, then a resume to 6; the codebooks move from step 2 to
+    4, step 4's checkpoint holds the run's last codebook, and the resumed run moves it on.  For ssl, the
+    steps' ms and audio-s/s from the log and the backbone's share of each (``perf/ssl_features_s``)."""
     import numpy as np
     import torch
 
     from vocoder_tpu_torch.config import build_task_config
     from vocoder_tpu_torch.utils.checkpoint import CheckpointManager
 
-    task = build_task_config(family="vqvae")
-    write_train_corpus(root, task.sampling_rate, np.random.default_rng(SEED + 17))
-    work = root / "run_vqvae"
-    base = ["--family", "vqvae", "--device", str(dev), f"data.train_roots=('{root / 'train'}',)",
-            f"data.val_root={root / 'val'}", "run.log_interval=1", "run.val_interval=2", "run.ckpt_interval=2",
-            "run.val_pesq=False", f"run.workdir={work}"]
+    ssl = family == "ssl"
+    resolution = SSL_RESOLUTION if ssl else "44100_512_2048"
+    task = build_task_config(family=family, resolution=resolution)
+    write_train_corpus(root, task.sampling_rate, np.random.default_rng(SEED + (33 if ssl else 17)))
+    work = root / f"run_{family}"
+    base = ["--family", family, "--resolution", resolution, "--device", str(dev),
+            f"data.train_roots=('{root / 'train'}',)", f"data.val_root={root / 'val'}", "run.log_interval=1",
+            "run.val_interval=2", "run.ckpt_interval=2", "run.val_pesq=False", f"run.workdir={work}"]
     tf32_defaults()
-    state, _ = drive_path("cli_train_vqvae", lambda: run_train_cli([*base, "run.max_steps=4"]), (), paths)
+    state, _ = drive_path(f"cli_train_{family}", lambda: run_train_cli([*base, "run.max_steps=4"]), (), paths)
     records = [json.loads(line) for line in (work / "metrics.jsonl").read_text().splitlines()]
     train_recs = [r for r in records if "train/generator/all" in r]
     val_recs = [r for r in records if "val/metrics/mel" in r]
@@ -1596,20 +1637,31 @@ def check_cli_train_vqvae(root: Path, dev, paths: dict) -> None:
     ok = (state.step == 4 and finite and [r["step"] for r in train_recs] == [2, 3, 4]
           and [r["step"] for r in val_recs] == [2, 4] and {"2.pt", "4.pt"} <= set(ckpts)
           and all("train/generator/vq" in r for r in train_recs) and torch.equal(saved, embed)
-          and not torch.equal(first, embed))
-    log({"phase": "cli_train", "model": "vqvae", "batch": 16, "frames": 32, "steps": 4, "checkpoints": ckpts,
+          and not torch.equal(first, embed) and all(("perf/ssl_features_s" in r) == ssl for r in train_recs))
+    log({"phase": "cli_train", "model": family, "batch": 16, "frames": 32, "steps": 4, "checkpoints": ckpts,
          "train_records": train_recs, "val_records": val_recs, "finite": finite,
          "codebook_moved_rel_l2_2_to_4": rel_l2(embed, first), "ok": ok})
     if not ok:
-        raise SystemExit("cli.train --family vqvae: the run did not train, validate and checkpoint as asked")
+        raise SystemExit(f"cli.train --family {family}: the run did not train, validate and checkpoint as asked")
 
     tf32_defaults()
-    state, text = drive_path("cli_train_vqvae_resume", lambda: run_train_cli([*base, "run.max_steps=6"]), (), paths)
+    state, text = drive_path(f"cli_train_{family}_resume", lambda: run_train_cli([*base, "run.max_steps=6"]), (),
+                             paths)
     ok = (state.step == 6 and "auto-resumed from step 4" in text and (work / "checkpoints" / "6.pt").is_file()
           and not torch.equal(state.generator.vq.layers[0].embed.detach().cpu(), embed))
-    log({"phase": "cli_train_resume", "model": "vqvae", "step": state.step, "ok": ok})
+    log({"phase": "cli_train_resume", "model": family, "step": state.step, "ok": ok})
     if not ok:
-        raise SystemExit("cli.train --family vqvae did not resume from step 4 and end at step 6")
+        raise SystemExit(f"cli.train --family {family} did not resume from step 4 and end at step 6")
+    if ssl:  # steps 3 (after step 2's validation and checkpoint), 4 and 6 (each the only step of its window)
+        records = [json.loads(line) for line in (work / "metrics.jsonl").read_text().splitlines()]
+        for r in records:
+            if "perf/steps_per_s" in r and r["step"] in (3, 4, 6):
+                step_s = 1.0 / r["perf/steps_per_s"]
+                log({"metric": "cli_train_step", "model": "ssl", "batch": 16, "frames": 32, "step": r["step"],
+                     "ms": 1e3 * step_s, "audio_s_per_s": r["perf/audio_s_per_s"],
+                     "backbone_ms": 1e3 * r["perf/ssl_features_s"],
+                     "backbone_share": r["perf/ssl_features_s"] / step_s, "input_wait_s": r["perf/input_wait_s"],
+                     "after_validation": r["step"] == 3, **stamp})
 
 
 # Slice 9: the host's audio decoders, training over FLAC/Ogg/MP3 with validation PESQ, and evaluation.
@@ -1889,7 +1941,7 @@ def check_cli_evaluate(root: Path, work: Path, infer, paths: dict, stamp: dict) 
 BF16_LOSS_CAP, BF16_GRAD_CAP = 2e-2, 5e-2  # the bf16 rule's caps: kernel path within 2x the run's floor
 CKPT_LOSS_REL, CKPT_GRAD_REL_L2 = 1e-5, 1e-4  # a checkpointed step against the same step without
 K1_RECOMPUTED_PER_STEP = 90  # the AMP blocks' activations, run again in the backward (not activation_post)
-TIMED_STEPS = 4  # measure_step's steps in phases 13 and 26: the median of the third and fourth
+TIMED_STEPS = 3  # measure_step's steps in phases 13 and 26: the third is timed
 RESAMPLE_SECONDS = 30.0  # audio for the native resample's speed-up (44.1 -> 16 kHz, the PESQ path)
 
 
@@ -2156,20 +2208,20 @@ def check_cli_train_bf16(root: Path, paths: dict, stamp: dict) -> float:
 
 
 def check_profile_steps(root: Path, paths: dict) -> None:
-    """28. cli.train in bf16 with run.profile_steps=(3,5) over the same corpus, 5 steps and no validation:
-    the Chrome trace under <workdir>/profile/ exists and names K1's kernel."""
+    """28. cli.train in bf16 with run.profile_steps=(2,3) over the same corpus, 3 steps and no validation:
+    the Chrome trace of the third step under <workdir>/profile/ exists and names K1's kernel."""
     from vocoder_tpu_torch.config import build_task_config
 
     work = root / "run_profile"
-    steps = 5
+    steps = 3
     argv = ["--model", "bigvgan", "--device", "cuda", f"data.train_roots=('{root / 'train'}',)",
             "run.log_interval=1", f"run.max_steps={steps}", f"run.ckpt_interval={steps}", f"run.workdir={work}",
-            "task.compute_dtype=bfloat16", "run.profile_steps=(3,5)"]
+            "task.compute_dtype=bfloat16", "run.profile_steps=(2,3)"]
     tf32_defaults()
     stages = len(build_task_config("bigvgan").generator.upsample_rates)
     _, text = drive_path("cli_train_profile", lambda: run_train_cli(argv), ("aa_snake",), paths,
                          blockwise=steps * stages)
-    trace = work / "profile" / "trace_3_5.json"
+    trace = work / "profile" / "trace_2_3.json"
     body = trace.read_text() if trace.is_file() else ""
     ok = bool(body) and "aa_snake_kernel" in body and str(trace) in text
     log({"phase": "profile_steps", "trace": trace.name, "trace_bytes": len(body),
@@ -2219,7 +2271,7 @@ def run_bench_input(root: Path, step_s: float, stamp: dict) -> list:
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
         recs = bench_input.main(["--corpus", str(root / "train"), "--workers", "1,4", "--batch", "16",
-                                 "--batches", "4", "--prefetch", "--device", "cuda", "--step-ms", str(1e3 * step_s)])
+                                 "--batches", "2", "--prefetch", "--device", "cuda", "--step-ms", str(1e3 * step_s)])
     out = []
     for r in recs:
         rec = {"phase": "bench_input", **r, "ok": r["batch_on_device"].startswith("cuda") and r["value"] > 0, **stamp}
@@ -2264,6 +2316,162 @@ def time_native_resample(stamp: dict) -> dict:
     return rec
 
 
+# Phases 31-35: the ssl family (a HuBERT semantic codec) and cli.bench_infer.
+SSL_RESOLUTION = "16000_640_2048"  # the ssl preset's 16 kHz and hop 640 (two HuBERT frames)
+HUBERT_SAMPLES = 20480  # one training crop of the ssl preset (32 frames of 640): 63 HuBERT frames
+# The backbone on the card against the CPU, fp32 with TF32 off: 7 convs, 12 post-LN layers and their attention
+# summed in other orders (efficient attention's fp32 route on the card).
+HUBERT_REL_L2 = 1e-4
+BENCH_INFER_REL = 0.15  # cli.bench_infer against profile_forward's CUDA-event ms: same model, shape, dtype, run
+BENCH_INFER_ITERS = 10
+HOST_PACED = 0.95  # below this card-busy share of a forward, the host's launches pace it (in part)
+HOST_PACED_ITERS = 40  # a host-paced forward's calls a timing: 0.3-0.9 s windows for Vocos
+HOST_PACED_ROUNDS = 5  # timings of a host-paced forward by each method, in turn; their medians compared
+
+
+def check_hubert(dev, stamp: dict) -> dict:
+    """31. The full-width HuBERT (the random backbone of seed 0 that cli.train and cli.codec build) on the card
+    against the same weights on the CPU, b2 x HUBERT_SAMPLES, from PyTorch's default TF32 flags (the extractor
+    turns TF32 off for the call and restores the flags): rel L2 and max relative error; then the card's ms a
+    b16 batch (CUDA events) and audio-s/s.  -> {device: extractor} for phases 32 and 34."""
+    import torch
+
+    from vocoder_tpu_torch.models.ssl_encoders import HubertEncoderConfig, HubertFeatureExtractor
+    from vocoder_tpu_torch.tools.profile_train import synthetic_batch
+    from vocoder_tpu_torch.tools.timing import cuda_ms
+
+    cfg = HubertEncoderConfig()
+    extractors = {"cpu": HubertFeatureExtractor(cfg, "cpu"), str(dev): HubertFeatureExtractor(cfg, dev)}
+    card = extractors[str(dev)]
+    audio = synthetic_batch(2, HUBERT_SAMPLES, 16000, SEED + 31, "cpu")["audio"][:, 0]
+    tf32_defaults()
+    got = card(audio.to(dev)).cpu()
+    flags_restored = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32) == (True, False)
+    want = extractors["cpu"](audio)
+    err = rel_l2(got, want)
+    max_rel = float((got - want).abs().max() / want.abs().max())
+    ok = (err <= HUBERT_REL_L2 and tuple(got.shape) == (2, 63, 768) and bool(torch.isfinite(got).all())
+          and flags_restored and got.dtype == torch.float32)
+    log({"phase": "hubert_card_vs_cpu", "shape": list(got.shape), "rel_l2": err, "max_rel_err": max_rel,
+         "max_abs_err": float((got - want).abs().max()), "limit_rel_l2": HUBERT_REL_L2,
+         "tf32_flags_restored": flags_restored, "params": sum(p.numel() for p in card.model.parameters()), "ok": ok})
+    if not ok:
+        raise SystemExit("HuBERT on the card disagrees with the CPU, or left the TF32 flags changed")
+    x16 = synthetic_batch(16, HUBERT_SAMPLES, 16000, SEED + 31, dev)["audio"][:, 0]
+    ms = cuda_ms(lambda: card(x16), 5)
+    tf32_off()
+    log({"metric": "hubert_ms", "batch": 16, "samples": HUBERT_SAMPLES, "frames": 63, "dtype": "fp32", "ms": ms,
+         "audio_s_per_s": 16 * HUBERT_SAMPLES / 16000 / (ms / 1e3), **stamp})
+    return extractors
+
+
+def check_ssl_step_cpu(dev, extractors: dict, paths: dict) -> dict:
+    """32. One ssl training step at the 16 kHz preset's full width and depth (a 768 -> 512 post-net, a 4,096 x
+    512 codebook fitted to the batch's latents, the 512-channel decoder at hop 640), b2 x 20,480 samples (the
+    second 4/5 long), TF32 off, on the card and on the CPU from the same weights, features (the CPU backbone's)
+    and draws: phase 17's rules (``step_card_vs_cpu``)."""
+    from vocoder_tpu_torch.config import build_task_config
+    from vocoder_tpu_torch.models.vae import SSLCodecGenerator, ssl_random_state_dict
+    from vocoder_tpu_torch.tools.profile_train import synthetic_batch
+
+    tf32_off()
+    task = build_task_config(family="ssl", resolution=SSL_RESOLUTION)
+    t = task.hop_length * task.num_frames
+    batch = synthetic_batch(TRAIN_CHECK_BATCH, t, task.sampling_rate, SEED, "cpu")
+    batch["lengths"][1] = t * 4 // 5
+    batch["audio"][1, :, t * 4 // 5:] = 0.0
+    batch["ssl_features"] = extractors["cpu"](batch["audio"][:, 0])
+    m = SSLCodecGenerator(task.generator)
+    m.load_state_dict(ssl_random_state_dict(task.generator, SEED))
+    fit_codebook(m, batch["ssl_features"], SEED)
+    return step_card_vs_cpu("ssl", task, batch, m.state_dict(), dev, paths)
+
+
+def check_bench_infer(dev, stamp: dict) -> list:
+    """35. cli.bench_infer for BigVGAN, HiFiGAN and Vocos at b16 x 256 frames in bf16 and fp32, BENCH_INFER_ITERS
+    calls each, against profile_forward's generator ms (CUDA events over as many forwards of the same model,
+    shape and dtype, as that tool builds it: ``build``, ``inputs``, ``profile``; the bf16 model a cast copy of
+    the fp32 one, which is what ``build`` makes): within BENCH_INFER_REL.  The
+    host paces Vocos (the card 42-79% busy in bf16, 80-92% in fp32): on the H100 machine its bf16 ms moved
+    between 6.2 and 16.4 from one timing to the next by either method, also over 40 calls (the tool's six
+    timings in one run: 6.9, 10.4, 16.4, 9.2, 10.2 and 7.9 ms), and its fp32 tool and CLI figures lay 9.3%
+    apart.  So the tool is timed first (``profile``, which also finds the card's busy share), and a forward it
+    finds the host pacing (the card busy under HOST_PACED of the time) is timed HOST_PACED_ROUNDS times more by
+    each, CLI and tool (``forward_ms``, ``profile``'s timing without its trace) in turn, over HOST_PACED_ITERS
+    calls, and the medians are compared.  Each timing runs with the garbage collector run before it and off
+    during it, and the collections that ran anyway are counted."""
+    import contextlib
+    import gc
+    import io
+    import statistics
+
+    import torch
+
+    from vocoder_tpu_torch.cli import bench_infer
+    from vocoder_tpu_torch.tools.profile_forward import build, forward_ms, inputs, profile
+
+    def collector_off(fn, counts: list):
+        """fn() with the collector run before it and off during it; the collections that ran appended."""
+        gc.collect()
+        before = sum(s["collections"] for s in gc.get_stats())
+        gc.disable()
+        try:
+            result = fn()
+        finally:
+            gc.enable()
+        counts.append(sum(s["collections"] for s in gc.get_stats()) - before)
+        return result
+
+    tf32_off()
+    out = []
+    for model in ("bigvgan", "hifigan", "vocos"):
+        task, _, m32 = build(model, torch.float32)  # the tool's model; in bf16 a cast copy, as build casts
+        for dtype in ("bfloat16", "float32"):
+            torch_dtype = torch.bfloat16 if dtype == "bfloat16" else torch.float32
+            collections = []
+
+            def cli(iters: int) -> dict:
+                buf = io.StringIO()
+                with contextlib.redirect_stdout(buf):
+                    rec = collector_off(lambda: bench_infer.main(
+                        ["--model", model, "--batch", "16", "--frames", str(F_FRAMES), "--dtype", dtype, "--iters",
+                         str(iters)]), collections)
+                lines = [x for x in buf.getvalue().splitlines() if x.startswith("{")]
+                return {**rec, "one_json_line": len(lines) == 1 and json.loads(lines[0]) == rec}
+
+            m = m32 if dtype == "float32" else copy.deepcopy(m32).to(torch_dtype)
+            kw = inputs(task, 16, F_FRAMES, torch_dtype)
+            pfs = [collector_off(lambda: profile(m, kw, BENCH_INFER_ITERS), collections)]
+            busy = pfs[0]["busy_share"]
+            if busy >= HOST_PACED:
+                clis = [cli(BENCH_INFER_ITERS)]
+            else:
+                clis, pfs = [], []
+                for _ in range(HOST_PACED_ROUNDS):
+                    clis.append(cli(HOST_PACED_ITERS))
+                    pfs.append({"ms": collector_off(lambda: forward_ms(m, kw, HOST_PACED_ITERS), collections)})
+            last = clis[-1]
+            cli_ms = statistics.median(c["ms_per_call"] for c in clis)
+            pf_ms = statistics.median(p["ms"] for p in pfs)
+            gap = abs(cli_ms - pf_ms) / pf_ms
+            ok = (all(c["one_json_line"] for c in clis) and last["backend"] == "cuda" and gap <= BENCH_INFER_REL)
+            audio_s = 16 * F_FRAMES * task.hop_length / task.sampling_rate
+            r = {"phase": "bench_infer", **last, "ms_per_call": cli_ms,
+                 "audio_s_per_s_per_chip": audio_s / cli_ms * 1e3, "calls": len(clis),
+                 "cli_ms_runs": [c["ms_per_call"] for c in clis], "profile_forward_ms": pf_ms,
+                 "profile_forward_ms_runs": [p["ms"] for p in pfs], "profile_forward_busy_share": busy,
+                 "gc_collections_in_timings": collections, "rel_gap": gap, "limit": BENCH_INFER_REL, "ok": ok,
+                 **stamp}
+            log(r)
+            out.append(r)
+            if not ok:
+                raise SystemExit(f"cli.bench_infer --model {model} --dtype {dtype} disagrees with profile_forward")
+            del m, kw
+        del m32
+        torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2291,8 +2499,9 @@ def main() -> int:
     stamp = {"card": card, "device": kind}
     timeline = {}  # phase -> seconds from the start to its end
 
-    def mark(phase: str) -> None:
+    def mark(phase: str) -> None:  # printed as it happens too, so that a run that fails shows where time went
         timeline[phase] = round(time.perf_counter() - t0, 3)
+        print(f"timeline: {phase} ends at {timeline[phase]} s", flush=True)
 
     # 0. Build.
     t0 = time.perf_counter()
@@ -2555,7 +2764,7 @@ def main() -> int:
     check_family_steps_cpu(dev, paths)
     mark("17 family steps card vs cpu")
     with tempfile.TemporaryDirectory() as tmp:
-        check_cli_train_vqvae(Path(tmp), dev, paths)
+        check_cli_train_codec(Path(tmp), dev, paths)
     mark("18 cli.train vqvae")
 
     # 19-22. FLAC/Ogg/MP3 input through the host library, training with validation PESQ, evaluation.
@@ -2592,6 +2801,22 @@ def main() -> int:
         mark("29 bench_train")
         run_bench_input(Path(tmp) / "formats", step_s, stamp)
         mark("30 bench_input")
+
+    # 31-35. The ssl family (HuBERT semantic codec) and cli.bench_infer.
+    extractors = check_hubert(dev, stamp)
+    mark("31 hubert")
+    check_ssl_step_cpu(dev, extractors, paths)
+    mark("32 ssl step card vs cpu")
+    with tempfile.TemporaryDirectory() as tmp:
+        check_cli_train_codec(Path(tmp), dev, paths, "ssl", stamp)
+    mark("33 cli.train ssl")
+    with tempfile.TemporaryDirectory() as tmp:
+        check_codec(Path(tmp), dev, paths, stamp, "ssl", extractors)
+    del extractors
+    torch.cuda.empty_cache()
+    mark("34 ssl codec")
+    check_bench_infer(dev, stamp)
+    mark("35 bench_infer")
     log({"phase": "timeline", "seconds_at_end": timeline})
 
     def launches(name):  # over the main paths' runs; each path's count beside it

@@ -36,7 +36,6 @@ from vocoder_tpu.train import gan as jgan
 from vocoder_tpu_torch import config as tconfig
 from vocoder_tpu_torch import nn as tnn
 from vocoder_tpu_torch.cli import codec
-from vocoder_tpu_torch.cli import train as train_cli
 from vocoder_tpu_torch.config import TrainConfig
 from vocoder_tpu_torch.convert import (
     vae_state_dict_from_jax,
@@ -420,15 +419,6 @@ def test_codec_cli_round_trip_matches_jax(tmp_path):
         ref = np.asarray(jvae.decode_from_codes(params, vq_state, jnp.asarray(codes), jcfg.generator))[:, 0]
         assert sr == SR and wav.shape == ref.shape and np.abs(ref).max() > 0.05
         np.testing.assert_allclose(wav, ref, rtol=0, atol=1.0 / 32768 + 2e-4)
-
-
-def test_ssl_is_refused_naming_what_is_missing(tmp_path):
-    for call in (lambda: tconfig.build_task_config(family="ssl"),
-                 lambda: train_cli.main(["--family", "ssl", "--device", "cpu", f"run.workdir={tmp_path}"]),
-                 lambda: codec.main(["encode", "--family", "ssl", "--ckpt", str(tmp_path), "--input", str(tmp_path),
-                                     "--output", str(tmp_path)])):
-        with pytest.raises(NotImplementedError, match="transformers.*HuBERT weights"):
-            call()
 
 
 # -- presets, full-width shapes and the bridges -----------------------------------------------------------

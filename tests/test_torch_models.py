@@ -260,4 +260,5 @@ def _imports(path: Path) -> set[str]:
 def test_port_imports_neither_jax_nor_the_jax_package(path):
     for name in _imports(REPO / path):
         root = name.split(".")[0]
-        assert root not in ("jax", "jaxlib", "flax", "optax", "orbax", "vocoder_tpu"), (path, name)
+        assert root not in ("jax", "jaxlib", "flax", "optax", "orbax", "vocoder_tpu", "transformers", "safetensors"), (
+            path, name)

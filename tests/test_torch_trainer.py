@@ -118,12 +118,12 @@ def test_stages_k2_does_not_take_run_blockwise_and_counted(uic, blockwise):
 
 
 def test_port_refuses_what_it_does_not_train():
-    """An unknown compute dtype is refused by name (bf16 trains now), and the ssl family is not ported."""
+    """An unknown compute dtype is refused by name (bf16 trains now), and so is an unknown family."""
     task = tconfig.build_task_config("hifigan")
     with pytest.raises(ValueError, match="compute_dtype 'float16': one of 'float32' or 'bfloat16'"):
         gan.create_train_state(task.replace(compute_dtype="float16"), 0, "cpu")
-    with pytest.raises(NotImplementedError, match="ssl"):
-        gan.create_train_state(task.replace(family="ssl"), 0, "cpu")
+    with pytest.raises(ValueError, match="unknown task family 'mms'"):
+        gan.create_train_state(task.replace(family="mms"), 0, "cpu")
 
 
 def _wavs(root, n, rng):

@@ -10,7 +10,8 @@ each raises ``ValueError`` where the JAX package's asserts), ``build_task_config
 37), the MRD and MR-STFT resolutions, 128-frame crops, hop * 32 for the
 discriminators; the "vae" and "vqvae" families' generators over the linear
 spectrogram, the vqvae's with MPD periods (2, 3, 5, 7, 11), the first four
-MRD resolutions and 32-frame crops; "ssl" raises ``NotImplementedError``),
+MRD resolutions and 32-frame crops; the "ssl" family's HuBERT codec, with the
+vqvae's discriminators and crops),
 ``DataConfig``, ``RunConfig``, ``TrainConfig``,
 ``build_train_config``, the dotted overrides (``run.max_steps=4``) and
 ``overlay_task_config``, which rebuilds a task config from a workdir's
@@ -171,12 +172,30 @@ def _vqvae_generator(res: dict):
     )
 
 
+def _ssl_generator(res: dict):
+    """The reference's hifigan-vae: frozen HuBERT (768 wide) -> the post-net to 512 latent channels -> an EMA
+    codebook of 4096 x 512 (vqvae.yaml's bottleneck) -> a HiFiGAN decoder of 512 channels at the hop's rates."""
+    from vocoder_tpu_torch.models.hifigan import HiFiGANConfig
+    from vocoder_tpu_torch.models.ssl_encoders import HubertEncoderConfig
+    from vocoder_tpu_torch.models.vae import SSLCodecGeneratorConfig
+    from vocoder_tpu_torch.models.vq import VQConfig
+
+    latent = 512
+    rates, kernels = upsample_rates_for_hop(res["hop_length"])
+    return "ssl", SSLCodecGeneratorConfig(
+        latent_size=latent, hubert=HubertEncoderConfig(output_size=latent),
+        decoder=HiFiGANConfig(hop_length=res["hop_length"], upsample_rates=rates, upsample_kernel_sizes=kernels,
+                              num_mels=latent, upsample_initial_channel=512, use_template=False),
+        vq=VQConfig(dim=latent, codebook_size=4096, num_quantizers=1),
+    )
+
+
 FAMILIES = ("gan", "vae", "vqvae", "ssl")
 
 
 def build_task_config(model: str = "hifigan", resolution: str = "44100_512_2048", family: str = "gan") -> GANTaskConfig:
     """The task config of a family at a resolution: for "gan" that of a generator preset (``vocos-huge``
-    reads as ``vocos_huge``); "vae" and "vqvae" build their own generator and ignore ``model``."""
+    reads as ``vocos_huge``); "vae", "vqvae" and "ssl" build their own generator and ignore ``model``."""
     model = model.replace("-", "_")
     if resolution not in RESOLUTIONS:
         raise KeyError(f"unknown resolution {resolution!r}; available: {sorted(RESOLUTIONS)}")
@@ -189,14 +208,10 @@ def build_task_config(model: str = "hifigan", resolution: str = "44100_512_2048"
         generator_name, generator = GENERATOR_PRESETS[model](res)
     elif family == "vae":
         generator_name, generator = _vae_generator(res)
-    elif family == "vqvae":
-        generator_name, generator = _vqvae_generator(res)
-        mrd_res = mrd_res[:4]  # vqvae.yaml: smaller crops and discriminators
+    elif family in ("vqvae", "ssl"):
+        generator_name, generator = (_vqvae_generator if family == "vqvae" else _ssl_generator)(res)
+        mrd_res = mrd_res[:4]  # vqvae.yaml: smaller crops and discriminators (the ssl task trains through it)
         kw = {"mpd": MPDConfig(periods=(2, 3, 5, 7, 11)), "num_frames": 32}
-    elif family == "ssl":
-        from vocoder_tpu_torch.models.vae import SSL_NOT_PORTED
-
-        raise NotImplementedError(SSL_NOT_PORTED)
     else:
         raise ValueError(f"unknown family {family!r}; one of {FAMILIES}")
     return GANTaskConfig(

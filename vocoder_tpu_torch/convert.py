@@ -11,7 +11,11 @@ state_dict the port's model loads.  ``vae_state_dict_from_jax`` and
 ``vqvae_state_dict_from_jax`` do the same for the vae and vqvae generators'
 trees (an encoder under ``encoder.``, a HiFiGAN under ``decoder.``), and
 ``vq_state_dict_from_jax`` turns the JAX package's EMA codebook state
-(``TrainState.extra["vq"]``) into the quantiser's buffers.  Layouts:
+(``TrainState.extra["vq"]``) into the quantiser's buffers;
+``ssl_state_dict_from_jax`` takes the ssl generator's tree (the post-net, the
+decoder) and its EMA state, and ``hubert_state_dict_from_numpy`` a HuBERT
+backbone given as numpy arrays under ``transformers``' ``HubertModel`` keys
+(the JAX package's frozen extractor holds one).  Layouts:
 
     conv:            JAX v (K, I, O), g (1, 1, O)  -> original1 (O, I, K), original0 (O, 1, 1)
                      JAX w (K, I/groups, O)        -> weight (O, I/groups, K)   (no weight norm)
@@ -206,6 +210,24 @@ def vqvae_state_dict_from_jax(params: dict, vq_state: dict) -> dict[str, torch.T
     """The JAX vqvae generator's tree and its EMA VQ state -> ``VQVAEGenerator.state_dict()`` layout."""
     return {**wavenet_state_dict_from_jax(params["encoder"], prefix="encoder."), **vq_state_dict_from_jax(vq_state),
             **hifigan_state_dict_from_jax(params["decoder"], prefix="decoder.")}
+
+
+def ssl_state_dict_from_jax(params: dict, vq_state: dict) -> dict[str, torch.Tensor]:
+    """The JAX ssl generator's tree {"postnet": {post0, post1, post2}, "decoder"} and its EMA VQ state ->
+    ``SSLCodecGenerator.state_dict()`` layout."""
+    sd: dict[str, torch.Tensor] = {}
+    for name in ("post0", "post1", "post2"):
+        _conv(sd, f"postnet.{name}", params["postnet"][name])
+    return {**sd, **vq_state_dict_from_jax(vq_state),
+            **hifigan_state_dict_from_jax(params["decoder"], prefix="decoder.")}
+
+
+def hubert_state_dict_from_numpy(sd: dict) -> dict[str, torch.Tensor]:
+    """A HuBERT backbone as numpy arrays under ``transformers``' ``HubertModel`` keys (old weight-norm names
+    too) -> ``models/hubert.py::HubertModel.state_dict()`` layout: the same keys, so the arrays as tensors."""
+    from vocoder_tpu_torch.models.hubert import snapshot_state_dict
+
+    return snapshot_state_dict({k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in sd.items()})
 
 
 def load_reference_state_dict(path: str | Path, prefix: str = "generator.", keys=None,

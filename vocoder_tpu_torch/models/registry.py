@@ -1,7 +1,7 @@
 """Generator registry: name -> (config class, module class).
 
 The JAX package's registry's five names (bigvgan, hifigan, vocos, refinegan
-and firefly_gan_base), and the vae and vqvae families' generators, which the
+and firefly_gan_base), and the vae, vqvae and ssl families' generators, which the
 JAX package builds outside its registry (``train/gan.py::create_train_state``).
 """
 
@@ -47,4 +47,8 @@ def get_generator(name: str) -> GeneratorDef:
         from vocoder_tpu_torch.models.vae import VQVAEGenerator, VQVAEGeneratorConfig
 
         return GeneratorDef(VQVAEGeneratorConfig, VQVAEGenerator)
-    raise KeyError(f"unknown generator {name!r}; available: {[*PORTED, 'vae', 'vqvae']}")
+    if name == "ssl":
+        from vocoder_tpu_torch.models.vae import SSLCodecGenerator, SSLCodecGeneratorConfig
+
+        return GeneratorDef(SSLCodecGeneratorConfig, SSLCodecGenerator)
+    raise KeyError(f"unknown generator {name!r}; available: {[*PORTED, 'vae', 'vqvae', 'ssl']}")

@@ -16,10 +16,16 @@ spectrogram (B, n_fft // 2 + 1, F):
   module), a HiFiGAN decoder.  ``encode_to_codes`` and ``decode_from_codes``
   are the codec's two halves.
 
-The ssl family (a frozen HuBERT backbone, a post-net, the VQ and a HiFiGAN
-decoder) is not ported: its backbone is ``transformers``' ``HubertModel``,
-with weights the repository does not hold.  No kernel of their own: the
-convs are cuDNN's, the VQ's distance product cuBLAS's.
+- ``SSLCodecGenerator``: the ssl family's semantic codec (the reference's
+  hifigan-vae) over frozen HuBERT features (B, T', hidden), which the caller
+  makes with ``ssl_encoders.HubertFeatureExtractor``: the trainable post-net
+  (``ssl_encoders.HubertPostNet``, stride 2), the EMA VQ, a HiFiGAN decoder at
+  hop 640 (two HuBERT frames).  Its ``encode_to_codes`` and
+  ``decode_from_codes`` are the JAX package's ``ssl_encode_to_codes`` and
+  ``ssl_decode_from_codes``.
+
+No kernel of their own: the convs are cuDNN's, the VQ's distance product
+cuBLAS's.
 """
 
 from __future__ import annotations
@@ -32,11 +38,8 @@ import torch
 from torch import nn
 
 from vocoder_tpu_torch.models import convnext, hifigan, vq as vq_mod, wavenet
+from vocoder_tpu_torch.models.ssl_encoders import HubertEncoderConfig, HubertPostNet
 from vocoder_tpu_torch.nn import normal_like
-
-SSL_NOT_PORTED = ("the ssl family is not ported: its frozen HuBERT backbone needs the transformers package "
-                  "(HubertModel), which the port does not depend on, and HuBERT weights, which the repository does "
-                  "not hold (ROADMAP.md Queue 1)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -55,6 +58,16 @@ class VQVAEGeneratorConfig:
 
     latent_size: int
     encoder: wavenet.PosteriorEncoderConfig  # mode "vqvae"
+    decoder: hifigan.HiFiGANConfig
+    vq: vq_mod.VQConfig
+
+
+@dataclasses.dataclass(frozen=True)
+class SSLCodecGeneratorConfig:
+    """Frozen HuBERT -> the post-net to latent channels -> the EMA VQ -> the decoder at hop 640."""
+
+    latent_size: int
+    hubert: HubertEncoderConfig
     decoder: hifigan.HiFiGANConfig
     vq: vq_mod.VQConfig
 
@@ -104,7 +117,25 @@ class VAEGenerator(nn.Module):
         return self.decoder(z), mean, logvar
 
 
-class VQVAEGenerator(nn.Module):
+class _QuantisedCodec(nn.Module):
+    """An encoder's latent (``encode``, the subclass's) -> the EMA VQ (``vq``) -> the HiFiGAN ``decoder``:
+    inputs -> (audio (B, 1, F * hop), latent (B, latent, F), codes (Q, B, F), vq loss)."""
+
+    def forward(self, inputs: torch.Tensor):
+        latent = self.encode(inputs)
+        quantized, codes, loss = self.vq(latent)
+        return self.decoder(quantized), latent, codes, loss
+
+    def encode_to_codes(self, inputs: torch.Tensor) -> torch.Tensor:
+        """inputs -> codes (Q, B, F), int64."""
+        return self.vq(self.encode(inputs))[1]
+
+    def decode_from_codes(self, codes: torch.Tensor) -> torch.Tensor:
+        """codes (Q, B, F) -> audio (B, 1, F * hop)."""
+        return self.decoder(self.vq.from_codes(codes))
+
+
+class VQVAEGenerator(_QuantisedCodec):
     """spec (B, bins, F) -> (audio (B, 1, F * hop), latent (B, latent, F), codes (Q, B, F), vq loss)."""
 
     def __init__(self, cfg: VQVAEGeneratorConfig, device=None):
@@ -116,18 +147,27 @@ class VQVAEGenerator(nn.Module):
         self.vq = vq_mod.VectorQuantizer(cfg.vq, device)
         self.decoder = hifigan.HiFiGAN(cfg.decoder, device)
 
-    def forward(self, spec: torch.Tensor):
-        latent = self.encoder(spec.to(self.decoder.conv_post.bias.dtype))
-        quantized, codes, loss = self.vq(latent)
-        return self.decoder(quantized), latent, codes, loss
+    def encode(self, spec: torch.Tensor) -> torch.Tensor:
+        """spec (B, bins, F) -> the latent (B, latent, F)."""
+        return self.encoder(spec.to(self.decoder.conv_post.bias.dtype))
 
-    def encode_to_codes(self, spec: torch.Tensor) -> torch.Tensor:
-        """spec (B, bins, F) -> codes (Q, B, F), int64."""
-        return self.vq(self.encoder(spec.to(self.decoder.conv_post.bias.dtype)))[1]
 
-    def decode_from_codes(self, codes: torch.Tensor) -> torch.Tensor:
-        """codes (Q, B, F) -> audio (B, 1, F * hop)."""
-        return self.decoder(self.vq.from_codes(codes))
+class SSLCodecGenerator(_QuantisedCodec):
+    """features (B, T', hidden) -> (audio (B, 1, F * hop), latent (B, latent, F), codes (Q, B, F), vq loss),
+    F = (T' + 1) // 2.  The frozen backbone is not part of it (nor of the JAX package's parameters).
+    ``encode_to_codes`` and ``decode_from_codes`` are the JAX package's ``ssl_encode_to_codes`` and
+    ``ssl_decode_from_codes``."""
+
+    def __init__(self, cfg: SSLCodecGeneratorConfig, device=None):
+        super().__init__()
+        self.cfg = cfg
+        self.postnet = HubertPostNet(cfg.hubert, device)
+        self.vq = vq_mod.VectorQuantizer(cfg.vq, device)
+        self.decoder = hifigan.HiFiGAN(cfg.decoder, device)
+
+    def encode(self, features: torch.Tensor) -> torch.Tensor:
+        """features (B, T', hidden) -> the latent (B, latent, F)."""
+        return self.postnet(features.to(self.decoder.conv_post.bias.dtype))
 
 
 def vae_random_state_dict(cfg: VAEGeneratorConfig, seed: int) -> dict[str, torch.Tensor]:
@@ -137,15 +177,34 @@ def vae_random_state_dict(cfg: VAEGeneratorConfig, seed: int) -> dict[str, torch
     return {**mod.random_state_dict(cfg.encoder, seed, prefix="encoder."), **_decoder_weights(cfg.decoder, seed + 1)}
 
 
-def vqvae_random_state_dict(cfg: VQVAEGeneratorConfig, seed: int) -> dict[str, torch.Tensor]:
-    """fp32 CPU weights for ``VQVAEGenerator(cfg)`` from a numpy seed: the encoder's and decoder's as in
-    ``vae_random_state_dict``, standard normal codebooks (seed + 2) with ``embed_avg`` equal to ``embed`` and
-    zero cluster sizes, as a fresh quantiser has them."""
-    sd = {**wavenet.random_state_dict(cfg.encoder, seed, prefix="encoder."), **_decoder_weights(cfg.decoder, seed + 1)}
-    rng = np.random.default_rng(seed + 2)
-    for i in range(cfg.vq.num_quantizers):
-        embed = torch.from_numpy(rng.standard_normal((cfg.vq.codebook_size, cfg.vq.dim)).astype(np.float32))
+def _codebooks(cfg: vq_mod.VQConfig, seed: int) -> dict[str, torch.Tensor]:
+    """Standard normal codebooks from a numpy seed, ``embed_avg`` equal to ``embed`` and zero cluster sizes, as a
+    fresh quantiser has them."""
+    rng = np.random.default_rng(seed)
+    sd = {}
+    for i in range(cfg.num_quantizers):
+        embed = torch.from_numpy(rng.standard_normal((cfg.codebook_size, cfg.dim)).astype(np.float32))
         sd[f"vq.layers.{i}.embed"] = embed
         sd[f"vq.layers.{i}.embed_avg"] = embed.clone()
-        sd[f"vq.layers.{i}.cluster_size"] = torch.zeros(cfg.vq.codebook_size)
+        sd[f"vq.layers.{i}.cluster_size"] = torch.zeros(cfg.codebook_size)
     return sd
+
+
+def vqvae_random_state_dict(cfg: VQVAEGeneratorConfig, seed: int) -> dict[str, torch.Tensor]:
+    """fp32 CPU weights for ``VQVAEGenerator(cfg)`` from a numpy seed: the encoder's and decoder's as in
+    ``vae_random_state_dict``, the codebooks as ``_codebooks`` makes them (seed + 2)."""
+    return {**wavenet.random_state_dict(cfg.encoder, seed, prefix="encoder."),
+            **_decoder_weights(cfg.decoder, seed + 1), **_codebooks(cfg.vq, seed + 2)}
+
+
+def ssl_random_state_dict(cfg: SSLCodecGeneratorConfig, seed: int) -> dict[str, torch.Tensor]:
+    """fp32 CPU weights for ``SSLCodecGenerator(cfg)`` from a numpy seed: the post-net's weights normal with
+    variance 1 / fan-in (HuBERT's features are layer-normed, of unit scale) and biases of 0.01, the decoder's
+    as in ``vae_random_state_dict`` (seed + 1), the codebooks as ``_codebooks`` (seed + 2)."""
+    rng = np.random.default_rng(seed)
+    sd = {}
+    for key, val in HubertPostNet(cfg.hubert, device="meta").state_dict().items():
+        shape = tuple(val.shape)
+        scale = 1.0 / np.sqrt(shape[1] * shape[2]) if key.endswith("weight") else 0.01
+        sd[f"postnet.{key}"] = torch.from_numpy((scale * rng.standard_normal(shape)).astype(np.float32))
+    return {**sd, **_decoder_weights(cfg.decoder, seed + 1), **_codebooks(cfg.vq, seed + 2)}

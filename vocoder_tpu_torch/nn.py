@@ -2,7 +2,8 @@
 
 Counterpart of ``vocoder_tpu/nn.py``: ``get_padding``, ``length_mask``,
 weight-normed Conv1d / ConvTranspose1d, the inference-time weight-norm
-fold, ``set_full_precision`` (the JAX package's ``Precision.HIGHEST``),
+fold, ``set_full_precision`` (the JAX package's ``Precision.HIGHEST``) and
+``full_fp32`` (the same for one block, the flags restored after it),
 ``drop_path`` (stochastic depth) and ``normal_like``.  Both draw from an
 explicit ``torch.Generator`` on that generator's own device and move the
 draw to the input's, so a generator on the CPU gives the same draws to a
@@ -39,6 +40,18 @@ def set_full_precision() -> None:
     digits).  The entry points call this before they load a model."""
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+
+
+@contextlib.contextmanager
+def full_fp32():
+    """cuDNN's convolutions and cuBLAS's matmuls in full fp32 (TF32 off) inside the block, whatever the
+    caller set; both flags restored after it."""
+    prev = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    set_full_precision()
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = prev
 
 
 def get_padding(kernel_size: int, dilation: int = 1) -> int:

@@ -52,35 +52,44 @@ def kernel_times(prof) -> dict[str, list[float]]:
     return out
 
 
-def build(name: str, dtype: torch.dtype, template: bool = False, seed: int = 0):
+def build(name: str, dtype: torch.dtype, template: bool = False, seed: int = 0, resolution: str | None = None,
+          device: str | torch.device = "cuda"):
     """(task, the preset's random state dict from ``seed``, fp32 on the host, and the model holding it,
-    folded, on the card in ``dtype``)."""
-    task = build_task_config(name, RESOLUTION.get(name, "44100_512_2048"))
+    folded, on ``device`` in ``dtype``), at ``resolution`` (default: 44.1 kHz, RefineGAN's 24 kHz)."""
+    task = build_task_config(name, resolution or RESOLUTION.get(name, "44100_512_2048"))
     if template:
         task = task.replace(generator=dataclasses.replace(task.generator, use_template=True))
-    sd = RANDOM_WEIGHTS[name](task.generator, seed)
+    sd = RANDOM_WEIGHTS[task.generator_name](task.generator, seed)
     model = get_generator(task.generator_name).module_cls(task.generator)
     model.load_state_dict(sd)
-    return task, sd, fold_weight_norm(model).cuda().eval().to(dtype)
+    return task, sd, fold_weight_norm(model).to(device).eval().to(dtype)
 
 
-def inputs(task, batch: int, frames: int, dtype: torch.dtype, seed: int = 0) -> dict:
+def inputs(task, batch: int, frames: int, dtype: torch.dtype, seed: int = 0,
+           device: str | torch.device = "cuda") -> dict:
     """The forward's keyword inputs: a log-mel-like ``mel`` and, where the generator consumes one, the
-    f0 ``template`` of a 220 Hz tone, on the card in ``dtype``."""
+    f0 ``template`` of a 220 Hz tone, on ``device`` in ``dtype``."""
     rng = np.random.default_rng(seed)
     mel = (rng.standard_normal((batch, task.num_mels, frames)) - 5.0).astype(np.float32)
-    out = {"mel": torch.from_numpy(mel).cuda().to(dtype)}
+    out = {"mel": torch.from_numpy(mel).to(device, dtype)}
     if needs_template(task):
         tpl = template_from_f0(np.full(frames, 220.0), task.sampling_rate, task.hop_length)
-        out["template"] = torch.from_numpy(np.broadcast_to(tpl, (batch, 1, tpl.size)).copy()).cuda().to(dtype)
+        out["template"] = torch.from_numpy(np.broadcast_to(tpl, (batch, 1, tpl.size)).copy()).to(device, dtype)
     return out
 
 
-def profile(model, kw: dict, iters: int = 3, top: int = 12) -> dict:
-    """CUDA-event ms of ``model(**kw)``, then the same forwards traced: busy ms and share, launches, K2's ms
-    (``amp_conv_mma`` kernels) and the ``top`` kernels by card time, all per forward."""
+def forward_ms(model, kw: dict, iters: int = 3) -> float:
+    """CUDA-event ms of ``model(**kw)`` under ``torch.inference_mode``, over ``iters`` calls after two warm-up
+    calls: the forward's time as ``profile`` reports it."""
     with torch.inference_mode():
-        ms = cuda_ms(lambda: model(**kw), iters)
+        return cuda_ms(lambda: model(**kw), iters)
+
+
+def profile(model, kw: dict, iters: int = 3, top: int = 12) -> dict:
+    """CUDA-event ms of ``model(**kw)`` (``forward_ms``), then the same forwards traced: busy ms and share,
+    launches, K2's ms (``amp_conv_mma`` kernels) and the ``top`` kernels by card time, all per forward."""
+    ms = forward_ms(model, kw, iters)
+    with torch.inference_mode():
         acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
         with torch.profiler.profile(activities=acts) as prof:
             for _ in range(iters):

@@ -1,7 +1,7 @@
 """The GAN training step: generator, then discriminators, on one random crop.
 
-Counterpart of ``vocoder_tpu/train/gan.py`` (the "gan", "vae" and "vqvae"
-families) and the reference's GANModel with manual optimization: per step
+Counterpart of ``vocoder_tpu/train/gan.py`` (the "gan", "vae", "vqvae" and
+"ssl" families) and the reference's GANModel with manual optimization: per step
 the generator loss
 
     base + 2.5 * (spectral convergence + log-mag MR-STFT) + 45 * mel-L1
@@ -22,7 +22,10 @@ base 0; "vae" (the reference's VAEModel) decodes z = mean + eps * exp(logvar
 as base, logged as ``train/generator/kl``; "vqvae" decodes the quantised
 latent, fixed to the audio's length within one hop, base 0 and the VQ's
 commitment loss logged as ``train/generator/vq`` (the reference keeps it out
-of the total).  The EMA codebook update of a vqvae step is written after the
+of the total); "ssl" does the same from the frozen HuBERT's features
+(``batch["ssl_features"]`` (B, T', hidden), which the trainer makes on the
+card), the post-net taking the place of the encoder.  The EMA codebook update
+of a vqvae or ssl step is written after the
 generator's backward, from the forward's codes and latent, as the JAX step
 writes its new state at the end: the discriminators see the fake of the
 codebook before the update.
@@ -50,7 +53,9 @@ Where PyTorch differs from the JAX program, each handled here:
   Compare gradients tightly and updated parameters with that in mind.
 
 Mixed precision, as the JAX package's: ``compute_dtype="bfloat16"`` runs the
-generator ("gan" family only) and the discriminators (every family) on bf16
+generator ("gan" family only: the vae, vqvae and ssl generators, and the ssl
+family's features, stay fp32, as in the JAX package) and the discriminators
+(every family) on bf16
 copies of their floating parameters (``nn.cast_parameters``: the weight-norm
 originals too, so the norms run in bf16; buffers such as the EMA codebooks
 stay as they are), with the input spectrum, the template and the
@@ -68,8 +73,7 @@ rounds the magnitudes and the loss mels to bf16 (``ops/spectral.py``), where
 the JAX package's magnitudes come out of a bf16 DFT; the norms and logs
 accumulate in fp32.  The MRD's STFT of bf16 audio follows the same rule.
 
-Not ported: the ssl family (a ``transformers`` HuBERT backbone, ROADMAP.md
-Queue 1); ``spectral_precision`` (a TPU MXU pass count) and the split step
+Not ported: ``spectral_precision`` (a TPU MXU pass count) and the split step
 (an XLA compile workaround) are TPU machinery.  ``run.precision`` sets TF32
 in the trainer.
 """
@@ -97,7 +101,7 @@ from vocoder_tpu_torch.ops.spectral import linear_spectrogram, log_mel_spectrogr
 from vocoder_tpu_torch.train.schedule import WarmupCosineConfig, warmup_cosine
 
 DEFAULT_RESOLUTIONS = ((2048, 512, 2048), (1024, 120, 600), (2048, 240, 1200), (4096, 480, 2400), (512, 50, 240))
-TRAINABLE = ("bigvgan", "hifigan", "refinegan", "vocos", "firefly_gan_base", "vae", "vqvae")
+TRAINABLE = ("bigvgan", "hifigan", "refinegan", "vocos", "firefly_gan_base", "vae", "vqvae", "ssl")
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}  # compute_dtype and loss_stft_dtype
 
 
@@ -120,8 +124,8 @@ class GANTaskConfig:
 
     num_frames: int = 128
     crop_length: int | None = 512 * 32  # hop * 32
-    input_transform: str = "mel"  # "mel" | "linear" (the vae and vqvae families')
-    family: str = "gan"  # "gan" | "vae" | "vqvae" ("ssl" is not ported)
+    input_transform: str = "mel"  # "mel" | "linear" (the vae and vqvae families'; ssl reads HuBERT features)
+    family: str = "gan"  # "gan" | "vae" | "vqvae" | "ssl"
 
     schedule: WarmupCosineConfig = WarmupCosineConfig()
     adam_b1: float = 0.8
@@ -142,12 +146,8 @@ class GANTaskConfig:
 
 
 def check_trainable(cfg: GANTaskConfig) -> None:
-    """Raise for what the port does not train yet."""
-    if cfg.family == "ssl":
-        from vocoder_tpu_torch.models.vae import SSL_NOT_PORTED
-
-        raise NotImplementedError(SSL_NOT_PORTED)
-    if cfg.family not in ("gan", "vae", "vqvae"):
+    """Raise for what the port does not train."""
+    if cfg.family not in ("gan", "vae", "vqvae", "ssl"):
         raise ValueError(f"unknown task family {cfg.family!r}")
     for field in ("compute_dtype", "loss_stft_dtype"):
         if getattr(cfg, field) not in DTYPES:
@@ -276,21 +276,26 @@ def _to_float(tree):
 
 
 def generator_forward(generator: nn.Module, audio: torch.Tensor, cfg: GANTaskConfig, plain: bool = False,
-                      template: torch.Tensor | None = None, noise: torch.Generator | None = None):
-    """audio (B, 1, T) [+ template (B, 1, T)] -> (fake (B, 1, T) fp32, base loss, the family's metrics, the
-    EMA update to call after the backward or None).  Training or not is the generator's mode.  ``plain``:
-    through the kernels' plain versions (``forward_plain``, where the generator has kernels), as the
-    card checks compare.  ``noise``: the noise generator of a generator that ``draws_noise`` (RefineGAN's
-    AdaIN, None: the seeded-0 default; ConvNeXt's drop_path and the vae's eps in training).  Under
+                      template: torch.Tensor | None = None, noise: torch.Generator | None = None,
+                      features: torch.Tensor | None = None):
+    """audio (B, 1, T) [+ template (B, 1, T)] [+ the ssl family's HuBERT features (B, T', hidden)] -> (fake
+    (B, 1, T) fp32, base loss, the family's metrics, the EMA update to call after the backward or None).
+    Training or not is the generator's mode.  ``plain``: through the kernels' plain versions
+    (``forward_plain``, where the generator has kernels), as the card checks compare.  ``noise``: the noise
+    generator of a generator that ``draws_noise`` (RefineGAN's AdaIN, None: the seeded-0 default;
+    ConvNeXt's drop_path and the vae's eps in training).  Under
     ``compute_dtype="bfloat16"`` the "gan" family's generator runs on bf16 copies of its parameters with
-    the spectrum and template in bf16 (the vae and vqvae generators stay fp32, as the JAX package's)."""
-    spec = input_transform(cfg, audio[:, 0, :])
+    the spectrum and template in bf16 (the vae, vqvae and ssl generators stay fp32, as the JAX package's)."""
     zero = torch.zeros((), device=audio.device)
+    if cfg.family == "ssl" and features is None:
+        raise ValueError("the ssl family needs the frozen backbone's features in the batch (batch['ssl_features'], "
+                         "which the trainer makes with a HubertFeatureExtractor)")
+    spec = features if cfg.family == "ssl" else input_transform(cfg, audio[:, 0, :])
     if cfg.family == "vae":
         fake, mean, logvar = generator(spec, noise=noise)
         kl = 0.5 * torch.mean(torch.square(mean) + torch.exp(logvar) - logvar - 1.0)
         return fake.float(), kl, {"train/generator/kl": kl}, None
-    if cfg.family == "vqvae":
+    if cfg.family in ("vqvae", "ssl"):
         fake, latent, codes, vq_loss = generator(spec)
         ema = (lambda: generator.vq.ema_update(latent, codes)) if generator.training else None
         return _length_fix(fake, audio.shape[2], cfg.hop_length).float(), zero, {"train/generator/vq": vq_loss}, ema
@@ -325,10 +330,10 @@ def draw_crop_start(state: TrainState, cfg: GANTaskConfig, t: int) -> int | None
 
 
 def _generator_loss(generator, discriminators, audio, mask, cfg: GANTaskConfig, start: int | None,
-                    plain: bool = False, template=None, noise=None):
+                    plain: bool = False, template=None, noise=None, features=None):
     """(loss, metrics, audio_c, fake_c, ema): the generator loss, the crops the discriminators see, and
     the EMA update to call after the backward (or None)."""
-    fake, base, fwd_metrics, ema = generator_forward(generator, audio, cfg, plain, template, noise)
+    fake, base, fwd_metrics, ema = generator_forward(generator, audio, cfg, plain, template, noise, features)
     if fake.shape != audio.shape:
         raise ValueError(f"generator output {tuple(fake.shape)} does not match the audio {tuple(audio.shape)}")
     audio_m, fake_m = audio * mask, fake * mask
@@ -387,7 +392,8 @@ def global_norm(params) -> torch.Tensor:
 def make_train_step(cfg: GANTaskConfig, plain: bool = False):
     """(state, batch, crop_start=None) -> metrics; updates ``state`` in place.
 
-    ``batch``: {"audio": (B, 1, T), "lengths": (B,)[, "template": (B, 1, T)]} on the state's device.
+    ``batch``: {"audio": (B, 1, T), "lengths": (B,)[, "template": (B, 1, T)][, "ssl_features": (B, T',
+    hidden)]} on the state's device.
     The generator
     step (``step.g_phase``), then the discriminator step (``step.d_phase``) on the pre-update
     generator's fake; the crop start is drawn from ``state.rng`` unless given.  The phases are
@@ -396,7 +402,7 @@ def make_train_step(cfg: GANTaskConfig, plain: bool = False):
     check_trainable(cfg)
 
     def g_phase(state: TrainState, batch: dict, crop_start: int | None = None):
-        """The generator's loss, backward and AdamW update, then a vqvae's EMA codebook update:
+        """The generator's loss, backward and AdamW update, then a vqvae's or ssl's EMA codebook update:
         (metrics, audio_c, fake_c)."""
         audio, lengths = batch["audio"], batch["lengths"]
         mask = sequence_mask(lengths, audio.shape[2])
@@ -404,7 +410,7 @@ def make_train_step(cfg: GANTaskConfig, plain: bool = False):
         state.opt_g.zero_grad(set_to_none=True)
         loss, metrics, audio_c, fake_c, ema = _generator_loss(
             state.generator, state.discriminators, audio, mask, cfg, start, plain, batch.get("template"),
-            state.noise)
+            state.noise, batch.get("ssl_features"))
         loss.backward()
         metrics["train/generator/grad_norm"] = global_norm(state.generator.parameters())
         for group in state.opt_g.param_groups:
@@ -451,7 +457,7 @@ def eval_generator(generator: nn.Module, cfg: GANTaskConfig) -> nn.Module:
 def make_eval_step(cfg: GANTaskConfig):
     """(state, batch) -> ({"val/metrics/mel": masked mel-L1 on the full clip}, masked fake): the
     generator in eval mode under ``torch.no_grad`` (BigVGAN: the inference path, K2 and K1; RefineGAN:
-    the seeded-0 noise of inference; vae: z = mean; vqvae: the codebooks as they are), in bf16 under bf16
+    the seeded-0 noise of inference; vae: z = mean; vqvae and ssl: the codebooks as they are), in bf16 under bf16
     compute (``eval_generator``).  The bf16 copy is kept while the weights it was made from stay: the
     same generator, step and parameter versions (every in-place change bumps a version), so the batches
     of one validation share one copy and K2 packs its weights once."""
@@ -471,7 +477,8 @@ def make_eval_step(cfg: GANTaskConfig):
         generator.eval()
         try:
             with torch.no_grad():
-                fake = generator_forward(generator, audio, cfg, template=batch.get("template"))[0]
+                fake = generator_forward(generator, audio, cfg, template=batch.get("template"),
+                                         features=batch.get("ssl_features"))[0]
                 audio_m, fake_m = audio * mask, fake * mask
                 loss_mel = torch.mean(torch.abs(loss_mel_transform(cfg, audio_m[:, 0])
                                                 - loss_mel_transform(cfg, fake_m[:, 0])))

@@ -29,8 +29,15 @@ route.
 
 Every family that ``train/gan.py`` trains runs through it unchanged: the
 step makes the family's input (log-mel or linear spectrogram), validation
-runs the family's eval forward, and a vqvae's EMA codebooks, buffers of the
-generator, are saved and restored with its ``state_dict``.
+runs the family's eval forward, and a vqvae's or ssl's EMA codebooks, buffers
+of the generator, are saved and restored with its ``state_dict``.  The ssl
+family's frozen HuBERT (``models/ssl_encoders.py::HubertFeatureExtractor``,
+on the training device) makes each batch's features on the card, right after
+the batch arrives, and each validation batch's once, when the validation
+batches are built (the JAX package makes them in its data thread on the
+host; where they are made changes time, not numbers); the log window's
+``perf/ssl_features_s`` is the time between CUDA events around those calls
+(the card's time on them, with any gap in which it waited for the host).
 
 ``run.precision="highest"`` (the default) runs the library's convs and
 matmuls in full fp32 (TF32 off), as the JAX package's ``Precision.HIGHEST``;
@@ -58,6 +65,7 @@ from vocoder_tpu_torch.data.dataset import DevicePrefetcher, MixDataset, Vocoder
 from vocoder_tpu_torch.data.f0 import f0_template
 from vocoder_tpu_torch.data.resample import resample
 from vocoder_tpu_torch.eval_metrics import pesq as pesq_metric
+from vocoder_tpu_torch.models.ssl_encoders import HubertFeatureExtractor
 from vocoder_tpu_torch.nn import set_full_precision
 from vocoder_tpu_torch.train import gan
 from vocoder_tpu_torch.utils.checkpoint import CheckpointManager
@@ -91,9 +99,10 @@ def template_fn(task):
     return lambda audio: f0_template(audio, task.sampling_rate, task.hop_length)
 
 
-def _build_val_batches(cfg: TrainConfig) -> list[dict] | None:
+def _build_val_batches(cfg: TrainConfig, extractor: HubertFeatureExtractor | None = None) -> list[dict] | None:
     """Fixed validation batches: each clip's first channel cut or zero-padded to val_crop_frames hops,
-    with each clip's f0 template (of the padded clip) where the generator consumes one."""
+    with each clip's f0 template (of the padded clip) where the generator consumes one, and the ssl
+    family's features of the padded batch (``extractor``'s, made on its device, kept on the host)."""
     if cfg.data.val_root is None:
         return None
     task = cfg.task
@@ -117,6 +126,8 @@ def _build_val_batches(cfg: TrainConfig) -> list[dict] | None:
         batch = {"audio": np.stack(audios).astype(np.float32), "lengths": np.asarray(lengths, np.int64)}
         if tfn is not None:
             batch["template"] = np.stack([tfn(a[0]) for a in audios])[:, None, :].astype(np.float32)
+        if extractor is not None:
+            batch["ssl_features"] = extractor(torch.from_numpy(batch["audio"][:, 0])).cpu().numpy()
         batches.append(batch)
     return batches
 
@@ -308,14 +319,21 @@ def train(cfg: TrainConfig, device: str | torch.device = "cuda") -> gan.TrainSta
     host_it = batch_iterator(_build_train_sampler(cfg), batch_size=cfg.data.batch_size, target_length=target_len,
                              seed=cfg.run.seed, start_step=state.step, num_workers=cfg.data.num_workers,
                              template_fn=template_fn(task))
-    val_batches = _build_val_batches(cfg)
+    extractor = HubertFeatureExtractor(task.generator.hubert, device) if task.family == "ssl" else None
+    val_batches = _build_val_batches(cfg, extractor)
     pesq_fn = _make_val_pesq(task) if cfg.run.val_pesq else None
     metrics_logger = MetricsLogger(workdir)
     prefetcher = DevicePrefetcher(host_it, device, depth=2)  # its thread starts here; closed in the finally
+    ssl_time = Timer(device)  # the backbone's time in the log window
 
     def run_step():
         profile.before(state.step)
-        metrics = step_fn(state, next(prefetcher))
+        batch = next(prefetcher)
+        if extractor is not None:
+            ssl_time.start()
+            batch["ssl_features"] = extractor(batch["audio"][:, 0, :])
+            ssl_time.stop()
+        metrics = step_fn(state, batch)
         profile.after(state.step)
         return metrics
 
@@ -325,6 +343,7 @@ def train(cfg: TrainConfig, device: str | torch.device = "cuda") -> gan.TrainSta
         if start_step < cfg.run.max_steps:
             run_step()  # the first step, which builds the kernels, apart
             ckpt.save(state.step, state)
+        ssl_time = Timer(device)
         t0 = time.perf_counter()
         window = max(cfg.run.log_interval, 1)
         best_val, stale_vals = float("inf"), 0
@@ -337,6 +356,9 @@ def train(cfg: TrainConfig, device: str | torch.device = "cuda") -> gan.TrainSta
                 scalars["perf/steps_per_s"] = sps
                 scalars["perf/audio_s_per_s"] = sps * cfg.data.batch_size * target_len / task.sampling_rate
                 scalars["perf/input_wait_s"] = prefetcher.wait_seconds(reset=True)
+                if extractor is not None:
+                    scalars["perf/ssl_features_s"] = ssl_time.seconds()
+                    ssl_time = Timer(device)
                 metrics_logger.write(step, scalars)
                 log(f"step {step}: g={scalars['train/generator/all']:.3f} "
                     f"d={scalars['train/discriminator/all']:.3f} mel={scalars['train/generator/mel']:.3f} "
