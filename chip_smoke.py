@@ -1,13 +1,14 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's inference (BigVGAN, HiFiGAN, Vocos, RefineGAN, Firefly-GAN; BigVGAN also with an
 f0 template), training (those, and the vae, vqvae and ssl families; fp32 and bf16, with and without activation
-checkpointing), the vqvae and HuBERT (ssl) codecs, FLAC/Ogg/MP3 input, evaluation and the inference benchmark
-CLI on one CUDA card and check it.
+checkpointing; data-parallel under torchrun), the vqvae and HuBERT (ssl) codecs, FLAC/Ogg/MP3 input, evaluation
+and the benchmark CLIs on one CUDA card and check it.
 
     python3 chip_smoke.py          # from the repository root; needs one NVIDIA H100
 
 Phases, in order; any failure exits non-zero:
-  0. build the CUDA kernels from vocoder_tpu_torch/csrc (nvcc, sm_90a);
+  0. build the CUDA kernels from vocoder_tpu_torch/csrc (nvcc, sm_90a), in a thread: phases 38 and
+     16, which launch no hand kernel, run during the build, each alone on the card (38, then 16);
   1. K1 (aa-snake) against its plain version at activation_post's shape,
      C = 16, T = 512 * 256, b1, b4 and b16, plus ragged T and a B * C above
      65535 rows, in fp32 and bf16; then at b16 with per-item lengths against
@@ -41,7 +42,7 @@ Phases, in order; any failure exits non-zero:
      the card's alone (`device_time`, vocoder_tpu_torch/tools/timing.py).
      Then BigVGAN's masked b16 forward against the unmasked one at the same
      padded shape, HiFiGAN's and Vocos' forwards at b1 and b16 in both
-     dtypes, and the CLI's seconds at --batch 1 and --batch 16 over 32 WAVs;
+     dtypes, and the CLI's seconds at --batch 1 and --batch 16 over 16 WAVs;
   8. BigVGAN with an f0 template (the 44.1 kHz preset, use_template=True):
      `BigVGAN.forward(mel, template=)` against `forward_plain` in fp32 and
      bf16 at the generator limits (K1 and the dtype's K2 route launched, no
@@ -51,11 +52,11 @@ Phases, in order; any failure exits non-zero:
   9. RefineGAN (24 kHz preset) and Firefly-GAN (44.1 kHz) at full width
      through `cli.infer` on WAVs (Firefly also a .npy mel and a file past
      --chunk-frames): finite output of each file's length; RefineGAN twice,
-     equal to the bit.  The CLI over 32 WAVs for refinegan, split into the
+     equal to the bit.  The CLI over 16 WAVs for refinegan, split into the
      host's f0 seconds and the forwards'; then the generator ms, audio-s/s,
      card busy share and launches (`tools/profile_forward.py`) of BigVGAN
      with a template (b1, b16; bf16, fp32; K2's share of the forward),
-     RefineGAN and Firefly-GAN (b1, b16; fp32);
+     RefineGAN and Firefly-GAN (b16; fp32);
  10. K1 under autograd (`AASnakeFunction`: the kernel forward, the plain VJP)
      against autograd through the plain version, fp32, at C = 16, 256, 512,
      T = K1's tile edge +- 1, under the halo and 65,536, B = 1 and 4: dx,
@@ -67,14 +68,14 @@ Phases, in order; any failure exits non-zero:
      for BigVGAN (K1 launched 91 times in the step), HiFiGAN and BigVGAN with
      an f0 template (its batch carrying each item's template; K1 91 times);
  12. `cli.train.main --model bigvgan` at the preset's batch 16 x 128 frames on
-     32 generated WAVs, 4 steps with validation every 2 (K2 in validation,
-     the blockwise AMP path in training only), then a resume to step 5, then
+     32 generated WAVs, 3 steps with a validation at 2 (K2 in validation,
+     the blockwise AMP path in training only), then a resume to step 4, then
      `cli.infer --ckpt <workdir>` from that run;
  13. the training step's ms by phase, audio-s/s, peak memory and the card-time
      shares of its parts at b16 (vocoder_tpu_torch/tools/profile_train.py);
  14. `cli.train.main --model refinegan --resolution 24000_256_1024` at the
-     preset's batch 16 x 128 frames (f0 templates made on the host), 4 steps
-     with validation every 2, a resume to 5 (the AdaIN noise generator on the
+     preset's batch 16 x 128 frames (f0 templates made on the host), 2 steps
+     with a validation at 2, a resume to 3 (the AdaIN noise generator on the
      card, restored from the checkpoint) and `cli.infer --ckpt <workdir>`;
      then the RefineGAN step at b16 as in 13, with the host's f0 seconds for
      one batch and the CLI run's input wait;
@@ -87,8 +88,8 @@ Phases, in order; any failure exits non-zero:
      decoded WAV equals the generator's eval forward on the card; encode and
      decode audio-s/s and seconds;
  16. the training step of vae, vqvae, Vocos and Firefly-GAN at their presets'
-     widths and batch 16, as in 13 (ms by phase, audio-s/s, peak memory,
-     card busy share, top kernels);
+     widths and batch 16, as in 13 (ms by phase, audio-s/s, peak memory, card
+     busy share, top kernels; one timed step each), during the build;
  17. one step of each of those four at full width and reduced depth (b2,
      8,192 samples, a 4,096-sample crop, TF32 off) on the card against the
      same step on the CPU, the same draws (drop_path, eps) on both: losses,
@@ -106,8 +107,8 @@ Phases, in order; any failure exits non-zero:
      each path's decode audio-s/s on this host; a format whose library is
      absent prints `"skipped"`;
  21. `cli.train --model bigvgan` at the preset's batch 16 x 128 frames over a
-     FLAC + Ogg + MP3 corpus, 2 steps, validation at step 2 over FLAC clips with
-     the default `run.val_pesq`: a PESQ in [1, 4.65], K1 at least 182 launches,
+     FLAC + Ogg + MP3 corpus of 16 files, 4 steps, validation at step 4 over FLAC
+     clips with the default `run.val_pesq`: a PESQ in [1, 4.65], K1 91 a step,
      K2 in validation, native FLAC decodes, the input wait, the validation split
      into eval forwards (CUDA events) and host PESQ, the media PNG;
  22. `cli.infer` from that workdir over the FLAC clips, then `cli.evaluate
@@ -125,16 +126,16 @@ Phases, in order; any failure exits non-zero:
  25. an fp32 b16 BigVGAN step with task.generator.checkpointing=True against the
      step without it: losses within 1e-5, gradients within rel L2 1e-4, K1 91 and
      181 launches, the peak memory of each;
- 26. the bf16 step and the checkpointed fp32 step at b16 by phase, rate, peak memory
-     and card-time shares (tools/profile_train.py);
+ 26. the bf16 step at b16 by phase, rate, peak memory and card-time shares
+     (tools/profile_train.py);
  27. `cli.train task.compute_dtype=bfloat16` over phase 21's corpus, 6 steps with the
      default validation at steps 3 and 6: steps 3-6 and their input wait through the
      DevicePrefetcher, K1 and K2's bf16 route launched (K2 fp32 not), each
      validation's first fake within rel L2 5e-3 of the plain bf16 eval of the same
      weights (the weights change between them: K2's plan cache must follow);
  28. `run.profile_steps=(2,3)`: the Chrome trace under <workdir>/profile/ names K1;
- 29. `cli.bench_train` for BigVGAN and HiFiGAN at b16 in bf16 and fp32 with
-     --memory-stats, one timed step each (a smoke of the CLI);
+ 29. `cli.bench_train` for BigVGAN in bf16 and HiFiGAN in bf16 and fp32 at b16 with
+     --memory-stats, one timed step each (a smoke of the CLI; phase 13 times BigVGAN's fp32 step);
  30. `cli.bench_input --prefetch` over phase 21's corpus at 1 and 4 workers, the
      consumer holding each batch for phase 27's step time: host batches/s, the wait;
  31. the ssl family's frozen HuBERT (the port's own, 12 layers, 768 wide, the random
@@ -150,7 +151,18 @@ Phases, in order; any failure exits non-zero:
  34. `cli.codec --family ssl` as phase 15: encode and decode on the card and `encode
      --device cpu`, codes equal above the margin, each WAV the eval forward; audio-s/s;
  35. `cli.bench_infer` for BigVGAN, HiFiGAN and Vocos at b16 x 256 frames in bf16 and
-     fp32, each within 15% of `profile_forward`'s generator ms in the same run.
+     fp32, each within 15% of `profile_forward`'s generator ms in the same run;
+ 36-37 run in child processes beside phases 17, 18, 23 and 24 (all checks, none a timing), started
+ after 15 and read after 24 (23 and 24 run right after 18):
+ 36. `torchrun --standalone --nproc_per_node 1 -m vocoder_tpu_torch.cli.train` (NCCL at world size 1)
+     with phase 12's first run's arguments over its corpus (BigVGAN at full width, b16 x 128 frames, 3
+     steps, a validation at 2): its metrics.jsonl against that one-process run's within DP_CLI_REL;
+     K1 and K2 launched in the child;
+ 37. two processes on the one card over gloo, each BigVGAN's training step at full width on b2 through K1,
+     against one process's b4 step on the concatenated batch: losses, grad norms, every gradient, the
+     updated weights, the ranks' weights equal;
+ 38. `cli.bench_scaling --meshes 1,2` under torchrun: the line of dp 1 alone (one card); during the
+     build (0), before phase 16.
 
 A `timeline` line gives the seconds from the start to the end of each phase.
 
@@ -163,11 +175,15 @@ default flags (cuDNN TF32 on), so that it checks the CLI's own setting.
 
 from __future__ import annotations
 
+import concurrent.futures
 import copy
 import dataclasses
 import itertools
 import json
 import math
+import multiprocessing
+import os
+import subprocess
 import sys
 import tempfile
 import time
@@ -212,6 +228,7 @@ WAV_TOL = 2.0 / 32768  # a WAV of the batched CLI against the per-file run's: tw
 # Names of K2's two routes (both csrc/amp_conv_mma.cu) in the kernels line and the launch counts.
 FP32_K2, BF16_K2 = "amp_conv_mma_3xtf32", "amp_conv_mma"
 K1_TILE = 3968  # csrc/aa_snake.cu: kThreads * kRun outputs a block
+CLI_TIMED_FILES = 16  # WAVs of 0.5-3 s in the CLI timings of phases 7 and 9
 HALO = 12  # the aa-snake's reach in x at the 1x rate, both sides together
 # (C, T, B) of the K1 autograd checks: BigVGAN's widths up to the 512 of a wide config, T at K1's tile
 # edges, under the halo and at the 65,536 samples of a training crop.
@@ -417,13 +434,11 @@ def run_cli(infer, argv: list[str]) -> float:
 
 
 def launch_counts() -> dict[str, int]:
-    """Each kernel's launches, and the AMP stages run block by block (not a kernel)."""
+    """Each kernel's launches (``ops.launch_counts``), and the AMP stages run block by block (not a kernel)."""
+    from vocoder_tpu_torch import ops
     from vocoder_tpu_torch.models.bigvgan import BigVGAN
-    from vocoder_tpu_torch.ops.aa_snake import aa_snake
-    from vocoder_tpu_torch.ops.amp_block import amp_stage
 
-    return {"aa_snake": aa_snake.launches, FP32_K2: amp_stage.launches, BF16_K2: amp_stage.mma_launches,
-            "blockwise_stages": BigVGAN.blockwise_stages}
+    return {**ops.launch_counts(), "blockwise_stages": BigVGAN.blockwise_stages}
 
 
 def drive_path(name: str, fn, need: tuple[str, ...], paths: dict, blockwise: int = 0):
@@ -727,15 +742,16 @@ def time_library_models(models: dict, dev, stamp: dict) -> dict:
 
 
 def time_cli(infer, root: Path, ckpt: Path, task, rng, stamp: dict) -> None:
-    """The CLI's seconds over the same 32 WAVs (0.5 ... 3 s) at --batch 1 and --batch 16, BigVGAN fp32."""
+    """The CLI's seconds over the same CLI_TIMED_FILES WAVs (0.5 ... 3 s) at --batch 1 and --batch 16, BigVGAN
+    fp32."""
     import numpy as np
 
     from vocoder_tpu_torch.data.audio_io import write_wav
 
-    src = root / "cli_32"
+    src = root / "cli_timed"
     src.mkdir()
     audio_s = 0.0
-    for i, seconds in enumerate(rng.uniform(0.5, 3.0, 32)):
+    for i, seconds in enumerate(rng.uniform(0.5, 3.0, CLI_TIMED_FILES)):
         n = int(task.sampling_rate * seconds)
         t = np.arange(n) / task.sampling_rate
         audio = 0.3 * np.sin(2 * np.pi * (110.0 + 10 * i) * t) + 0.01 * rng.standard_normal(n)
@@ -743,9 +759,9 @@ def time_cli(infer, root: Path, ckpt: Path, task, rng, stamp: dict) -> None:
         audio_s += -(-n // task.hop_length) * task.hop_length / task.sampling_rate
     for batch in (1, 16):
         argv = ["--model", "bigvgan", "--resolution", "44100_512_2048", "--ckpt", str(ckpt), "--input", str(src),
-                "--output", str(root / f"cli_32_b{batch}"), "--batch", str(batch)]
+                "--output", str(root / f"cli_timed_b{batch}"), "--batch", str(batch)]
         seconds = run_cli(infer, argv)
-        log({"metric": "cli_seconds", "model": "bigvgan", "dtype": "fp32", "batch": batch, "files": 32,
+        log({"metric": "cli_seconds", "model": "bigvgan", "dtype": "fp32", "batch": batch, "files": CLI_TIMED_FILES,
              "audio_s": audio_s, "seconds": seconds, "audio_s_per_s": audio_s / seconds, **stamp})
 
 
@@ -921,9 +937,11 @@ def run_train_cli(argv: list[str]) -> tuple[object, str]:
     return state, buf.getvalue()
 
 
-def check_cli_train(root: Path, infer, paths: dict) -> None:
-    """cli.train at the BigVGAN preset's batch 16 x 128 frames: 4 steps with validation every 2 and a
-    checkpoint every 2, then a resume to 5, then cli.infer from the run's workdir."""
+def check_cli_train(root: Path, infer, paths: dict) -> dict:
+    """cli.train at the BigVGAN preset's batch 16 x 128 frames: 3 steps with a validation at 2 and a
+    checkpoint every 2 (and at the end), then a resume to 4, then cli.infer from the run's workdir.  The
+    first run's arguments but the workdir and its metrics.jsonl records (phase 36 runs them again under
+    torchrun)."""
     import numpy as np
     import torch
 
@@ -933,10 +951,11 @@ def check_cli_train(root: Path, infer, paths: dict) -> None:
     task = build_task_config("bigvgan", "44100_512_2048")
     write_train_corpus(root, task.sampling_rate, np.random.default_rng(SEED + 9))
     work = root / "run"
-    base = ["--model", "bigvgan", "--device", "cuda", f"data.train_roots=('{root / 'train'}',)",
+    args = ["--model", "bigvgan", "--device", "cuda", f"data.train_roots=('{root / 'train'}',)",
             f"data.val_root={root / 'val'}", "run.log_interval=1", "run.val_interval=2", "run.ckpt_interval=2",
-            "run.val_pesq=False", f"run.workdir={work}"]
-    steps = 4
+            "run.val_pesq=False"]
+    base = [*args, f"run.workdir={work}"]
+    steps = 3
     tf32_defaults()
     state, _ = drive_path("cli_train_bigvgan", lambda: run_train_cli([*base, f"run.max_steps={steps}"]),
                           ("aa_snake", FP32_K2), paths, blockwise=steps * len(task.generator.upsample_rates))
@@ -946,8 +965,8 @@ def check_cli_train(root: Path, infer, paths: dict) -> None:
     val_recs = [r for r in records if "val/metrics/mel" in r]
     finite = all(math.isfinite(v) for r in records for v in r.values())
     ckpts = sorted(p.name for p in (work / "checkpoints").iterdir())
-    ok = (state.step == steps and finite and [r["step"] for r in train_recs] == [2, 3, 4]
-          and [r["step"] for r in val_recs] == [2, 4] and {"2.pt", "4.pt"} <= set(ckpts)
+    ok = (state.step == steps and finite and [r["step"] for r in train_recs] == [2, 3]
+          and [r["step"] for r in val_recs] == [2] and {"2.pt", "3.pt"} <= set(ckpts)
           and counts["aa_snake"] >= K1_PER_BIGVGAN_FORWARD * steps and counts[FP32_K2] > 0
           and not (torch.backends.cudnn.allow_tf32 or torch.backends.cuda.matmul.allow_tf32))
     log({"phase": "cli_train", "model": "bigvgan", "batch": 16, "frames": 128, "steps": steps,
@@ -957,12 +976,12 @@ def check_cli_train(root: Path, infer, paths: dict) -> None:
         raise SystemExit("cli.train: the run did not train, validate and checkpoint as asked")
 
     tf32_defaults()
-    state, text = drive_path("cli_train_resume", lambda: run_train_cli([*base, "run.max_steps=5"]),
+    state, text = drive_path("cli_train_resume", lambda: run_train_cli([*base, "run.max_steps=4"]),
                              ("aa_snake",), paths, blockwise=len(task.generator.upsample_rates))
-    ok = state.step == 5 and "auto-resumed from step 4" in text and (work / "checkpoints" / "5.pt").is_file()
+    ok = state.step == 4 and "auto-resumed from step 3" in text and (work / "checkpoints" / "4.pt").is_file()
     log({"phase": "cli_train_resume", "step": state.step, "launches": paths["cli_train_resume"], "ok": ok})
     if not ok:
-        raise SystemExit("cli.train did not resume from step 4 and end at step 5")
+        raise SystemExit("cli.train did not resume from step 3 and end at step 4")
 
     wav = root / "val" / "00.wav"
     n = read_wav(wav)[0].shape[-1]
@@ -976,6 +995,7 @@ def check_cli_train(root: Path, infer, paths: dict) -> None:
          "peak": float(np.abs(audio).max()), "ok": ok})
     if not ok:
         raise SystemExit("cli.infer did not synthesise from the trained checkpoint")
+    return {"argv": [*args, f"run.max_steps={steps}"], "records": records}
 
 
 def time_train_step(dev, stamp: dict) -> dict:
@@ -1155,7 +1175,7 @@ def check_family_clis(infer, root: Path, models: dict, paths: dict) -> None:
 def time_families(models: dict, template_models: tuple, dev, stamp: dict) -> None:
     """Generator ms (CUDA events), audio-s/s and profile_forward's busy share, launches and K2 card ms
     per forward, F_FRAMES frames: BigVGAN with a template at b1 and b16 in bf16 and fp32 (K2's share of
-    the forward), RefineGAN and Firefly-GAN at b1 and b16 in fp32."""
+    the forward), RefineGAN and Firefly-GAN at b16 in fp32."""
     import torch
 
     from vocoder_tpu_torch.tools.profile_forward import inputs, profile
@@ -1163,7 +1183,7 @@ def time_families(models: dict, template_models: tuple, dev, stamp: dict) -> Non
     task, model, model_bf16 = template_models
     runs = [("bigvgan_template", task, m, b, dt) for b in (1, 16)
             for dt, m in ((torch.bfloat16, model_bf16), (torch.float32, model))]
-    runs += [(name, t, m, b, torch.float32) for name, (t, _, m) in models.items() for b in (1, 16)]
+    runs += [(name, t, m, 16, torch.float32) for name, (t, _, m) in models.items()]
     for name, t, m, b, dtype in runs:
         # b1's host-paced ms over 10 forwards; the card's busy ms is read from the same number traced.
         rec = profile(m, inputs(t, b, F_FRAMES, dtype, SEED + 12), iters=10 if b == 1 else 2, top=4)
@@ -1175,7 +1195,7 @@ def time_families(models: dict, template_models: tuple, dev, stamp: dict) -> Non
 
 
 def time_refinegan_cli(infer, root: Path, models: dict, stamp: dict) -> None:
-    """The CLI's seconds over 32 WAVs of 0.5-3 s at 24 kHz, refinegan fp32, split into the host's f0
+    """The CLI's seconds over CLI_TIMED_FILES WAVs of 0.5-3 s at 24 kHz, refinegan fp32, split into the host's f0
     templates (``infer.templates``), the forwards (``infer.synthesize``, synchronised) and the rest
     (checkpoint, reads, log-mel, writes)."""
     import numpy as np
@@ -1187,10 +1207,10 @@ def time_refinegan_cli(infer, root: Path, models: dict, stamp: dict) -> None:
     ckpt = root / "refinegan.ckpt"
     torch.save({"state_dict": {f"generator.{k}": v for k, v in sd.items()}}, ckpt)
     rng = np.random.default_rng(SEED + 13)
-    src = root / "refinegan_32"
+    src = root / "refinegan_timed"
     src.mkdir()
     audio_s = 0.0
-    for i, seconds in enumerate(rng.uniform(0.5, 3.0, 32)):
+    for i, seconds in enumerate(rng.uniform(0.5, 3.0, CLI_TIMED_FILES)):
         n = int(task.sampling_rate * seconds)
         t = np.arange(n) / task.sampling_rate
         audio = 0.3 * np.sin(2 * np.pi * (110.0 + 10 * i) * t) + 0.01 * rng.standard_normal(n)
@@ -1211,18 +1231,19 @@ def time_refinegan_cli(infer, root: Path, models: dict, stamp: dict) -> None:
     infer.templates, infer.synthesize = timed("f0"), timed("forward")
     try:
         seconds = run_cli(infer, ["--model", "refinegan", "--resolution", "24000_256_1024", "--ckpt", str(ckpt),
-                                  "--input", str(src), "--output", str(root / "refinegan_32_out")])
+                                  "--input", str(src), "--output", str(root / "refinegan_timed_out")])
     finally:
         infer.templates, infer.synthesize = originals["f0"], originals["forward"]
-    log({"metric": "cli_seconds", "model": "refinegan", "dtype": "fp32", "batch": 1, "files": 32, "audio_s": audio_s,
+    log({"metric": "cli_seconds", "model": "refinegan", "dtype": "fp32", "batch": 1, "files": CLI_TIMED_FILES,
+         "audio_s": audio_s,
          "seconds": seconds, "audio_s_per_s": audio_s / seconds, "f0_seconds": spent["f0"],
          "forward_seconds": spent["forward"], "other_seconds": seconds - spent["f0"] - spent["forward"], **stamp})
 
 
 def check_cli_train_refinegan(root: Path, infer, paths: dict) -> dict:
     """cli.train --model refinegan at the 24 kHz preset's batch 16 x 128 frames on 32 generated WAVs, the
-    preset's data workers: 4 steps with validation every 2, a resume to 5 (its final checkpoint), then cli.infer --ckpt <workdir>.  Returns
-    the first run's last log record (input wait included)."""
+    preset's data workers: 2 steps with a validation at 2, a resume to 3 (its final checkpoint), then
+    cli.infer --ckpt <workdir>.  Returns the first run's last log record (input wait included)."""
     import numpy as np
 
     from vocoder_tpu_torch.config import build_task_config
@@ -1236,27 +1257,27 @@ def check_cli_train_refinegan(root: Path, infer, paths: dict) -> dict:
             "run.log_interval=1", "run.val_interval=2", "run.ckpt_interval=2", "run.val_pesq=False",
             f"run.workdir={work}"]
     tf32_defaults()
-    state, _ = drive_path("cli_train_refinegan", lambda: run_train_cli([*base, "run.max_steps=4"]), (), paths)
+    state, _ = drive_path("cli_train_refinegan", lambda: run_train_cli([*base, "run.max_steps=2"]), (), paths)
     records = [json.loads(line) for line in (work / "metrics.jsonl").read_text().splitlines()]
     train_recs = [r for r in records if "train/generator/all" in r]
     val_recs = [r for r in records if "val/metrics/mel" in r]
     finite = all(math.isfinite(v) for r in records for v in r.values())
     ckpts = sorted(p.name for p in (work / "checkpoints").iterdir())
-    ok = (state.step == 4 and finite and [r["step"] for r in train_recs] == [2, 3, 4]
-          and [r["step"] for r in val_recs] == [2, 4] and {"2.pt", "4.pt"} <= set(ckpts)
+    ok = (state.step == 2 and finite and [r["step"] for r in train_recs] == [2]
+          and [r["step"] for r in val_recs] == [2] and {"2.pt"} <= set(ckpts)
           and state.noise.device.type == "cuda")
-    log({"phase": "cli_train", "model": "refinegan", "batch": 16, "frames": 128, "steps": 4, "checkpoints": ckpts,
+    log({"phase": "cli_train", "model": "refinegan", "batch": 16, "frames": 128, "steps": 2, "checkpoints": ckpts,
          "train_records": train_recs, "val_records": val_recs, "finite": finite, "ok": ok})
     if not ok:
         raise SystemExit("cli.train --model refinegan: the run did not train, validate and checkpoint as asked")
 
     tf32_defaults()
-    state, text = drive_path("cli_train_refinegan_resume", lambda: run_train_cli([*base, "run.max_steps=5"]), (),
+    state, text = drive_path("cli_train_refinegan_resume", lambda: run_train_cli([*base, "run.max_steps=3"]), (),
                              paths)
-    ok = state.step == 5 and "auto-resumed from step 4" in text and (work / "checkpoints" / "5.pt").is_file()
+    ok = state.step == 3 and "auto-resumed from step 2" in text and (work / "checkpoints" / "3.pt").is_file()
     log({"phase": "cli_train_resume", "model": "refinegan", "step": state.step, "ok": ok})
     if not ok:
-        raise SystemExit("cli.train --model refinegan did not resume from step 4 and end at step 5")
+        raise SystemExit("cli.train --model refinegan did not resume from step 2 and end at step 3")
 
     wav = root / "val" / "00.wav"
     n = read_wav(wav)[0].shape[-1]
@@ -1286,7 +1307,7 @@ def time_refinegan_step(dev, stamp: dict, cli_record: dict) -> dict:
         f0_template(a, task.sampling_rate, task.hop_length)
     f0_s = time.perf_counter() - t0
     rec = {"metric": "train_step_ms", "model": "refinegan", "batch": 16, "samples": task.hop_length * task.num_frames,
-           "dtype": "fp32", **measure_step(state, gan.make_train_step(task), batch, task, 8),
+           "dtype": "fp32", **measure_step(state, gan.make_train_step(task), batch, task, TIMED_STEPS),
            "f0_seconds_per_batch": f0_s,
            "cli_input_wait_s_per_step": cli_record.get("perf/input_wait_s"),
            "cli_audio_s_per_s": cli_record.get("perf/audio_s_per_s"), **stamp}
@@ -1470,7 +1491,8 @@ def check_codec(root: Path, dev, paths: dict, stamp: dict, family: str = "vqvae"
 def time_family_steps(dev, stamp: dict) -> None:
     """The training step of vae, vqvae, Vocos (base) and Firefly-GAN at their presets' widths and the
     trainer's default batch 16 (44.1 kHz; 128 frames, the vqvae's 32), fp32, TF32 off: ms by phase of the third
-    step, audio-s/s, peak memory, card busy and top kernels (tools/profile_train.py)."""
+    step, audio-s/s, peak memory, card busy and top kernels (tools/profile_train.py).  None of them launches
+    a hand kernel, so this runs during the build."""
     import torch
 
     from vocoder_tpu_torch.tools.profile_train import measure_step, training_setup
@@ -1809,12 +1831,12 @@ def check_decoders(root: Path, libs: dict, stamp: dict) -> None:
 
 
 def write_formats_corpus(root: Path, sr: int, libs: dict, rng) -> dict:
-    """32 training files (FLAC 16 and 24 bit, Ogg q0.6 and MP3 where their encoders load, else FLAC) of
+    """16 training files (FLAC 16 and 24 bit, Ogg q0.6 and MP3 where their encoders load, else FLAC) of
     TRAIN_SECONDS and 4 validation FLAC clips of 2 s; the count of each format."""
     from vocoder_tpu_torch.data import flac, mp3, ogg
 
     counts = {}
-    for sub, n in (("train", 32), ("val", 4)):
+    for sub, n in (("train", 16), ("val", 4)):
         (root / sub).mkdir(parents=True)
         for i in range(n):
             x = tone(sr, rng.uniform(*TRAIN_SECONDS) if sub == "train" else 2.0, rng)
@@ -1833,7 +1855,7 @@ def write_formats_corpus(root: Path, sr: int, libs: dict, rng) -> dict:
 
 def check_cli_train_formats(root: Path, libs: dict, paths: dict, stamp: dict) -> Path:
     """21. cli.train --model bigvgan at the preset's batch 16 x 128 frames over a FLAC + Ogg + MP3 corpus of
-    LibriTTS-long files, 6 steps logged one by one, validation at step 6 over 4 FLAC clips with the default
+    LibriTTS-long files, 4 steps logged one by one, validation at step 4 over 4 FLAC clips with the default
     run.val_pesq: a finite PESQ in range, K1 at least 91 a step and K2 in validation, native FLAC decodes,
     each step's time and input wait, the validation's seconds split into the eval forwards (CUDA events)
     and host PESQ, and the media PNG where matplotlib imports.  The workdir."""
@@ -1848,7 +1870,7 @@ def check_cli_train_formats(root: Path, libs: dict, paths: dict, stamp: dict) ->
     task = build_task_config("bigvgan", "44100_512_2048")
     counts = write_formats_corpus(root, task.sampling_rate, libs, np.random.default_rng(SEED + 21))
     work = root / "run"
-    steps = 6
+    steps = 4
     argv = ["--model", "bigvgan", "--device", "cuda", f"data.train_roots=('{root / 'train'}',)",
             f"data.val_root={root / 'val'}", "run.log_interval=1", f"run.val_interval={steps}",
             f"run.ckpt_interval={steps}", f"run.max_steps={steps}", f"run.workdir={work}"]
@@ -1861,7 +1883,7 @@ def check_cli_train_formats(root: Path, libs: dict, paths: dict, stamp: dict) ->
     native_flac, native_ogg = native.decodes["flac"] - flac_before, native.decodes["ogg"] - ogg_before
     launches = paths["cli_train_formats"]
     records = [json.loads(line) for line in (work / "metrics.jsonl").read_text().splitlines()]
-    train_rec = [r for r in records if "train/generator/all" in r]  # steps 2..6: the first is taken apart
+    train_rec = [r for r in records if "train/generator/all" in r]  # steps 2..4: the first is taken apart
     val_rec = [r for r in records if "val/metrics/mel" in r]
     pesq = val_rec[0].get("val/metrics/pesq") if val_rec else None
     media = sorted(p.name for p in (work / "media").glob("*.png")) if (work / "media").is_dir() else []
@@ -1941,7 +1963,7 @@ def check_cli_evaluate(root: Path, work: Path, infer, paths: dict, stamp: dict) 
 BF16_LOSS_CAP, BF16_GRAD_CAP = 2e-2, 5e-2  # the bf16 rule's caps: kernel path within 2x the run's floor
 CKPT_LOSS_REL, CKPT_GRAD_REL_L2 = 1e-5, 1e-4  # a checkpointed step against the same step without
 K1_RECOMPUTED_PER_STEP = 90  # the AMP blocks' activations, run again in the backward (not activation_post)
-TIMED_STEPS = 3  # measure_step's steps in phases 13 and 26: the third is timed
+TIMED_STEPS = 3  # measure_step's steps in phases 13, 14 and 26: the third is timed
 RESAMPLE_SECONDS = 30.0  # audio for the native resample's speed-up (44.1 -> 16 kHz, the PESQ path)
 
 
@@ -2118,26 +2140,24 @@ def check_checkpointing(dev, paths: dict, stamp: dict) -> dict:
     return rec
 
 
-def time_train_steps_bf16(dev, stamp: dict) -> dict:
+def time_train_step_bf16(dev, stamp: dict) -> dict:
     """26. The BigVGAN preset's step at b16 x 65,536 samples by phase, its rate, peak memory and card-time
-    shares (tools/profile_train.py): in bf16, and in fp32 with checkpointing.  TF32 off."""
+    shares (tools/profile_train.py) in bf16, TF32 off (the checkpointed fp32 step's stand in PERF.md; phase
+    25 holds checkpointing's memory and launches)."""
     import torch
 
     from vocoder_tpu_torch.tools.profile_train import measure_step, training_setup
     from vocoder_tpu_torch.train import gan
 
     tf32_off()
-    out = {}
-    for dtype, remat in (("bfloat16", False), ("float32", True)):
-        task, state, batch = training_setup("bigvgan", 16, SEED, dev, compute_dtype=dtype, checkpointing=remat)
-        rec = {"metric": "train_step_ms", "model": "bigvgan", "batch": 16, "samples": task.hop_length * task.num_frames,
-               "dtype": dtag(torch.bfloat16 if dtype == "bfloat16" else torch.float32), "checkpointing": remat,
-               **measure_step(state, gan.make_train_step(task), batch, task, TIMED_STEPS), **stamp}
-        log(rec)
-        out[(dtype, remat)] = rec
-        del state
-        torch.cuda.empty_cache()
-    return out
+    task, state, batch = training_setup("bigvgan", 16, SEED, dev, compute_dtype="bfloat16")
+    rec = {"metric": "train_step_ms", "model": "bigvgan", "batch": 16, "samples": task.hop_length * task.num_frames,
+           "dtype": "bf16", "checkpointing": False,
+           **measure_step(state, gan.make_train_step(task), batch, task, TIMED_STEPS), **stamp}
+    log(rec)
+    del state
+    torch.cuda.empty_cache()
+    return rec
 
 
 def check_cli_train_bf16(root: Path, paths: dict, stamp: dict) -> float:
@@ -2232,7 +2252,7 @@ def check_profile_steps(root: Path, paths: dict) -> None:
 
 
 def run_bench_train(stamp: dict) -> list:
-    """29. cli.bench_train for BigVGAN and HiFiGAN at b16 in bf16 and fp32, with --memory-stats, as a smoke of
+    """29. cli.bench_train for BigVGAN in bf16 and HiFiGAN in bf16 and fp32 at b16, with --memory-stats, as a smoke of
     the CLI: --iters 1 (a warm-up step, one timed step, one generator phase); phases 13 and 26 time
     BigVGAN's steps over more."""
     import contextlib
@@ -2241,21 +2261,20 @@ def run_bench_train(stamp: dict) -> list:
     from vocoder_tpu_torch.cli import bench_train
 
     out = []
-    for model in ("bigvgan", "hifigan"):
-        for dtype in ("bfloat16", "float32"):
-            buf = io.StringIO()
-            with contextlib.redirect_stdout(buf):
-                bench_train.main(["--model", model, "--batch", "16", "--compute-dtype", dtype, "--iters", "1",
-                                  "--memory-stats"])
-            lines = [json.loads(x) for x in buf.getvalue().splitlines() if x.startswith("{")]
-            step = next(r for r in lines if r["metric"] == "gan_train_step")
-            mem = next(r for r in lines if r["metric"] == "hbm_stats")
-            rec = {"phase": "bench_train", **step, "max_memory_allocated": mem["max_memory_allocated"],
-                   "hbm_stats_keys": len(mem), "ok": step["backend"] == "cuda" and step["total_ms"] > 0, **stamp}
-            log(rec)
-            out.append(rec)
-            if not rec["ok"]:
-                raise SystemExit(f"cli.bench_train --model {model} --compute-dtype {dtype} failed")
+    for model, dtype in (("bigvgan", "bfloat16"), ("hifigan", "bfloat16"), ("hifigan", "float32")):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            bench_train.main(["--model", model, "--batch", "16", "--compute-dtype", dtype, "--iters", "1",
+                              "--memory-stats"])
+        lines = [json.loads(x) for x in buf.getvalue().splitlines() if x.startswith("{")]
+        step = next(r for r in lines if r["metric"] == "gan_train_step")
+        mem = next(r for r in lines if r["metric"] == "hbm_stats")
+        rec = {"phase": "bench_train", **step, "max_memory_allocated": mem["max_memory_allocated"],
+               "hbm_stats_keys": len(mem), "ok": step["backend"] == "cuda" and step["total_ms"] > 0, **stamp}
+        log(rec)
+        out.append(rec)
+        if not rec["ok"]:
+            raise SystemExit(f"cli.bench_train --model {model} --compute-dtype {dtype} failed")
     return out
 
 
@@ -2472,6 +2491,231 @@ def check_bench_infer(dev, stamp: dict) -> list:
     return out
 
 
+# 36-38: data parallelism.  Phase 36's run and phase 12's take the same branches (one rank: every share is
+# the whole), so only cuDNN's run-to-run sums can part them; phase 37's ranks take b2 where one process takes
+# b4, so cuDNN may pick other algorithms, and the sums run in another order.
+DP_CLI_REL = 1e-4  # each logged loss, grad norm and validation figure of the torchrun run against phase 12's
+DP_RANKS, DP_STEP_BATCH = 2, 4
+DP_LOSS_REL, DP_NORM_REL, DP_GRAD_REL_L2 = 1e-5, 1e-4, 1e-4
+DP_TIMEOUT = 600  # seconds a phase's child processes may take
+
+
+def child_env() -> dict:
+    """The environment of a child process that imports the port from this checkout."""
+    root = str(Path(__file__).resolve().parent)
+    return dict(os.environ, PYTHONPATH=os.pathsep.join(filter(None, [root, os.environ.get("PYTHONPATH")])))
+
+
+def start_torchrun(args: list[str]) -> subprocess.Popen:
+    """``torchrun --standalone --nproc_per_node 1 -m <args>`` from this checkout, started, its output going to
+    two temporary files (``proc.logs``) that no pipe's buffer can fill while it runs."""
+    logs = (tempfile.TemporaryFile(mode="w+"), tempfile.TemporaryFile(mode="w+"))
+    proc = subprocess.Popen([sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node", "1",
+                             "-m", *args], stdout=logs[0], stderr=logs[1], text=True, env=child_env(),
+                            cwd=Path(__file__).resolve().parent)
+    proc.logs = logs
+    return proc
+
+
+def finish(proc: subprocess.Popen) -> tuple[str, str]:
+    """A started child's (stdout, stderr) once it ended within DP_TIMEOUT (echoed); killed past it."""
+    try:
+        proc.wait(timeout=DP_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+    texts = []
+    for f in proc.logs:
+        f.seek(0)
+        texts.append(f.read())
+        f.close()
+    print(texts[0][-6000:], texts[1][-6000:], sep="", end="", flush=True)
+    return texts[0], texts[1]
+
+
+def start_cli_train_torchrun(root: Path, one_process: dict) -> tuple:
+    """36's child, started: ``torchrun --standalone --nproc_per_node 1 -m vocoder_tpu_torch.cli.train`` with phase
+    12's first run's arguments over its corpus.  -> (the process, its start time)."""
+    argv = ["vocoder_tpu_torch.cli.train", *one_process["argv"], f"run.workdir={root / 'torchrun'}"]
+    return start_torchrun(argv), time.perf_counter()
+
+
+def check_cli_train_torchrun(started: tuple, root: Path, one_process: dict, paths: dict, stamp: dict) -> dict:
+    """36. ``torchrun --standalone --nproc_per_node 1 -m vocoder_tpu_torch.cli.train`` (NCCL at world size 1)
+    with phase 12's first run's arguments (BigVGAN at full width, b16 x 128 frames, 3 steps, a validation at
+    2) over its corpus: the same metrics.jsonl records as that one-process run, every loss, grad norm and
+    validation figure within DP_CLI_REL; the child's log names NCCL and counts K1 and K2's fp32 route launched
+    (its last line, ``ops.launch_counts``).  ``started``: ``start_cli_train_torchrun``'s."""
+    proc, t0 = started
+    _, err = finish(proc)
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise SystemExit(f"torchrun cli.train exited {proc.returncode}")
+    tagged = [ln.split("kernel launches: ", 1)[1] for ln in err.splitlines() if "kernel launches: " in ln]
+    counts = json.loads(tagged[-1]) if tagged else {}
+    paths["cli_train_torchrun"] = {k: counts.get(k, 0) for k in ("aa_snake", FP32_K2, BF16_K2)}
+    runs = [one_process["records"],
+            [json.loads(ln) for ln in (root / "torchrun" / "metrics.jsonl").read_text().splitlines()]]
+    shape = [[(r["step"], sorted(r)) for r in recs] for recs in runs]
+    rels = {f"{a['step']}:{k}": rel(b[k], a[k]) for a, b in zip(*runs) for k in a
+            if k != "step" and not k.startswith("perf/") and k in b}
+    worst = max(rels, key=rels.get) if rels else None
+    nccl = "processes (nccl)" in err
+    ok = (shape[0] == shape[1] and any("val/metrics/mel" in r for r in runs[1]) and worst is not None
+          and rels[worst] <= DP_CLI_REL and nccl and paths["cli_train_torchrun"]["aa_snake"] > 0
+          and paths["cli_train_torchrun"][FP32_K2] > 0)
+    rec = {"phase": "cli_train_torchrun", "model": "bigvgan", "batch": 16, "world_size": 1,
+           "backend": "nccl" if nccl else None, "max_rel": rels.get(worst), "worst": worst, "compared": len(rels),
+           "limit": DP_CLI_REL, "launches": paths["cli_train_torchrun"], "seconds": seconds, "records": runs[1],
+           "ok": ok, **stamp}
+    log(rec)
+    if not ok:
+        raise SystemExit("torchrun's cli.train (NCCL, one rank) differs from one process or skipped a kernel")
+    return rec
+
+
+def _dp_rank(rank: int, port: int, out: str) -> None:
+    """37, one of DP_RANKS processes sharing the one card over gloo: BigVGAN's step at full width on its
+    rows of a b4 batch (K1 under autograd; counts kept), then the weights gathered to show that the ranks
+    agree; rank 0 then takes one process's step on the whole batch and compares.  Writes rank<r>.json."""
+    os.environ.update(RANK=str(rank), LOCAL_RANK="0", WORLD_SIZE=str(DP_RANKS), MASTER_ADDR="localhost",
+                      MASTER_PORT=str(port))
+    import torch
+
+    from vocoder_tpu_torch.config import build_task_config
+    from vocoder_tpu_torch.models.bigvgan import random_state_dict
+    from vocoder_tpu_torch.ops import launch_counts
+    from vocoder_tpu_torch.ops.aa_snake import aa_snake
+    from vocoder_tpu_torch.ops.amp_block import amp_stage
+    from vocoder_tpu_torch.parallel import dist
+    from vocoder_tpu_torch.tools.profile_train import synthetic_batch
+    from vocoder_tpu_torch.train import gan
+
+    dev = dist.init_from_env("cuda", backend="gloo")
+    tf32_off()
+    task = build_task_config("bigvgan", "44100_512_2048")
+    t = task.hop_length * task.num_frames
+    full = synthetic_batch(DP_STEP_BATCH, t, task.sampling_rate, SEED, dev)
+    full["lengths"][1] = t * 4 // 5
+    full["audio"][1, :, t * 4 // 5 :] = 0.0
+    b = DP_STEP_BATCH // DP_RANKS
+    mine = {k: v[rank * b : (rank + 1) * b] for k, v in full.items()}
+
+    def fresh():
+        state = gan.create_train_state(task, SEED, dev)
+        state.generator.load_state_dict(random_state_dict(task.generator, SEED))
+        return state
+
+    def named(state):
+        return [(f"{m}.{n}", p) for m, mod in (("generator", state.generator), ("discriminators", state.discriminators))
+                for n, p in mod.named_parameters()]
+
+    state = fresh()
+    dist.broadcast_modules([state.generator, state.discriminators], dist.world_group())
+    old = {n: p.detach().clone() for n, p in named(state)} if rank == 0 else None
+    start = gan.draw_crop_start(state, task, t)
+    aa_snake.launches = amp_stage.launches = amp_stage.mma_launches = 0
+    metrics = {k: float(v) for k, v in gan.make_train_step(task, group=dist.world_group())(state, mine, start).items()}
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    sums = torch.stack([p.detach().double().sum() for _, p in named(state)]).cpu()
+    gathered = [torch.zeros_like(sums) for _ in range(DP_RANKS)]
+    torch.distributed.all_gather(gathered, sums)
+    rec = {"rank": rank, "launches": counts, "metrics": metrics, "crop_start": start,
+           "ranks_agree": all(torch.equal(g, gathered[0]) for g in gathered)}
+    if rank == 0:
+        grads = {n: p.grad.detach().clone() for n, p in named(state) if p.grad is not None}
+        new = {n: p.detach().clone() for n, p in named(state)}
+        del state
+        torch.cuda.empty_cache()
+        ref = fresh()
+        ref_start = gan.draw_crop_start(ref, task, t)
+        want = {k: float(v) for k, v in gan.make_train_step(task)(ref, full, ref_start).items()}
+        norms = [k for k in want if "grad_norm" in k]
+        losses = [k for k in want if k not in norms and k != "lr"]
+        ref_params = dict(named(ref))
+        grad_rel = {n: rel_l2(g, ref_params[n].grad) for n, g in grads.items()}
+        worst = max(grad_rel, key=grad_rel.get)
+        params_ok = all(adam_step_close(new[n], ref_params[n].detach(), old[n], ref_params[n].grad,
+                                        float((g - ref_params[n].grad).abs().max()), want["lr"], task.weight_decay)
+                        for n, g in grads.items())
+        rec.update(compared={
+            "same_crop_start": ref_start == start, "loss_rel": {k: rel(metrics[k], want[k]) for k in losses},
+            "grad_norm_rel": {k: rel(metrics[k], want[k]) for k in norms}, "max_grad_rel_l2": grad_rel[worst],
+            "worst_grad": worst, "grad_tensors": len(grad_rel), "params_adam_close": params_ok,
+            "metrics_one_process": want})
+    Path(out, f"rank{rank}.json").write_text(json.dumps(rec))
+    dist.close()
+
+
+def start_dp_ranks() -> tuple:
+    """37's DP_RANKS processes (``_dp_rank``), started.  -> (the processes, the directory they write to)."""
+    import torch
+
+    from vocoder_tpu_torch.parallel import dist
+
+    torch.cuda.empty_cache()
+    ctx = multiprocessing.get_context("spawn")
+    port = dist.free_port()
+    tmp = tempfile.TemporaryDirectory()
+    procs = [ctx.Process(target=_dp_rank, args=(r, port, tmp.name)) for r in range(DP_RANKS)]
+    for p in procs:
+        p.start()
+    return procs, tmp
+
+
+def check_dp_step_gloo(started: tuple, paths: dict, stamp: dict) -> dict:
+    """37. DP_RANKS processes on the one card over gloo (which moves CUDA tensors; NCCL takes one process a
+    card), each BigVGAN's step at full width on b2 through K1, against one process's b4 step on the
+    concatenated batch from the same weights and crop start: every loss (DP_LOSS_REL), grad norm
+    (DP_NORM_REL), generator and discriminator gradient (DP_GRAD_REL_L2), the updated weights (Adam's
+    first-step rule, ``adam_step_close``); the ranks' weights equal; K1 launched 91 times on each rank.
+    ``started``: ``start_dp_ranks``'s."""
+    procs, tmp = started
+    deadline = time.monotonic() + DP_TIMEOUT
+    for p in procs:
+        p.join(max(deadline - time.monotonic(), 0))
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join()
+    if any(p.exitcode != 0 for p in procs):
+        raise SystemExit(f"the gloo ranks exited {[p.exitcode for p in procs]}")
+    ranks = [json.loads(Path(tmp.name, f"rank{r}.json").read_text()) for r in range(DP_RANKS)]
+    tmp.cleanup()
+    cmp = ranks[0]["compared"]
+    counts = [r["launches"] for r in ranks]
+    paths["dp_step_gloo"] = {k: sum(c[k] for c in counts) for k in ("aa_snake", FP32_K2, BF16_K2)}
+    ok = (all(r["ranks_agree"] and r["crop_start"] == ranks[0]["crop_start"] for r in ranks)
+          and all(c["aa_snake"] == K1_PER_BIGVGAN_FORWARD for c in counts) and cmp["same_crop_start"]
+          and max(cmp["loss_rel"].values()) <= DP_LOSS_REL and max(cmp["grad_norm_rel"].values()) <= DP_NORM_REL
+          and cmp["max_grad_rel_l2"] <= DP_GRAD_REL_L2 and cmp["params_adam_close"]
+          and all(math.isfinite(v) for r in ranks for v in r["metrics"].values()))
+    rec = {"phase": "dp_step_gloo", "model": "bigvgan", "ranks": DP_RANKS, "batch_per_rank": DP_STEP_BATCH // DP_RANKS,
+           "batch_one_process": DP_STEP_BATCH, "launches_by_rank": counts, "metrics_dp": ranks[0]["metrics"], **cmp,
+           "limits": {"loss_rel": DP_LOSS_REL, "grad_norm_rel": DP_NORM_REL, "grad_rel_l2": DP_GRAD_REL_L2},
+           "ok": ok, **stamp}
+    log(rec)
+    if not ok:
+        raise SystemExit("the 2-rank step over gloo differs from one process's step on the whole batch")
+    return rec
+
+
+def check_bench_scaling(stamp: dict) -> list:
+    """38. ``torchrun --nproc_per_node 1 -m vocoder_tpu_torch.cli.bench_scaling --meshes 1,2`` (HiFiGAN at the
+    44.1 kHz preset, 8 items x 32 frames a rank, 3 timed steps): one line, dp 1, with the JAX package's keys;
+    2 is more than the one card and prints nothing.  Scaling efficiency needs more cards than this machine's."""
+    proc = start_torchrun(["vocoder_tpu_torch.cli.bench_scaling", "--meshes", "1,2", "--iters", "3"])
+    out, _ = finish(proc)
+    lines = [json.loads(ln) for ln in out.splitlines() if ln.startswith("{")]
+    ok = (proc.returncode == 0 and [r["data_parallel"] for r in lines] == [1]
+          and all(set(r) == {"data_parallel", "step_ms", "audio_s_per_s", "efficiency"} for r in lines))
+    log({"phase": "bench_scaling", "records": lines, "ok": ok, **stamp})
+    if not ok:
+        raise SystemExit("cli.bench_scaling under torchrun did not print the one line of dp 1")
+    return lines
+
+
 def main() -> int:
     import torch
 
@@ -2503,11 +2747,24 @@ def main() -> int:
         timeline[phase] = round(time.perf_counter() - t0, 3)
         print(f"timeline: {phase} ends at {timeline[phase]} s", flush=True)
 
-    # 0. Build.
+    # 0. Build, in a thread (nvcc runs in processes of its own).  Meanwhile the card is free: phases 38 and 16
+    # launch no hand kernel (HiFiGAN; the vae's, vqvae's, Vocos's and Firefly-GAN's generators), so they run
+    # now, one after the other, each alone on the card beside the compilers.
     t0 = time.perf_counter()
-    libs = build.build_all()
+
+    def timed_build():
+        libs = build.build_all()
+        return libs, round(time.perf_counter() - t0, 3)
+
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        building = pool.submit(timed_build)
+        check_bench_scaling(stamp)
+        mark("38 bench_scaling (during the build)")
+        time_family_steps(dev, stamp)
+        mark("16 family step timings (during the build)")
+        libs, build_s = building.result()
     mark("0 build")
-    log({"phase": "build", "seconds": round(time.perf_counter() - t0, 3), "libs": sorted(p.name for p in libs.values())})
+    log({"phase": "build", "seconds": build_s, "libs": sorted(p.name for p in libs.values())})
     for name in sorted(libs):  # ptxas -v: registers, shared memory and spills of each instantiation
         logf = build.BUILD_DIR / f"{name}.log"
         if logf.is_file():
@@ -2694,7 +2951,7 @@ def main() -> int:
             for dtype, m in ((torch.bfloat16, model_bf16), (torch.float32, model)):
                 mel_d = mel.to(dtype)
                 ms = cuda_ms(lambda: m(mel_d), 3 if b == 1 else 2, warmup=1)
-                plain_ms = cuda_ms(lambda: m.forward_plain(mel_d), 2, warmup=1)
+                plain_ms = cuda_ms(lambda: m.forward_plain(mel_d), 1, warmup=1)
                 audio_s = b * F_FRAMES * cfg.hop_length / task.sampling_rate
                 log({"metric": "generator_ms", "model": "bigvgan", "batch": b, "frames": F_FRAMES,
                      "dtype": "bf16" if dtype == torch.bfloat16 else "fp32", "ms": ms, "plain_ms": plain_ms,
@@ -2744,8 +3001,8 @@ def main() -> int:
     k1_train_step = check_train_steps(dev, paths)
     tf32_off()
     mark("11 train steps")
-    with tempfile.TemporaryDirectory() as tmp:
-        check_cli_train(Path(tmp), infer, paths)
+    cli_train_dir = tempfile.TemporaryDirectory()  # phase 12's corpus and records serve phase 36 too
+    cli_train = check_cli_train(Path(cli_train_dir.name), infer, paths)
     mark("12 cli.train bigvgan")
     train_rec = time_train_step(dev, stamp)
     mark("13 train step timing")
@@ -2755,17 +3012,31 @@ def main() -> int:
     time_refinegan_step(dev, stamp, cli_rec)
     mark("14 refinegan step timing")
 
-    # 15-18. The vae and vqvae families, and Vocos and Firefly-GAN training.
+    # 15, 17, 18. The vqvae codec, the families' steps card vs CPU, cli.train --family vqvae (16 ran during
+    # the build).
     with tempfile.TemporaryDirectory() as tmp:
         check_codec(Path(tmp), dev, paths, stamp)
     mark("15 vqvae codec")
-    time_family_steps(dev, stamp)
-    mark("16 family step timings")
+    # Phases 36 and 37 (data parallelism, below) are checks in child processes: they run beside 17, 18, 23
+    # and 24, which are checks too, and are read after 24; no timing phase runs beside them.
+    torch.cuda.empty_cache()
+    dp_ranks = start_dp_ranks()
+    dp_cli = start_cli_train_torchrun(Path(cli_train_dir.name), cli_train)
     check_family_steps_cpu(dev, paths)
     mark("17 family steps card vs cpu")
     with tempfile.TemporaryDirectory() as tmp:
         check_cli_train_codec(Path(tmp), dev, paths)
     mark("18 cli.train vqvae")
+    bf16_step = check_bf16_step(dev, paths)
+    mark("23 bf16 step (beside 36-37)")
+    k1_grad_bf16 = check_k1_autograd_bf16(dev)
+    mark("24 k1 autograd bf16 (beside 36-37)")
+    check_cli_train_torchrun(dp_cli, Path(cli_train_dir.name), cli_train, paths, stamp)
+    cli_train_dir.cleanup()
+    tf32_off()
+    mark("36 cli.train torchrun nccl (beside 17-24)")
+    check_dp_step_gloo(dp_ranks, paths, stamp)
+    mark("37 dp step gloo (beside 17-24)")
 
     # 19-22. FLAC/Ogg/MP3 input through the host library, training with validation PESQ, evaluation.
     libs = host_audio()
@@ -2781,15 +3052,11 @@ def main() -> int:
         tf32_off()
         mark("22 cli.evaluate")
 
-        # 23-30. bf16 training, checkpointing, the profiler window and the bench CLIs.
-        bf16_step = check_bf16_step(dev, paths)
-        mark("23 bf16 step")
-        k1_grad_bf16 = check_k1_autograd_bf16(dev)
-        mark("24 k1 autograd bf16")
+        # 25-30. Checkpointing, bf16 training, the profiler window and the bench CLIs (23 and 24 ran after 18).
         ckpt_rec = check_checkpointing(dev, paths, stamp)
         mark("25 checkpointing")
-        bf16_times = time_train_steps_bf16(dev, stamp)
-        mark("26 bf16 and checkpointed step timing")
+        bf16_times = time_train_step_bf16(dev, stamp)
+        mark("26 bf16 step timing")
         step_s = check_cli_train_bf16(Path(tmp) / "formats", paths, stamp)
         tf32_off()
         mark("27 cli.train bf16")
@@ -2817,6 +3084,7 @@ def main() -> int:
     mark("34 ssl codec")
     check_bench_infer(dev, stamp)
     mark("35 bench_infer")
+
     log({"phase": "timeline", "seconds_at_end": timeline})
 
     def launches(name):  # over the main paths' runs; each path's count beside it
@@ -2835,7 +3103,7 @@ def main() -> int:
                 "launches_train_step_bf16": bf16_step["launches"]["aa_snake"],
                 "launches_train_step_checkpointed": ckpt_rec["k1_launches_per_step"]["with"],
                 "autograd_bf16_worst": k1_grad_bf16,
-                "train_step_bf16_share_of_busy": (bf16_times[("bfloat16", False)]["shares_of_busy"] or {}).get(
+                "train_step_bf16_share_of_busy": (bf16_times["shares_of_busy"] or {}).get(
                     "k1_forward")}]
     for name, dtype in ((FP32_K2, "fp32"), (BF16_K2, "bf16")):
         k2, k2_b16 = entries[name][1], entries[name][16]

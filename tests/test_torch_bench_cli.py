@@ -7,8 +7,8 @@ import json
 
 import pytest
 
-from tests.test_torch_bf16_train import one_torch_thread  # noqa: F401 (an autouse fixture)
 from tests.test_torch_trainer import TINY
+from tests.torch_threads import one_torch_thread  # noqa: F401 (an autouse fixture)
 from vocoder_tpu_torch.cli import bench_input, bench_train
 
 TRAIN_KEYS = {"metric", "model", "backend", "batch", "compute_dtype", "total_ms", "g_ms", "audio_s_per_s"}

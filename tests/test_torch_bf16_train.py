@@ -46,6 +46,7 @@ import pytest
 import torch
 
 from tests.test_torch_train import RES, _batch, _configs, _to_jax
+from tests.torch_threads import one_torch_thread  # noqa: F401 (an autouse fixture)
 from vocoder_tpu.losses import multi_resolution_stft_loss as jmr_stft_loss
 from vocoder_tpu.ops import antialias as jantialias
 from vocoder_tpu.train import gan as jgan
@@ -55,17 +56,6 @@ from vocoder_tpu_torch.train import gan
 
 LOSS_CAP, GRAD_CAP = 2e-2, 5e-2
 FIELD_MOVES = 10.0  # loss_stft_dtype's effect over the port's fp32 gap to JAX, at least
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    """One intra-op thread for these CPU-heavy files: when the suite runs in parallel workers that share
-    the cores, each worker's default of a thread a core makes the workers spin against each other (six
-    such files took 2.4 times as long together)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(autouse=True)

@@ -18,7 +18,7 @@ import pytest
 import torch
 
 import tests.test_torch_train as tt
-from tests.test_torch_bf16_train import one_torch_thread  # noqa: F401 (an autouse fixture)
+from tests.torch_threads import one_torch_thread  # noqa: F401 (an autouse fixture)
 from vocoder_tpu_torch.ops.aa_snake import AASnakeFunction
 from vocoder_tpu_torch.train import gan
 

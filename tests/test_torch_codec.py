@@ -23,6 +23,7 @@ import pytest
 import torch
 
 from tests.test_torch_family_train import equal_draws  # noqa: F401 (a fixture)
+from tests.torch_threads import one_torch_thread  # noqa: F401 (an autouse fixture)
 from vocoder_tpu import config as jconfig
 from vocoder_tpu import nn as jnn
 from vocoder_tpu.data.resample import resample as jresample

@@ -6,6 +6,7 @@ minute on one worker)."""
 import pytest
 
 from tests.test_torch_family_train import check_family_train_step, equal_draws  # noqa: F401 (a fixture)
+from tests.torch_threads import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 
 @pytest.mark.parametrize("name", ["vocos", "firefly_gan_base"])

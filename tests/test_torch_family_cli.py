@@ -9,6 +9,7 @@ import pytest
 import torch
 
 from tests.test_torch_trainer import TINY, _wavs
+from tests.torch_threads import one_torch_thread  # noqa: F401 (an autouse fixture)
 from vocoder_tpu_torch.cli import codec
 from vocoder_tpu_torch.cli import train as train_cli
 from vocoder_tpu_torch.data.audio_io import read_wav

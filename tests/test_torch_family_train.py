@@ -24,6 +24,7 @@ import pytest
 import torch
 
 from tests.test_torch_train import ATOL, COMMON, HOP, RES, RTOL, _assert_adam_updates_close, _assert_trees_close, _batch
+from tests.torch_threads import one_torch_thread  # noqa: F401 (an autouse fixture)
 from vocoder_tpu import nn as jnn
 from vocoder_tpu.models import convnext as jconvnext
 from vocoder_tpu.models import firefly as jfirefly

@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+from tests.torch_threads import one_torch_thread  # noqa: F401 (an autouse fixture)
 from vocoder_tpu import config as jconfig
 from vocoder_tpu.models import convnext as jconvnext
 from vocoder_tpu.models import hifigan as jhifigan

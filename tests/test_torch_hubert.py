@@ -18,6 +18,7 @@ import pytest
 import torch
 import transformers
 
+from tests.torch_threads import one_torch_thread  # noqa: F401 (an autouse fixture)
 from vocoder_tpu.models import ssl_encoders as jssl
 from vocoder_tpu_torch.convert import hubert_state_dict_from_numpy
 from vocoder_tpu_torch.models import hubert, ssl_encoders

@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+from tests.torch_threads import one_torch_thread  # noqa: F401 (an autouse fixture)
 from vocoder_tpu.models import bigvgan as jbigvgan
 from vocoder_tpu.ops import antialias as jaa
 from vocoder_tpu_torch.cli import infer

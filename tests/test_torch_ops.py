@@ -16,6 +16,7 @@ import pytest
 import torch
 import torch.nn.functional as F
 
+from tests.torch_threads import one_torch_thread  # noqa: F401 (an autouse fixture)
 from vocoder_tpu.models import bigvgan as jbigvgan
 from vocoder_tpu.ops import antialias as jaa
 from vocoder_tpu.ops import spectral as jspectral

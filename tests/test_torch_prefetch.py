@@ -14,8 +14,8 @@ import numpy as np
 import pytest
 import torch
 
-from tests.test_torch_bf16_train import one_torch_thread  # noqa: F401 (an autouse fixture)
 from tests.test_torch_trainer import TINY, _wavs
+from tests.torch_threads import one_torch_thread  # noqa: F401 (an autouse fixture)
 from vocoder_tpu_torch.cli import train as train_cli
 from vocoder_tpu_torch.data.dataset import DevicePrefetcher, batch_iterator
 from vocoder_tpu_torch.train import trainer

@@ -24,6 +24,7 @@ import torch
 from tests.test_torch_codec import margins
 from tests.test_torch_family_train import discriminators_to_jax, vq_to_jax
 from tests.test_torch_train import ATOL, COMMON, HOP, RES, RTOL, _assert_adam_updates_close, _assert_trees_close, _batch
+from tests.torch_threads import one_torch_thread  # noqa: F401 (an autouse fixture)
 from vocoder_tpu import config as jconfig
 from vocoder_tpu.convert import conv1d_from_torch
 from vocoder_tpu.models import hifigan as jhifigan

@@ -23,6 +23,7 @@ import transformers
 from tests.test_torch_codec import margins
 from tests.test_torch_ssl import MARGIN_REL
 from tests.test_torch_trainer import TINY, _wavs
+from tests.torch_threads import one_torch_thread  # noqa: F401 (an autouse fixture)
 from vocoder_tpu.convert import conv1d_from_torch
 from vocoder_tpu.data.resample import resample as jresample
 from vocoder_tpu.models import hifigan as jhifigan

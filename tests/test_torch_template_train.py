@@ -19,6 +19,7 @@ import torch
 
 from tests.test_torch_train import check_eval_step, check_train_step
 from tests.test_torch_trainer import TINY, _wavs
+from tests.torch_threads import one_torch_thread  # noqa: F401 (an autouse fixture)
 from vocoder_tpu.data import dataset as jdataset
 from vocoder_tpu.data import f0 as jf0
 from vocoder_tpu.data import transforms as jtransforms

@@ -24,6 +24,7 @@ import numpy as np
 import pytest
 import torch
 
+from tests.torch_threads import one_torch_thread  # noqa: F401 (an autouse fixture)
 from vocoder_tpu.models import bigvgan as jbigvgan
 from vocoder_tpu.models import hifigan as jhifigan
 from vocoder_tpu.models import mpd as jmpd

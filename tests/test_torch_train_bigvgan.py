@@ -9,6 +9,7 @@ validation step after it, whose eval-mode stages run ``amp_stage`` (the plain st
 import pytest
 
 from tests.test_torch_train import check_eval_step, check_train_step
+from tests.torch_threads import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 
 @pytest.mark.parametrize("crop", [True, False])

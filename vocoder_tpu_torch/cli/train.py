@@ -22,6 +22,14 @@ waveforms, ``task.generator.checkpointing=True`` recomputes BigVGAN's AMP
 blocks (HiFiGAN's resblock groups) in the backward, and
 ``run.profile_steps=(3,5)`` writes a ``torch.profiler`` trace of steps 3 and 4
 under ``<workdir>/profile/``.
+
+Data-parallel training on N cards of one host, one process each (NCCL; each
+rank trains on its card, ``cuda:LOCAL_RANK``, a share of ``data.batch_size``,
+and the step is the global batch's):
+
+    torchrun --standalone --nproc_per_node N -m vocoder_tpu_torch.cli.train --model bigvgan ...
+
+and on the CPU over gloo with ``--device cpu``.  Rank 0 writes the workdir.
 """
 
 from __future__ import annotations
@@ -29,6 +37,7 @@ from __future__ import annotations
 import argparse
 
 from vocoder_tpu_torch.config import FAMILIES, build_train_config
+from vocoder_tpu_torch.parallel import dist
 from vocoder_tpu_torch.train.trainer import train
 
 
@@ -40,7 +49,9 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     ap.add_argument("overrides", nargs="*", help="dotted config overrides key=value")
     args = ap.parse_args(argv)
-    return train(build_train_config(args.model, args.resolution, args.family, args.overrides), args.device)
+    state = train(build_train_config(args.model, args.resolution, args.family, args.overrides), args.device)
+    dist.close()
+    return state
 
 
 if __name__ == "__main__":

@@ -45,6 +45,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from vocoder_tpu_torch.nn import conv1d, get_padding
+from vocoder_tpu_torch.parallel import dist
 
 DILATIONS = (1, 3, 5)
 UP_KERNELS = (3, 7, 11)
@@ -117,8 +118,9 @@ class ResBlock(nn.Module):
 
 
 def adain_noise(x: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
-    """Standard normal noise of x's shape, dtype and device, from ``generator`` (on x's device)."""
-    return torch.randn(x.shape, generator=generator, device=x.device, dtype=x.dtype)
+    """Standard normal noise of x's shape, dtype and device, from ``generator`` (on x's device); inside
+    ``parallel.dist.data_parallel`` this rank's rows of the global batch's draw."""
+    return dist.batch_draw(lambda s: torch.randn(s, generator=generator, device=x.device, dtype=x.dtype), x.shape)
 
 
 class AdaIN(nn.Module):

@@ -23,6 +23,10 @@ the codebooks the forward used, then writes them.  A trainer calls it after
 the generator's backward, as the JAX step writes its new state at the end
 (``vocoder_tpu/train/gan.py``), so no buffer that autograd saved changes
 before the backward reads it.  ``from_codes`` is the codec's decode path.
+Inside ``parallel.dist.data_parallel`` the commitment loss is this rank's
+share of the global batch's and the EMA step sums each codebook's counts
+and frame sums over the ranks first, so every rank writes the global
+batch's codebooks.
 """
 
 from __future__ import annotations
@@ -33,6 +37,8 @@ import dataclasses
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from vocoder_tpu_torch.parallel import dist
 
 
 @dataclasses.dataclass(frozen=True)
@@ -91,7 +97,7 @@ class VectorQuantizer(nn.Module):
             with torch.no_grad():
                 c = torch.argmin(distances(residual.detach(), layer.embed), dim=1)
             q = layer.embed[c]
-            losses.append(torch.mean(torch.square(q - residual)) * self.cfg.commitment_weight)
+            losses.append(dist.mean_share(torch.square(q - residual)) * self.cfg.commitment_weight)
             total = total + (residual + (q - residual).detach())  # straight-through
             residual = residual - q
             codes.append(c)
@@ -103,17 +109,22 @@ class VectorQuantizer(nn.Module):
         """One EMA step from a training forward's input x (B, D, T) and its codes (Q, B, T)."""
         cfg = self.cfg
         residual = self._flat(x.detach())
-        new = []
+        sums = []  # each codebook's (frames a code, frame sums a code) of this rank's batch
         for layer, c in zip(self.layers, codes.reshape(len(self.layers), -1)):
             onehot = F.one_hot(c, cfg.codebook_size).to(residual.dtype)
             with full_fp32_matmul():
-                embed_sums = onehot.T @ residual
-            cluster_size = layer.cluster_size * cfg.decay + onehot.sum(0) * (1 - cfg.decay)
+                sums.append((onehot.sum(0), onehot.T @ residual))
+            residual = residual - layer.embed[c]
+        flat = dist.all_reduce_sum(torch.cat([t.reshape(-1) for pair in sums for t in pair]))  # the global batch's
+        k = cfg.codebook_size
+        sums = [(f[:k], f[k:].view(k, -1)) for f in flat.view(len(sums), -1)]
+        new = []
+        for layer, (counts, embed_sums) in zip(self.layers, sums):
+            cluster_size = layer.cluster_size * cfg.decay + counts * (1 - cfg.decay)
             embed_avg = layer.embed_avg * cfg.decay + embed_sums * (1 - cfg.decay)
             n = cluster_size.sum()
             smoothed = (cluster_size + cfg.eps) / (n + cfg.codebook_size * cfg.eps) * n
             new.append((embed_avg / smoothed[:, None], embed_avg, cluster_size))
-            residual = residual - layer.embed[c]
         for layer, (embed, embed_avg, cluster_size) in zip(self.layers, new):
             layer.embed.copy_(embed)
             layer.embed_avg.copy_(embed_avg)

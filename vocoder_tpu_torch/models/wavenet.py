@@ -16,6 +16,10 @@ halves; the last layer's is all skip), the sum of the skips, and a 1x1
   statistics over batch and time, unmasked as the reference's BatchNorm1d
   never sees the mask, and moves its running ``mean`` and ``var`` buffers
   by momentum 0.1 (the variance unbiased); in eval mode it uses them.
+  Inside ``parallel.dist.data_parallel`` the statistics are the global
+  batch's: the mean of the all-reduced sums, then the all-reduced sums of
+  squared deviations from it (two passes), both differentiable, with the
+  global count in the unbiased running variance.
 
 Channels-first (B, C, T) throughout, the convs are ``torch.nn`` layers
 (cuDNN on the card): the JAX package ran this encoder outside any Pallas
@@ -32,6 +36,7 @@ import torch
 from torch import nn
 
 from vocoder_tpu_torch.nn import conv1d, get_padding, normal_like
+from vocoder_tpu_torch.parallel import dist
 
 BN_GAMMA = 0.5  # fixed, not trained (the reference's mu_bn.weight.fill_(0.5), requires_grad=False)
 BN_EPS = 1e-5  # torch BatchNorm1d's defaults
@@ -97,9 +102,9 @@ class FixedGammaBatchNorm(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.training:
-            mu = x.mean(dim=(0, 2))
-            var = x.var(dim=(0, 2), unbiased=False)
-            n = x.shape[0] * x.shape[2]
+            n = x.shape[0] * x.shape[2] * dist.shard()[1]  # the global batch's statistics
+            mu = dist.all_reduce_sum_autograd(x.sum(dim=(0, 2))) / n
+            var = dist.all_reduce_sum_autograd(torch.square(x - mu[:, None]).sum(dim=(0, 2))) / n
             with torch.no_grad():
                 self.running_mean.copy_((1 - BN_MOMENTUM) * self.running_mean + BN_MOMENTUM * mu)
                 self.running_var.copy_((1 - BN_MOMENTUM) * self.running_var

@@ -11,7 +11,9 @@ model on the card as to one on the CPU.  Mixed precision and memory:
 ``cast_parameters`` (a forward on bf16 copies of a module's parameters whose
 gradients reach the fp32 masters, the JAX package's ``_cast_floats`` under
 ``jax.value_and_grad``), ``cast_copy`` (a detached copy in another dtype) and
-``checkpointed`` (``jax.checkpoint``'s counterpart).
+``checkpointed`` (``jax.checkpoint``'s counterpart).  Inside
+``parallel.dist.data_parallel`` the draws are the global batch's: each rank
+draws the global shape and keeps its own rows (``dist.batch_draw``).
 The modules are plain ``torch.nn`` layers carrying
 ``torch.nn.utils.parametrizations.weight_norm``, so their state_dict keys are
 the reference's (``<name>.parametrizations.weight.original{0,1}``, ``bias``).
@@ -29,6 +31,8 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 from torch.nn.utils import parametrize
 from torch.nn.utils.parametrizations import weight_norm
+
+from vocoder_tpu_torch.parallel import dist
 
 
 def set_full_precision() -> None:
@@ -82,13 +86,17 @@ def drop_path(x: torch.Tensor, p: float, training: bool, generator: torch.Genera
         raise ValueError("drop_path in training needs a torch.Generator for its draws")
     keep = 1.0 - p
     shape = (x.shape[0],) + (1,) * (x.dim() - 1)
-    mask = (torch.rand(shape, generator=generator, device=generator.device) < keep).to(x.device, x.dtype)
-    return x * mask / keep
+    draws = dist.batch_draw(lambda s: torch.rand(s, generator=generator, device=generator.device), shape)
+    return x * (draws < keep).to(x.device, x.dtype) / keep
 
 
 def normal_like(x: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
     """Standard normal draws of x's shape and dtype from ``generator``, on x's device."""
-    return torch.randn(x.shape, generator=generator, device=generator.device, dtype=x.dtype).to(x.device)
+
+    def draw(shape):
+        return torch.randn(shape, generator=generator, device=generator.device, dtype=x.dtype)
+
+    return dist.batch_draw(draw, x.shape).to(x.device)
 
 
 def conv1d(in_ch: int, out_ch: int, kernel_size: int, *, dilation: int = 1, padding: int = 0,

@@ -73,6 +73,24 @@ rounds the magnitudes and the loss mels to bf16 (``ops/spectral.py``), where
 the JAX package's magnitudes come out of a bf16 DFT; the norms and logs
 accumulate in fp32.  The MRD's STFT of bf16 audio follows the same rule.
 
+Data parallelism (``make_train_step(cfg, group=...)``, the trainer's under
+torchrun): each rank runs both phases on its share of the global batch inside
+``parallel.dist.data_parallel``, so that the step is one process's step on the
+ranks' batches concatenated (the JAX step under GSPMD is the global batch's).
+Each loss term is the rank's share of the global term (a batch mean over the
+ranks; the MRD's adversarial terms, sums over batch rows, as they are; the
+spectral convergence from all-reduced sums), so that after each phase's
+backward the gradients are summed over the ranks (one flat all-reduce) and
+are the global loss's; only then come the grad norms and AdamW, the same on
+every rank.  The logged losses are the shares summed over the ranks.  The crop
+start is one draw a step from ``state.rng``, alike on every rank; the
+generator's draws take the global batch's shape (``dist.batch_draw``); bnvae's
+statistics and the EMA codebook sums are all-reduced in their modules.  No
+``DistributedDataParallel``: its hooks and its buffer broadcast at each forward
+fit neither the two backward passes and optimizers a step, nor the
+discriminators run with ``requires_grad`` off in the generator phase, nor the
+EMA buffers written after the backward.
+
 Not ported: ``spectral_precision`` (a TPU MXU pass count) and the split step
 (an XLA compile workaround) are TPU machinery.  ``run.precision`` sets TF32
 in the trainer.
@@ -98,6 +116,7 @@ from vocoder_tpu_torch.models.mrd import MRDConfig, MultiResolutionDiscriminator
 from vocoder_tpu_torch.models.registry import get_generator
 from vocoder_tpu_torch.nn import cast_copy, cast_parameters
 from vocoder_tpu_torch.ops.spectral import linear_spectrogram, log_mel_spectrogram
+from vocoder_tpu_torch.parallel import dist
 from vocoder_tpu_torch.train.schedule import WarmupCosineConfig, warmup_cosine
 
 DEFAULT_RESOLUTIONS = ((2048, 512, 2048), (1024, 120, 600), (2048, 240, 1200), (4096, 480, 2400), (512, 50, 240))
@@ -293,7 +312,7 @@ def generator_forward(generator: nn.Module, audio: torch.Tensor, cfg: GANTaskCon
     spec = features if cfg.family == "ssl" else input_transform(cfg, audio[:, 0, :])
     if cfg.family == "vae":
         fake, mean, logvar = generator(spec, noise=noise)
-        kl = 0.5 * torch.mean(torch.square(mean) + torch.exp(logvar) - logvar - 1.0)
+        kl = 0.5 * dist.mean_share(torch.square(mean) + torch.exp(logvar) - logvar - 1.0)
         return fake.float(), kl, {"train/generator/kl": kl}, None
     if cfg.family in ("vqvae", "ssl"):
         fake, latent, codes, vq_loss = generator(spec)
@@ -342,7 +361,8 @@ def _generator_loss(generator, discriminators, audio, mask, cfg: GANTaskConfig, 
     with torch.profiler.record_function("mr_stft_loss"):
         sc_loss, mag_loss = multi_resolution_stft_loss(fake_l, audio_l, cfg.stft_resolutions)
     loss_stft = sc_loss + mag_loss
-    loss_mel = torch.mean(torch.abs(loss_mel_transform(cfg, audio_l).float() - loss_mel_transform(cfg, fake_l).float()))
+    loss_mel = dist.mean_share(torch.abs(loss_mel_transform(cfg, audio_l).float()
+                                         - loss_mel_transform(cfg, fake_l).float()))
 
     if start is None:
         audio_c, fake_c = audio_m, fake_m
@@ -389,7 +409,16 @@ def global_norm(params) -> torch.Tensor:
     return torch.linalg.vector_norm(torch.stack([torch.linalg.vector_norm(g) for g in grads]))
 
 
-def make_train_step(cfg: GANTaskConfig, plain: bool = False):
+def _global_values(metrics: dict) -> dict:
+    """The ranks' shares of each logged loss summed: the global batch's values (as they are, outside a
+    data-parallel group).  One all-reduce."""
+    if not dist.active():
+        return metrics
+    total = dist.all_reduce_sum(torch.stack([v.detach().float() for v in metrics.values()]))
+    return dict(zip(metrics, total.unbind()))
+
+
+def make_train_step(cfg: GANTaskConfig, plain: bool = False, group=None):
     """(state, batch, crop_start=None) -> metrics; updates ``state`` in place.
 
     ``batch``: {"audio": (B, 1, T), "lengths": (B,)[, "template": (B, 1, T)][, "ssl_features": (B, T',
@@ -398,7 +427,10 @@ def make_train_step(cfg: GANTaskConfig, plain: bool = False):
     step (``step.g_phase``), then the discriminator step (``step.d_phase``) on the pre-update
     generator's fake; the crop start is drawn from ``state.rng`` unless given.  The phases are
     exposed so that a measurement times the code the step runs.  ``plain`` runs the generator
-    through its kernels' plain versions (what the card checks hold the kernel path against)."""
+    through its kernels' plain versions (what the card checks hold the kernel path against).
+    ``group``: a process group whose ranks each pass their share of the global batch (equal shares, in
+    rank order) and a state of the same weights (``dist.broadcast_modules``); the step is then the
+    global batch's on every rank, metrics included.  None: one process."""
     check_trainable(cfg)
 
     def g_phase(state: TrainState, batch: dict, crop_start: int | None = None):
@@ -408,27 +440,33 @@ def make_train_step(cfg: GANTaskConfig, plain: bool = False):
         mask = sequence_mask(lengths, audio.shape[2])
         start = draw_crop_start(state, cfg, audio.shape[2]) if crop_start is None else crop_start
         state.opt_g.zero_grad(set_to_none=True)
-        loss, metrics, audio_c, fake_c, ema = _generator_loss(
-            state.generator, state.discriminators, audio, mask, cfg, start, plain, batch.get("template"),
-            state.noise, batch.get("ssl_features"))
-        loss.backward()
-        metrics["train/generator/grad_norm"] = global_norm(state.generator.parameters())
-        for group in state.opt_g.param_groups:
-            group["lr"] = warmup_cosine(state.step, cfg.schedule)
-        state.opt_g.step()
-        if ema is not None:
-            ema()
+        with dist.data_parallel(group):
+            loss, metrics, audio_c, fake_c, ema = _generator_loss(
+                state.generator, state.discriminators, audio, mask, cfg, start, plain, batch.get("template"),
+                state.noise, batch.get("ssl_features"))
+            loss.backward()
+            dist.all_reduce_grads(state.generator.parameters())
+            metrics = _global_values(metrics)
+            metrics["train/generator/grad_norm"] = global_norm(state.generator.parameters())
+            for param_group in state.opt_g.param_groups:
+                param_group["lr"] = warmup_cosine(state.step, cfg.schedule)
+            state.opt_g.step()
+            if ema is not None:
+                ema()
         return metrics, audio_c, fake_c
 
     def d_phase(state: TrainState, audio_c: torch.Tensor, fake_c: torch.Tensor) -> dict:
         """The discriminators' loss, backward and AdamW update on the crops; advances the step."""
         state.opt_d.zero_grad(set_to_none=True)
-        loss, metrics = _discriminator_loss(state.discriminators, audio_c, fake_c, cfg)
-        loss.backward()
+        with dist.data_parallel(group):
+            loss, metrics = _discriminator_loss(state.discriminators, audio_c, fake_c, cfg)
+            loss.backward()
+            dist.all_reduce_grads(state.discriminators.parameters())
+            metrics = _global_values(metrics)
         for key, d in state.discriminators.items():
             metrics[f"train/discriminator/grad_norm_{key}"] = global_norm(d.parameters())
-        for group in state.opt_d.param_groups:
-            group["lr"] = warmup_cosine(state.step, cfg.schedule)
+        for param_group in state.opt_d.param_groups:
+            param_group["lr"] = warmup_cosine(state.step, cfg.schedule)
         state.opt_d.step()
         state.step += 1
         return metrics

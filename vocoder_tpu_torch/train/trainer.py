@@ -43,9 +43,26 @@ host; where they are made changes time, not numbers); the log window's
 matmuls in full fp32 (TF32 off), as the JAX package's ``Precision.HIGHEST``;
 "default" lets them use TF32, as its ``Precision.DEFAULT`` lets the MXU round.
 
-Not ported yet (ROADMAP.md): the distributed init and meshes, and W&B (the
-card's machine has neither ``wandb`` nor a network; ``metrics.jsonl``, the
-media PNGs and TensorBoard stand in).
+Data parallelism (``torchrun --nproc_per_node N -m vocoder_tpu_torch.cli.train
+...``; ``parallel/dist.py``): ``train`` joins the process group of torchrun's
+environment first (``cuda`` is then ``cuda:LOCAL_RANK``, NCCL; gloo on the
+CPU), refuses a batch that the ranks cannot share equally and any
+``run.model_parallel`` but 1, and each rank reads its share of the batch from
+``batch_iterator(host_index=rank)`` (``data.batch_size // ranks`` items, as the
+JAX package's hosts) into its own card.  Every rank builds the state from the
+seed or restores the same checkpoint, and rank 0's weights are broadcast; the
+step is the global batch's (``train/gan.py``).  Rank 0 alone writes
+``config.json``, ``metrics.jsonl``, media, TensorBoard, checkpoints,
+``crash.log`` and the profiler trace, and runs the validation (the eval
+forwards and PESQ over every validation batch, so its figures are one
+process's) while the other ranks wait for its early-stop decision.  The logged
+losses and grad norms are the global batch's and ``perf/audio_s_per_s``
+counts the global batch.  The run's log ends with the hand kernels' launches
+in this process (``ops.launch_counts``).
+
+Not ported yet (ROADMAP.md): tensor parallelism (``run.model_parallel`` > 1 is
+refused), and W&B (the card's machine has neither ``wandb`` nor a network;
+``metrics.jsonl``, the media PNGs and TensorBoard stand in).
 """
 
 from __future__ import annotations
@@ -67,6 +84,8 @@ from vocoder_tpu_torch.data.resample import resample
 from vocoder_tpu_torch.eval_metrics import pesq as pesq_metric
 from vocoder_tpu_torch.models.ssl_encoders import HubertFeatureExtractor
 from vocoder_tpu_torch.nn import set_full_precision
+from vocoder_tpu_torch.ops import launch_counts
+from vocoder_tpu_torch.parallel import dist
 from vocoder_tpu_torch.train import gan
 from vocoder_tpu_torch.utils.checkpoint import CheckpointManager
 from vocoder_tpu_torch.utils.logging import MetricsLogger, log
@@ -149,6 +168,22 @@ def _check_config(cfg: TrainConfig, workdir: Path, ckpt: CheckpointManager) -> N
                 f"workdir {workdir} holds a checkpoint (step {ckpt.latest_step()}) trained with a different "
                 f"task config (differs in: {', '.join(diff)}). Point run.workdir at a fresh directory, or pass "
                 "the old model/resolution flags to resume it.")
+
+
+def check_parallel(cfg: TrainConfig, world: int) -> None:
+    """Refuse, by the field's name, a layout that ``world`` processes cannot run: tensor parallelism, a
+    ``run.data_parallel`` other than the processes, a batch the ranks cannot share equally."""
+    run, data = cfg.run, cfg.data
+    if run.model_parallel != 1:
+        raise SystemExit(f"run.model_parallel={run.model_parallel}: tensor parallelism is not ported yet; "
+                         "ROADMAP Queue 1 item 2")
+    if run.data_parallel is not None and run.data_parallel != world // run.model_parallel:
+        raise SystemExit(f"run.data_parallel={run.data_parallel} must be the number of processes ({world}) // "
+                         f"run.model_parallel ({run.model_parallel}), or None")
+    if data.batch_size % world:
+        raise SystemExit(f"data.batch_size={data.batch_size} is not divisible by the {world} processes")
+    if data.val_root is not None and data.val_batch_size % world:
+        raise SystemExit(f"data.val_batch_size={data.val_batch_size} is not divisible by the {world} processes")
 
 
 def _make_val_pesq(task):
@@ -288,39 +323,49 @@ class ProfileWindow:
 
 
 def train(cfg: TrainConfig, device: str | torch.device = "cuda") -> gan.TrainState:
-    """Train on ``device`` until ``run.max_steps`` (or an early stop); the final state."""
-    device = torch.device(device)
+    """Train on ``device`` until ``run.max_steps`` (or an early stop); the final state.  Under torchrun,
+    this rank's part of a data-parallel run (``cuda``: the card of its local rank)."""
+    device = dist.init_from_env(device)  # before anything touches a card
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("no CUDA device is available; pass --device cpu to train on the CPU")
+    world, main, group = dist.world_size(), dist.is_main(), dist.world_group()
+    check_parallel(cfg, world)
     set_precision(cfg.run.precision)
     task = cfg.task
     workdir = Path(cfg.run.workdir)
     ckpt = CheckpointManager(workdir / "checkpoints", save_interval_steps=cfg.run.ckpt_interval)
     _check_config(cfg, workdir, ckpt)
-    workdir.mkdir(parents=True, exist_ok=True)
-    (workdir / "config.json").write_text(json.dumps(dataclasses.asdict(cfg), indent=2, default=str))
+    dist.barrier()  # every rank has read config.json before rank 0 writes it
+    if main:
+        workdir.mkdir(parents=True, exist_ok=True)
+        (workdir / "config.json").write_text(json.dumps(dataclasses.asdict(cfg), indent=2, default=str))
 
     state = gan.create_train_state(task, cfg.run.seed, device)
-    latest = ckpt.latest_step()
+    latest = ckpt.saved_step
     if cfg.run.ckpt_path is not None and cfg.run.resume_weights_only:
         CheckpointManager(cfg.run.ckpt_path).restore_weights_only(state)
         log(f"resumed weights only from {cfg.run.ckpt_path}")
     elif latest is not None:
-        ckpt.restore(state)
+        ckpt.restore(state, latest)
         log(f"auto-resumed from step {state.step}")
+    dist.broadcast_modules([state.generator, state.discriminators], group)
     n_g = sum(p.numel() for p in state.generator.parameters())
     n_d = sum(p.numel() for p in state.discriminators.parameters())
     log(f"params: generator {n_g:,}, discriminators {n_d:,} on {device}")
+    if group is not None:
+        log(f"data parallel: {world} processes ({torch.distributed.get_backend()}), "
+            f"{cfg.data.batch_size // world} of the batch's {cfg.data.batch_size} items each")
 
-    step_fn = gan.make_train_step(task)
+    step_fn = gan.make_train_step(task, group=group)
     eval_fn = gan.make_eval_step(task)
     target_len = task.hop_length * task.num_frames
-    profile = ProfileWindow(cfg.run.profile_steps, workdir, device)
-    host_it = batch_iterator(_build_train_sampler(cfg), batch_size=cfg.data.batch_size, target_length=target_len,
-                             seed=cfg.run.seed, start_step=state.step, num_workers=cfg.data.num_workers,
-                             template_fn=template_fn(task))
+    profile = ProfileWindow(cfg.run.profile_steps if main else None, workdir, device)
+    host_it = batch_iterator(_build_train_sampler(cfg), batch_size=cfg.data.batch_size // world,
+                             target_length=target_len, seed=cfg.run.seed, host_index=dist.rank(),
+                             start_step=state.step, num_workers=cfg.data.num_workers, template_fn=template_fn(task))
     extractor = HubertFeatureExtractor(task.generator.hubert, device) if task.family == "ssl" else None
-    val_batches = _build_val_batches(cfg, extractor)
+    validating = cfg.data.val_root is not None
+    val_batches = _build_val_batches(cfg, extractor) if main else None  # rank 0 validates
     pesq_fn = _make_val_pesq(task) if cfg.run.val_pesq else None
     metrics_logger = MetricsLogger(workdir)
     prefetcher = DevicePrefetcher(host_it, device, depth=2)  # its thread starts here; closed in the finally
@@ -364,27 +409,35 @@ def train(cfg: TrainConfig, device: str | torch.device = "cuda") -> gan.TrainSta
                     f"d={scalars['train/discriminator/all']:.3f} mel={scalars['train/generator/mel']:.3f} "
                     f"({sps:.2f} steps/s, {scalars['perf/audio_s_per_s']:.1f} audio-s/s)")
                 t0 = time.perf_counter()
-            if val_batches and step % cfg.run.val_interval == 0:
-                val_scalars, first = validate(state, eval_fn, val_batches, pesq_fn, device)
-                val_mel = val_scalars["val/metrics/mel"]
-                metrics_logger.write(step, val_scalars)
-                log(f"step {step}: val mel-L1 {val_mel:.4f}"
-                    + (f", PESQ {val_scalars['val/metrics/pesq']:.3f}" if "val/metrics/pesq" in val_scalars else ""))
-                if cfg.run.early_stop_patience is not None:
-                    if val_mel < best_val - 1e-6:
-                        best_val, stale_vals = val_mel, 0
+            if validating and step % cfg.run.val_interval == 0:
+                stop = False
+                if val_batches:  # rank 0's, when the validation root holds clips
+                    val_scalars, first = validate(state, eval_fn, val_batches, pesq_fn, device)
+                    val_mel = val_scalars["val/metrics/mel"]
+                    metrics_logger.write(step, val_scalars)
+                    log(f"step {step}: val mel-L1 {val_mel:.4f}" + (
+                        f", PESQ {val_scalars['val/metrics/pesq']:.3f}" if "val/metrics/pesq" in val_scalars else ""))
+                    if cfg.run.early_stop_patience is not None:
+                        if val_mel < best_val - 1e-6:
+                            best_val, stale_vals = val_mel, 0
+                        else:
+                            stale_vals += 1
+                            stop = stale_vals >= cfg.run.early_stop_patience
+                    if stop:
+                        log(f"early stop: no val improvement in {stale_vals} validations")
                     else:
-                        stale_vals += 1
-                        if stale_vals >= cfg.run.early_stop_patience:
-                            log(f"early stop: no val improvement in {stale_vals} validations")
-                            break
-                log_val_media(metrics_logger, step, task, first, device)
+                        log_val_media(metrics_logger, step, task, first, device)
+                if dist.broadcast_flag(stop, device):  # the other ranks wait here for rank 0's validation
+                    break
             ckpt.save(step, state)
-        if ckpt.latest_step() != state.step:
+        if ckpt.saved_step != state.step:
             ckpt.save(state.step, state, force=True)
+        log(f"kernel launches: {json.dumps(launch_counts())}")
+        dist.barrier()
     except BaseException as e:
         log(f"training failed at step {state.step}: {type(e).__name__}: {e}")
-        (workdir / "crash.log").write_text(traceback.format_exc())
+        if main:
+            (workdir / "crash.log").write_text(traceback.format_exc())
         raise
     finally:
         profile.close()

@@ -4,8 +4,10 @@ Counterpart of ``log`` and ``MetricsLogger`` in ``vocoder_tpu/utils/logging.py``
 timestamped lines on stderr, one JSON object a write in
 ``<workdir>/metrics.jsonl`` ({"step": ..., metric: value}), figures as PNGs
 under ``<workdir>/media/``, and scalars, audio and figures in TensorBoard
-(``<workdir>/tb``) when tensorboardX imports.  One process, so no rank
-filter.  W&B is not ported (ROADMAP.md).
+(``<workdir>/tb``) when tensorboardX imports.  Under data parallelism only
+rank 0 logs and writes (``parallel.dist.is_main``), as the JAX package's
+process 0; on the other ranks ``log`` prints nothing and a ``MetricsLogger``
+opens and writes nothing.  W&B is not ported (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -15,13 +17,20 @@ import sys
 import time
 from pathlib import Path
 
+from vocoder_tpu_torch.parallel import dist
+
 
 def log(msg: str) -> None:
-    print(f"[{time.strftime('%Y-%m-%d %H:%M:%S')}] {msg}", file=sys.stderr, flush=True)
+    if dist.is_main():
+        print(f"[{time.strftime('%Y-%m-%d %H:%M:%S')}] {msg}", file=sys.stderr, flush=True)
 
 
 class MetricsLogger:
     def __init__(self, workdir: str | Path):
+        self.main = dist.is_main()
+        self.jsonl = self.tb = None
+        if not self.main:
+            return
         workdir = Path(workdir)
         workdir.mkdir(parents=True, exist_ok=True)
         self.workdir = workdir
@@ -34,6 +43,8 @@ class MetricsLogger:
             self.tb = None
 
     def write(self, step: int, metrics: dict) -> None:
+        if not self.main:
+            return
         scalars = {k: float(v) for k, v in metrics.items()}
         self.jsonl.write(json.dumps({"step": step, **scalars}) + "\n")
         self.jsonl.flush()
@@ -55,6 +66,8 @@ class MetricsLogger:
         if fig is None:
             return
         try:
+            if not self.main:
+                return
             media = self.workdir / "media"
             media.mkdir(parents=True, exist_ok=True)
             fig.savefig(media / f"{tag.replace('/', '_')}_{step:08d}.png", dpi=110)
@@ -68,6 +81,7 @@ class MetricsLogger:
             plt.close(fig)
 
     def close(self) -> None:
-        self.jsonl.close()
+        if self.jsonl is not None:
+            self.jsonl.close()
         if self.tb is not None:
             self.tb.close()
