@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's inference (BigVGAN, HiFiGAN, Vocos, RefineGAN, Firefly-GAN; BigVGAN also with an
 f0 template), training (those, and the vae, vqvae and ssl families; fp32 and bf16, with and without activation
-checkpointing; data-parallel under torchrun), the vqvae and HuBERT (ssl) codecs, FLAC/Ogg/MP3 input, evaluation
-and the benchmark CLIs on one CUDA card and check it.
+checkpointing; data-parallel under torchrun; tensor-parallel over two gloo ranks sharing the card), the vqvae and
+HuBERT (ssl) codecs, FLAC/Ogg/MP3 input, evaluation and the benchmark CLIs on one CUDA card and check it.
 
     python3 chip_smoke.py          # from the repository root; needs one NVIDIA H100
 
@@ -160,7 +160,14 @@ Phases, in order; any failure exits non-zero:
      K1 and K2 launched in the child;
  37. two processes on the one card over gloo, each BigVGAN's training step at full width on b2 through K1,
      against one process's b4 step on the concatenated batch: losses, grad norms, every gradient, the
-     updated weights, the ranks' weights equal;
+     updated weights, the ranks' weights equal; then the same two as one model group of tensor
+     parallelism (parallel/tp.py), each against one process on the card: (a) BigVGAN at the preset,
+     folded, b4 x 256 frames, fp32 twice, with lengths and bf16, each stage K2 on the gathered stage (90
+     K2 launches a rank a forward, the gathered stages' plans packed once) and K1; (b) vocos-huge (650 M)
+     and (c) HiFiGAN at the preset, fp32, and a rank's share of vocos-huge's bytes; (d) BigVGAN's b2
+     step at full width, K1 under autograd on channel shards: losses, grad norms, every gathered
+     gradient, the weights after AdamW, the ranks' whole states equal to the bit.  Their times are of two
+     gloo ranks sharing one card;
  38. `cli.bench_scaling --meshes 1,2` under torchrun: the line of dp 1 alone (one card); during the
      build (0), before phase 16.
 
@@ -223,6 +230,7 @@ STEP_LOSS_REL, STEP_NORM_REL, STEP_GRAD_REL_L2 = 1e-5, 1e-4, 1e-3
 # an activation): ~30 GB at b2, so the step checks run at b2; the CLI and the timing run the preset's b16.
 TRAIN_CHECK_BATCH = 2
 K1_PER_BIGVGAN_FORWARD = 91  # 5 stages x 3 blocks x 3 dilations x 2, and activation_post
+K2_PER_BIGVGAN_FORWARD, STAGES_PER_BIGVGAN = 90, 5  # 18 convs a stage
 WAV_TOL = 2.0 / 32768  # a WAV of the batched CLI against the per-file run's: two 16-bit steps
 
 # Names of K2's two routes (both csrc/amp_conv_mma.cu) in the kernels line and the launch counts.
@@ -2644,8 +2652,295 @@ def _dp_rank(rank: int, port: int, out: str) -> None:
             "grad_norm_rel": {k: rel(metrics[k], want[k]) for k in norms}, "max_grad_rel_l2": grad_rel[worst],
             "worst_grad": worst, "grad_tensors": len(grad_rel), "params_adam_close": params_ok,
             "metrics_one_process": want})
+    state = ref = None  # the data-parallel step's states go before the tensor-parallel part
+    torch.cuda.empty_cache()
+    rec["tp"] = _tp_rank(rank, dev, {k: v[:TP_STEP_BATCH] for k, v in full.items()})
     Path(out, f"rank{rank}.json").write_text(json.dumps(rec))
     dist.close()
+
+
+# 37 (tensor parallelism): the same two gloo children, after their data-parallel step, form one model group
+# and hold each full-width model in two shards against one process on the card.  The sharded forwards and
+# step differ from one process only in the order of sums (row-parallel partial sums, a row-parallel weight
+# norm); K2 takes the whole gathered stage, as one process does.
+TP_BATCH, TP_STEP_BATCH = 4, 2
+TP_FRAMES = (256, 200, 129, 64)  # the masked forward's lengths
+TP_GEN_REL_L2 = GEN_FP32_REL_L2
+# bf16: the row-parallel upsamples' partial sums are each rounded to bf16 before the group adds them (as GSPMD's
+# partial sums of a bf16 conv are), one more rounding than one process makes; its effect through the stages is
+# of the order of the run's plain-vs-plain floor, so the limit is twice that floor (phases 23 and 24's rule for a
+# bf16 path against its floor), at least GEN_BF16_REL_L2 and at most GEN_BF16_CAP.
+TP_BF16_FLOORS = 2
+TP_LOSS_REL, TP_NORM_REL, TP_GRAD_REL_L2 = 1e-5, 1e-4, 1e-4
+# The weights after AdamW: Adam's first step moves an element by lr * g / (|g| + eps), so where g lies near 0 a
+# last-bit difference in g moves it by up to 2 lr; the weights are held to Adam's first-step rule
+# (``adam_step_close``: 1e-3 of the step where g is clear of 0, as phase 37's data-parallel check), and the
+# largest absolute difference is reported beside TP_WEIGHT_ABS.
+TP_WEIGHT_ABS = 1e-6
+TP_SHARE = (0.50, 0.515)  # a rank's share of vocos-huge's parameter bytes
+
+
+def _timed(fn):
+    """(fn(), host ms around it, the card synchronised on both sides)."""
+    import torch
+
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    y = fn()
+    torch.cuda.synchronize()
+    return y, (time.perf_counter() - t) * 1e3
+
+
+def _every_rank(y, mg) -> list:
+    """Each rank's y in the model group, in rank order (all-gathered): rank 0 holds every rank's to the
+    reference."""
+    import torch
+    import torch.distributed as tdist
+
+    got = [torch.empty_like(y) for _ in range(mg.size)]
+    tdist.all_gather(got, y.contiguous(), group=mg.group)
+    return got
+
+
+def _tp_bigvgan_forwards(mg, dev, rank: int) -> dict:
+    """(a) BigVGAN at the preset (512 channels), folded, b4 x F_FRAMES: fp32 twice (the second reusing the
+    gathered stage weights and K2's plans), fp32 with lengths (the masked K2), bf16; each with its K1 and K2
+    launches, K2's plans packed and reused, and the gathered stages made; rank 0 then runs one process."""
+    import torch
+
+    from vocoder_tpu_torch.config import build_task_config
+    from vocoder_tpu_torch.models import bigvgan
+    from vocoder_tpu_torch.nn import fold_weight_norm
+    from vocoder_tpu_torch.ops import launch_counts
+    from vocoder_tpu_torch.ops.aa_snake import aa_snake
+    from vocoder_tpu_torch.ops.amp_block import amp_stage, stage_plan
+    from vocoder_tpu_torch.parallel import tp
+
+    cfg = build_task_config("bigvgan", "44100_512_2048").generator
+    sd = bigvgan.random_state_dict(cfg, SEED)
+
+    def build(group):
+        m = bigvgan.BigVGAN(cfg)
+        m.load_state_dict(sd)
+        tp.shard_module(fold_weight_norm(m), bigvgan.param_specs(cfg), group)
+        return m.to(dev).eval()
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 37)
+    mel = torch.randn(TP_BATCH, cfg.num_mels, F_FRAMES, device=dev, generator=g) - 5.0
+    frames = torch.tensor(TP_FRAMES, device=dev)
+    masked = mel * (torch.arange(F_FRAMES, device=dev)[None, :] < frames[:, None])[:, None, :]
+    runs, out = {}, {}
+    model = build(mg)  # outside inference mode: the caches key on the parameters' versions
+    model_bf16 = copy.deepcopy(model).to(torch.bfloat16)
+    with torch.inference_mode():
+        cases = (("fp32", model, mel, {}), ("fp32_again", model, mel, {}),
+                 ("fp32_masked", model, masked, {"frame_lengths": frames}), ("bf16", model_bf16, mel.bfloat16(), {}))
+        for tag, m, x, kw in cases:
+            before = (stage_plan.builds, stage_plan.hits, tp.whole_blocks.builds, tp.whole_blocks.hits)
+            aa_snake.launches = amp_stage.launches = amp_stage.mma_launches = 0
+            y, ms = _timed(lambda: m(x, **kw))
+            after = (stage_plan.builds, stage_plan.hits, tp.whole_blocks.builds, tp.whole_blocks.hits)
+            runs[tag] = _every_rank(y, mg)
+            out[tag] = {"launches": launch_counts(), "ms_2_gloo_ranks_on_one_card": ms,
+                        **dict(zip(("k2_plans_packed", "k2_plans_reused", "gathered_stages_made", "gathered_stages_reused"),
+                                   (a - b for a, b in zip(after, before))))}
+    del model, model_bf16
+    torch.cuda.empty_cache()
+    if rank == 0:
+        ref = build(None)
+        ref_bf16 = copy.deepcopy(ref).to(torch.bfloat16)
+        with torch.inference_mode():
+            want = {"fp32": ref(mel)}
+            want["fp32_again"] = want["fp32"]
+            want["fp32_masked"] = ref(masked, frame_lengths=frames)
+            want["bf16"], ms_one = _timed(lambda: ref_bf16(mel.bfloat16()))
+            plain = ref_bf16.forward_plain(mel.bfloat16())
+            torch.backends.cudnn.enabled = False
+            plain_native = ref_bf16.forward_plain(mel.bfloat16())
+            torch.backends.cudnn.enabled = True
+            _, ms_fp32_one = _timed(lambda: ref(mel))
+        out["one_process_ms"] = {"fp32": ms_fp32_one, "bf16": ms_one}
+        out["bf16_plain_vs_plain_rel_l2"] = rel_l2(plain_native.float(), plain.float())
+        for tag, ys in runs.items():
+            out[tag]["rel_l2"] = max(rel_l2(y.float(), want[tag].float()) for y in ys)
+            out[tag]["max_abs_err"] = max(float((y.float() - want[tag].float()).abs().max()) for y in ys)
+            out[tag]["finite"] = all(bool(torch.isfinite(y).all()) for y in ys)
+        hop = cfg.hop_length
+        out["fp32_masked"]["zero_past_lengths"] = all(
+            not y[i, :, n * hop :].any() for y in runs["fp32_masked"] for i, n in enumerate(TP_FRAMES))
+        del ref, ref_bf16
+        torch.cuda.empty_cache()
+    return out
+
+
+def _card_weights(model, seed: int, dev) -> None:
+    """Vocos weights drawn on the card from ``seed`` (every rank draws the same): as
+    ``vocos.random_state_dict`` scales them, without 650 M numpy draws on the host."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            n = torch.randn(p.shape, device=dev, generator=gen)
+            if name.endswith("gamma"):
+                p.copy_(0.1 * (1.0 + 0.1 * n))
+            elif name == "head.out.weight":
+                p.copy_(0.5 / math.sqrt(p.shape[1]) * n)
+            elif p.dim() > 1:
+                p.copy_(n / math.sqrt(math.prod(p.shape[1:])))
+            elif name.endswith("weight"):  # LayerNorm
+                p.copy_(1.0 + 0.1 * n)
+            else:
+                p.copy_(0.05 * n)
+
+
+def _tp_library_forwards(mg, dev, rank: int) -> dict:
+    """(b) vocos-huge (VocosConfig.huge(), 650 M) and (c) HiFiGAN at the preset, b4 x F_FRAMES, fp32: each
+    rank's forward against one process's (rank 0, before it shards its copy), and each rank's share of
+    vocos-huge's parameter bytes."""
+    import torch
+
+    from vocoder_tpu_torch.config import build_task_config
+    from vocoder_tpu_torch.models import hifigan, vocos
+    from vocoder_tpu_torch.nn import fold_weight_norm
+    from vocoder_tpu_torch.parallel import tp
+
+    out = {}
+    g = torch.Generator(device=dev).manual_seed(SEED + 38)
+    mel = torch.randn(TP_BATCH, 128, F_FRAMES, device=dev, generator=g) - 5.0
+    hcfg = build_task_config("hifigan", "44100_512_2048").generator
+    hsd = hifigan.random_state_dict(hcfg, SEED)
+    vcfg = vocos.VocosConfig.huge()
+    for name, specs in (("vocos_huge", vocos.param_specs(vcfg)), ("hifigan", hifigan.param_specs(hcfg))):
+        if name == "vocos_huge":
+            model = vocos.Vocos(vcfg, device=dev)
+            _card_weights(model, SEED, dev)
+        else:
+            model = hifigan.HiFiGAN(hcfg)
+            model.load_state_dict(hsd)
+            model = fold_weight_norm(model).to(dev)
+        model.eval()
+        whole = sum(p.numel() * p.element_size() for p in model.parameters())
+        with torch.inference_mode():
+            want, ms_one = _timed(lambda: model(mel)) if rank == 0 else (None, None)
+        tp.shard_module(model, specs, mg)
+        torch.distributed.barrier(group=mg.group)  # rank 1 waits out rank 0's reference before the timing
+        with torch.inference_mode():
+            y, ms = _timed(lambda: model(mel))
+            ys = _every_rank(y, mg)
+            held = sum(p.numel() * p.element_size() for p in model.parameters())
+            rec = {"ms_2_gloo_ranks_on_one_card": ms, "one_process_ms": ms_one,
+                   "param_bytes_whole": whole, "param_bytes_held": held, "param_share": held / whole}
+            if rank == 0:
+                rec.update(rel_l2=max(rel_l2(v, want) for v in ys), max_abs_err=max(float((v - want).abs().max()) for v in ys),
+                           finite=all(bool(torch.isfinite(v).all()) for v in ys), shape=list(y.shape))
+        out[name] = rec
+        del model, y, ys, want
+        torch.cuda.empty_cache()
+    return out
+
+
+def _tp_step(mg, dev, rank: int, batch: dict) -> dict:
+    """(d) BigVGAN's training step at full width on ``batch`` (b2, fp32), sharded over the model group (K1
+    under autograd on each rank's channel shards), against one process's step (rank 0) from the same weights
+    and crop start: losses, grad norms, every gathered gradient, the gathered weights after AdamW; and every
+    rank's whole state after the step against rank 0's, bit for bit."""
+    import torch
+
+    from vocoder_tpu_torch.config import build_task_config
+    from vocoder_tpu_torch.models.bigvgan import random_state_dict
+    from vocoder_tpu_torch.ops import launch_counts
+    from vocoder_tpu_torch.ops.aa_snake import aa_snake
+    from vocoder_tpu_torch.ops.amp_block import amp_stage
+    from vocoder_tpu_torch.parallel import tp
+    from vocoder_tpu_torch.train import gan
+
+    task = build_task_config("bigvgan", "44100_512_2048")
+    sd = random_state_dict(task.generator, SEED)
+    t = batch["audio"].shape[2]
+
+    def fresh(group):
+        state = gan.create_train_state(task, SEED, dev, group)
+        state.generator.load_state_dict(tp.shard_state(state.generator, sd))
+        return state
+
+    def whole_weights(state) -> dict:  # every parameter, whole
+        names = [f"discriminators.{n}" for n, _ in state.discriminators.named_parameters()]
+        weights = {**{f"generator.{n}": v for n, v in tp.whole_state_dict(state.generator).items()},
+                   **{f"discriminators.{n}": v for n, v in state.discriminators.state_dict().items()}}
+        return {n: weights[n].detach().clone() for n in
+                [f"generator.{n}" for n, _ in state.generator.named_parameters()] + names}
+
+    def whole_grads(state) -> dict:  # every parameter's gradient, whole
+        grads = tp.whole_state_dict(state.generator, {n: p.grad for n, p in state.generator.named_parameters()})
+        return {**{f"generator.{n}": v for n, v in grads.items()},
+                **{f"discriminators.{n}": p.grad for n, p in state.discriminators.named_parameters()}}
+
+    def whole(state) -> tuple[dict, dict]:
+        return whole_grads(state), whole_weights(state)
+
+    def words(t) -> torch.Tensor:  # a tensor's bits: the sum of its 32-bit words, and weighted by position
+        w = t.detach().contiguous().view(-1).view(torch.int32).long()
+        return torch.stack([w.sum(), (w * torch.arange(1, w.numel() + 1, device=w.device)).sum()])
+
+    def state_words(state, weights: dict) -> torch.Tensor:
+        """The bits of the whole state: every whole weight, and the AdamW moments of each parameter that the
+        ranks hold whole (a sharded parameter's are this rank's shard)."""
+        tensors = list(weights.values())
+        sharded = state.generator.tp_params
+        for opt, module, skip in ((state.opt_g, state.generator, sharded), (state.opt_d, state.discriminators, {})):
+            for n, p in module.named_parameters():
+                if n not in skip:
+                    tensors += [opt.state[p]["exp_avg"], opt.state[p]["exp_avg_sq"]]
+        return torch.cat([words(t) for t in tensors])
+
+    state = fresh(mg)
+    old = whole_weights(state)
+    start = gan.draw_crop_start(state, task, t)
+    aa_snake.launches = amp_stage.launches = amp_stage.mma_launches = 0
+    metrics, ms = _timed(lambda: gan.make_train_step(task)(state, batch, start))
+    counts = launch_counts()
+    metrics = {k: float(v) for k, v in metrics.items()}
+    grads, new = whole(state)
+    bits = _every_rank(state_words(state, new), mg)
+    out = {"launches": counts, "ms_2_gloo_ranks_on_one_card": ms, "crop_start": start, "metrics": metrics,
+           "sharded_parameters": len(state.generator.tp_params), "state_tensors_compared": len(bits[0]) // 2,
+           "ranks_state_bit_equal": all(torch.equal(b, bits[0]) for b in bits)}
+    del state
+    torch.cuda.empty_cache()
+    if rank == 0:
+        ref = fresh(None)
+        want, ms_one = _timed(lambda: gan.make_train_step(task)(ref, batch, start))
+        want = {k: float(v) for k, v in want.items()}
+        ref_grads, ref_new = whole(ref)
+        norms = [k for k in want if "grad_norm" in k]
+        losses = [k for k in want if k not in norms and k != "lr"]
+        grad_rel = {n: rel_l2(g, ref_grads[n]) for n, g in grads.items()}
+        worst = max(grad_rel, key=grad_rel.get)
+        gains = [n for n in grads if n.endswith("original0") and ".resblocks." in n]
+        weight_abs = {n: float((w - ref_new[n]).abs().max()) for n, w in new.items()}
+        worst_w = max(weight_abs, key=weight_abs.get)
+        out.update(one_process_ms=ms_one, loss_rel={k: rel(metrics[k], want[k]) for k in losses},
+                   grad_norm_rel={k: rel(metrics[k], want[k]) for k in norms}, grad_tensors=len(grad_rel),
+                   max_grad_rel_l2=grad_rel[worst], worst_grad=worst,
+                   max_row_gain_grad_rel_l2=max(grad_rel[n] for n in gains), row_gains=len(gains),
+                   max_weight_abs_err=weight_abs[worst_w], worst_weight=worst_w,
+                   params_adam_close=all(adam_step_close(new[n], ref_new[n], old[n], ref_grads[n],
+                                                         float((grads[n] - ref_grads[n]).abs().max()), want["lr"],
+                                                         task.weight_decay) for n in grads),
+                   metrics_one_process=want)
+        del ref
+        torch.cuda.empty_cache()
+    return out
+
+
+def _tp_rank(rank: int, dev, batch: dict) -> dict:
+    """37's tensor-parallel part on this gloo child: (a)-(d) in the model group of both children."""
+    from vocoder_tpu_torch.parallel import tp
+
+    mg = tp.make_grid(DP_RANKS).model
+    return {"bigvgan": _tp_bigvgan_forwards(mg, dev, rank), **_tp_library_forwards(mg, dev, rank),
+            "step": _tp_step(mg, dev, rank, batch)}
 
 
 def start_dp_ranks() -> tuple:
@@ -2698,7 +2993,82 @@ def check_dp_step_gloo(started: tuple, paths: dict, stamp: dict) -> dict:
     log(rec)
     if not ok:
         raise SystemExit("the 2-rank step over gloo differs from one process's step on the whole batch")
+    check_tp_gloo([r["tp"] for r in ranks], paths, stamp)
     return rec
+
+
+def check_tp_gloo(ranks: list, paths: dict, stamp: dict) -> None:
+    """37's tensor-parallel part, each child a rank of one model group of two on the one card (gloo):
+    (a) BigVGAN's forwards through K2 on gathered stages and K1 (fp32 within TP_GEN_REL_L2, with lengths 0 past
+    each, bf16 within TP_BF16_FLOORS times the run's plain-vs-plain floor, at least GEN_BF16_REL_L2 and at most
+    GEN_BF16_CAP), 90 K2 launches a child a forward and K2's plans of the gathered stages packed once;
+    (b) vocos-huge and (c) HiFiGAN within TP_GEN_REL_L2, a rank holding TP_SHARE of vocos-huge's bytes;
+    (d) BigVGAN's b2 step against one process's: losses, grad norms, every gathered gradient (the row-parallel
+    convs' replicated gains named apart), the gathered weights after AdamW (Adam's first-step rule), each
+    rank's whole state after the step equal to rank 0's to the bit.  The launches of each run go to
+    the kernels line.  Times are of 2 gloo ranks sharing one card, not of tensor parallelism on cards."""
+    zero = {"aa_snake": 0, FP32_K2: 0, BF16_K2: 0}
+    big = ranks[0]["bigvgan"]
+    k2 = {"fp32": FP32_K2, "fp32_again": FP32_K2, "fp32_masked": FP32_K2, "bf16": BF16_K2}
+    floor = big["bf16_plain_vs_plain_rel_l2"]
+    oks = {}
+    for tag, route in k2.items():
+        counts = [r["bigvgan"][tag]["launches"] for r in ranks]
+        paths[f"tp_bigvgan_{tag}"] = {k: sum(c[k] for c in counts) for k in zero}
+        limit = TP_GEN_REL_L2 if route == FP32_K2 else max(GEN_BF16_REL_L2, min(TP_BF16_FLOORS * floor, GEN_BF16_CAP))
+        run = big[tag]
+        oks[tag] = (run["rel_l2"] <= limit and run["finite"]
+                    and all(c[route] == K2_PER_BIGVGAN_FORWARD and c["aa_snake"] == 1 for c in counts)
+                    and run.get("zero_past_lengths", True))
+        log({"phase": "tp_bigvgan_forward", "run": tag, "ranks": DP_RANKS, "batch": TP_BATCH, "frames": F_FRAMES,
+             "rel_l2": run["rel_l2"], "limit": limit, "max_abs_err": run["max_abs_err"],
+             "launches_by_rank": counts, **{k: [r["bigvgan"][tag][k] for r in ranks] for k in (
+                 "k2_plans_packed", "k2_plans_reused", "gathered_stages_made", "gathered_stages_reused",
+                 "ms_2_gloo_ranks_on_one_card")},
+             **({"zero_past_lengths": run["zero_past_lengths"]} if "zero_past_lengths" in run else {}),
+             "one_process_ms": big["one_process_ms"].get(tag), "ok": oks[tag], **stamp})
+    again = [r["bigvgan"]["fp32_again"] for r in ranks]
+    oks["plans_once"] = all(a["k2_plans_packed"] == 0 and a["gathered_stages_made"] == 0
+                            and a["k2_plans_reused"] == STAGES_PER_BIGVGAN for a in again)
+    log({"phase": "tp_bigvgan_k2_plans", "second_forward": again, "bf16_plain_vs_plain_rel_l2": floor,
+         "ok": oks["plans_once"], **stamp})
+    for name in ("vocos_huge", "hifigan"):
+        run = ranks[0][name]
+        shares = [r[name]["param_share"] for r in ranks]
+        oks[name] = (run["rel_l2"] <= TP_GEN_REL_L2 and run["finite"]
+                     and (name != "vocos_huge" or all(TP_SHARE[0] <= v <= TP_SHARE[1] for v in shares)))
+        log({"phase": f"tp_{name}_forward", "ranks": DP_RANKS, "batch": TP_BATCH, "frames": F_FRAMES, "shape": run["shape"],
+             "rel_l2": run["rel_l2"], "limit": TP_GEN_REL_L2, "max_abs_err": run["max_abs_err"],
+             "param_bytes_whole": run["param_bytes_whole"], "param_share_by_rank": shares,
+             "ms_2_gloo_ranks_on_one_card": [r[name]["ms_2_gloo_ranks_on_one_card"] for r in ranks],
+             "one_process_ms": run["one_process_ms"], "ok": oks[name], **stamp})
+    step = ranks[0]["step"]
+    counts = [r["step"]["launches"] for r in ranks]
+    paths["tp_bigvgan_step"] = {k: sum(c[k] for c in counts) for k in zero}
+    want = step["metrics_one_process"]
+    norms = list(step["grad_norm_rel"])
+    loss_rel = max(rel(r["step"]["metrics"][k], want[k]) for r in ranks for k in step["loss_rel"])
+    norm_rel = max(rel(r["step"]["metrics"][k], want[k]) for r in ranks for k in norms)
+    oks["step"] = (all(c["aa_snake"] == K1_PER_BIGVGAN_FORWARD for c in counts)
+                   and all(r["step"]["crop_start"] == step["crop_start"] for r in ranks)
+                   and loss_rel <= TP_LOSS_REL and norm_rel <= TP_NORM_REL
+                   and step["max_grad_rel_l2"] <= TP_GRAD_REL_L2 and step["row_gains"] > 0
+                   and step["params_adam_close"] and all(r["step"]["ranks_state_bit_equal"] for r in ranks)
+                   and all(math.isfinite(v) for v in step["metrics"].values()))
+    log({"phase": "tp_bigvgan_step", "ranks": DP_RANKS, "batch": TP_STEP_BATCH, "launches_by_rank": counts,
+         "max_loss_rel_any_rank": loss_rel, "max_grad_norm_rel_any_rank": norm_rel,
+         "ranks_state_bit_equal": [r["step"]["ranks_state_bit_equal"] for r in ranks],
+         "state_tensors_compared": step["state_tensors_compared"],
+         **{k: step[k] for k in ("loss_rel", "grad_norm_rel", "grad_tensors", "max_grad_rel_l2", "worst_grad",
+                                 "max_row_gain_grad_rel_l2", "row_gains", "max_weight_abs_err", "worst_weight",
+                                 "params_adam_close", "sharded_parameters", "one_process_ms", "metrics",
+                                 "metrics_one_process")},
+         "ms_2_gloo_ranks_on_one_card": [r["step"]["ms_2_gloo_ranks_on_one_card"] for r in ranks],
+         "limits": {"loss_rel": TP_LOSS_REL, "grad_norm_rel": TP_NORM_REL, "grad_rel_l2": TP_GRAD_REL_L2,
+                    "weights": "adam_step_close"}, "weight_abs_reference": TP_WEIGHT_ABS, "ok": oks["step"], **stamp})
+    failed = [k for k, v in oks.items() if not v]
+    if failed:
+        raise SystemExit(f"tensor parallelism over 2 gloo ranks differs from one process: {failed}")
 
 
 def check_bench_scaling(stamp: dict) -> list:
@@ -3036,7 +3406,7 @@ def main() -> int:
     tf32_off()
     mark("36 cli.train torchrun nccl (beside 17-24)")
     check_dp_step_gloo(dp_ranks, paths, stamp)
-    mark("37 dp step gloo (beside 17-24)")
+    mark("37 dp and tp over gloo (beside 17-24)")
 
     # 19-22. FLAC/Ogg/MP3 input through the host library, training with validation PESQ, evaluation.
     libs = host_audio()

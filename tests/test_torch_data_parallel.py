@@ -216,7 +216,7 @@ def test_two_rank_cli_train_writes_on_rank_0_and_resumes(tmp_path, bench):
 
 
 @pytest.mark.parametrize("override,message", [
-    ("run.model_parallel=2", "run.model_parallel=2: tensor parallelism is not ported yet; ROADMAP Queue 1 item 2"),
+    ("run.model_parallel=3", r"run.model_parallel=3 does not divide the number of processes \(2\)"),
     ("run.data_parallel=4", r"run.data_parallel=4 must be the number of processes \(2\)"),
     ("data.batch_size=3", "data.batch_size=3 is not divisible by the 2 processes"),
     ("data.val_batch_size=5", "data.val_batch_size=5 is not divisible by the 2 processes"),
@@ -229,7 +229,8 @@ def test_layouts_two_processes_cannot_run_are_refused_by_name(override, message)
 
 
 def test_cli_train_refuses_tensor_parallelism_in_one_process(tmp_path):
-    with pytest.raises(SystemExit, match="tensor parallelism is not ported yet"):
+    """One process cannot hold two shards: run.model_parallel=2 is refused by name before the workdir is made."""
+    with pytest.raises(SystemExit, match=r"run.model_parallel=2 does not divide the number of processes \(1\)"):
         trainer.train(tconfig.build_train_config("bigvgan", overrides=[
             *TINY, f"data.train_roots=('{tmp_path}',)", f"run.workdir={tmp_path / 'run'}", "run.model_parallel=2"]),
             "cpu")

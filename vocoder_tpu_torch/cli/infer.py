@@ -14,6 +14,7 @@ JAX package runs them at ``Precision.HIGHEST``.
     python -m vocoder_tpu_torch.cli.infer --model hifigan|bigvgan|vocos|refinegan|firefly_gan_base \\
         --resolution 44100_512_2048 --ckpt G.ckpt|workdir --input in_dir --output out_dir \\
         [--device cuda|cpu] [--chunk-frames N] [--batch N] [--pitch-shift SEMITONES] [--trust-checkpoint]
+        [--model-parallel N]
 
 A generator that consumes an f0 template (refinegan always; hifigan or
 bigvgan whose workdir's ``config.json`` records ``use_template``) gets one per
@@ -27,6 +28,15 @@ padded to its longest item and run with ``frame_lengths``, whose per-layer
 masking makes every row equal to that item's own forward.  Files longer than
 ``--chunk-frames`` mel frames go through overlap-chunked synthesis, one file
 at a time, as every file does at ``--batch 1``.
+
+``--model-parallel N`` shards the generator over N processes started by
+torchrun (``torchrun --standalone --nproc_per_node N -m
+vocoder_tpu_torch.cli.infer ... --model-parallel N``; one model group, no
+data parallelism, as the JAX package's CLI): hifigan, bigvgan and vocos by
+their ``param_specs`` after weight norm is folded (``parallel/tp.py``), the
+other generators replicated.  Each rank runs on its card (NCCL; ``--device
+cpu``: gloo), every rank reads the same inputs and runs the same forwards,
+and rank 0 writes the WAVs and prints.  N must be the number of processes.
 
 Runs on ``cuda`` unless ``--device cpu`` is given; it never falls back to the
 CPU by itself.  It reads WAV, FLAC, Ogg/Vorbis and (where libmpg123 loads)
@@ -52,6 +62,7 @@ from vocoder_tpu_torch.data.resample import resample
 from vocoder_tpu_torch.models.registry import get_generator
 from vocoder_tpu_torch.nn import fold_weight_norm, set_full_precision
 from vocoder_tpu_torch.ops.spectral import log_mel_spectrogram
+from vocoder_tpu_torch.parallel import dist, tp
 from vocoder_tpu_torch.parallel.streaming import chunked_synthesis
 from vocoder_tpu_torch.train.gan import GANTaskConfig, needs_template
 from vocoder_tpu_torch.utils.checkpoint import CheckpointManager
@@ -68,19 +79,25 @@ def resolve_device(name: str) -> torch.device:
     return device
 
 
-def load_generator(ckpt: str | Path, task: GANTaskConfig, device: torch.device, trust: bool = False) -> torch.nn.Module:
+def load_generator(ckpt: str | Path, task: GANTaskConfig, device: torch.device, trust: bool = False,
+                   model_group: tp.ModelGroup | None = None) -> torch.nn.Module:
     """The generator with the checkpoint's weights, weight norm folded, in eval mode on device.
 
     ``ckpt``: a reference-layout file (``trust``: see ``load_reference_state_dict``), or a port
-    training run's workdir or its ``checkpoints`` directory, whose latest checkpoint is read."""
-    model = get_generator(task.generator_name).module_cls(task.generator)
+    training run's workdir or its ``checkpoints`` directory, whose latest checkpoint is read.
+    ``model_group``: this rank's shard of the folded weights (the model's ``param_specs``)."""
+    gen = get_generator(task.generator_name)
+    model = gen.module_cls(task.generator)
     path = Path(ckpt)
     if path.is_dir():
         run = path / "checkpoints" if (path / "checkpoints").is_dir() else path
         model.load_state_dict(CheckpointManager(run).load()["generator"])
     else:
         model.load_state_dict(load_reference_state_dict(path, keys=model.state_dict().keys(), trust=trust))
-    return fold_weight_norm(model).to(device).eval()
+    fold_weight_norm(model)
+    if gen.param_specs is not None:
+        tp.shard_module(model, gen.param_specs(task.generator), model_group)
+    return model.to(device).eval()
 
 
 def restore_task_config(task: GANTaskConfig, ckpt: str | Path) -> GANTaskConfig:
@@ -180,10 +197,18 @@ def min_batch_frames(task: GANTaskConfig) -> int:
 
 
 def _write(out_root: Path, in_root: Path, f: Path, audio: np.ndarray, task: GANTaskConfig) -> Path:
+    """Write the WAV (rank 0 alone under tensor parallelism); its path."""
     out_path = out_root / f.relative_to(in_root).with_suffix(".wav")
-    out_path.parent.mkdir(parents=True, exist_ok=True)
-    write_wav(out_path, audio, task.sampling_rate)
+    if dist.is_main():
+        out_path.parent.mkdir(parents=True, exist_ok=True)
+        write_wav(out_path, audio, task.sampling_rate)
     return out_path
+
+
+def say(msg: str) -> None:
+    """Print on rank 0 (every process under tensor parallelism runs the same files)."""
+    if dist.is_main():
+        print(msg, flush=True)
 
 
 def batched_synthesis(model, files: list[Path], task: GANTaskConfig, device: torch.device, args,
@@ -220,10 +245,9 @@ def batched_synthesis(model, files: list[Path], task: GANTaskConfig, device: tor
             outs[f][c] = audio[j, : frames[j] * task.hop_length]
             total_s += frames[j] * task.hop_length / task.sampling_rate
     if items:
-        print(f"batched synthesis: {len(items)} items, {total_s:.2f}s audio in "
-              f"{time.perf_counter() - start:.2f}s", flush=True)
+        say(f"batched synthesis: {len(items)} items, {total_s:.2f}s audio in {time.perf_counter() - start:.2f}s")
     for f, chans in outs.items():
-        print(f"{f.name}: -> {_write(out_root, in_root, f, np.stack(chans), task)}", flush=True)
+        say(f"{f.name}: -> {_write(out_root, in_root, f, np.stack(chans), task)}")
     return deferred
 
 
@@ -249,12 +273,34 @@ def main(argv=None) -> None:
         help="synthesise N items per forward (length-sorted, padded, exact by per-layer length masking; "
         "hifigan/vocos/bigvgan)",
     )
+    ap.add_argument(
+        "--model-parallel", type=int, default=1,
+        help="shard the generator over N processes started by torchrun --nproc_per_node N (tensor "
+        "parallelism by the model's param_specs: hifigan, bigvgan, vocos; the others replicated)",
+    )
     args = ap.parse_args(argv)
 
     task = restore_task_config(build_task_config(args.model, args.resolution), args.ckpt)
-    device = resolve_device(args.device)
+    joined = not torch.distributed.is_initialized()
+    device = dist.init_from_env(args.device)  # under torchrun: this rank's card, or gloo on the CPU
+    try:
+        _run(args, task, resolve_device(str(device)))
+    finally:
+        if joined:
+            dist.close()
+
+
+def _run(args, task: GANTaskConfig, device: torch.device) -> None:
+    world = dist.world_size()
+    if args.model_parallel != world:
+        raise SystemExit(f"--model-parallel {args.model_parallel} needs that many processes "
+                         f"(torchrun --nproc_per_node {args.model_parallel}); there are {world}")
     set_full_precision()
-    model = load_generator(args.ckpt, task, device, args.trust_checkpoint)
+    grid = tp.make_grid(args.model_parallel)
+    model = load_generator(args.ckpt, task, device, args.trust_checkpoint, grid.model)
+    if grid.model is not None:
+        say(f"model-parallel inference: {args.model_parallel}-way tensor sharding "
+            f"({torch.distributed.get_backend()})")
 
     input_path = Path(args.input)
     files = [input_path] if input_path.is_file() else sorted(input_path.rglob("*"))
@@ -265,7 +311,7 @@ def main(argv=None) -> None:
         if batchable(task, args.batch):
             files = batched_synthesis(model, files, task, device, args, in_root, out_root)
         elif args.batch > 1:
-            print(f"--batch: falling back to per-file synthesis for {task.generator_name}", flush=True)
+            say(f"--batch: falling back to per-file synthesis for {task.generator_name}")
         for f in files:
             start = time.perf_counter()
             mel, audio = load_mel_item(f, task, device, args.pitch_shift)
@@ -275,7 +321,7 @@ def main(argv=None) -> None:
             fake = synthesize(model, mel, task, args.chunk_frames, template)[:, 0, :].float().cpu().numpy()
             out_path = _write(out_root, in_root, f, fake, task)
             dur = fake.shape[-1] / task.sampling_rate
-            print(f"{f.name}: {dur:.2f}s audio in {time.perf_counter() - start:.2f}s -> {out_path}", flush=True)
+            say(f"{f.name}: {dur:.2f}s audio in {time.perf_counter() - start:.2f}s -> {out_path}")
 
 
 if __name__ == "__main__":

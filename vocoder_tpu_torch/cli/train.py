@@ -30,6 +30,10 @@ and the step is the global batch's):
     torchrun --standalone --nproc_per_node N -m vocoder_tpu_torch.cli.train --model bigvgan ...
 
 and on the CPU over gloo with ``--device cpu``.  Rank 0 writes the workdir.
+With ``run.model_parallel=M`` (M dividing N) each M consecutive ranks hold one
+generator in shards (tensor parallelism, ``parallel/tp.py``) and data
+parallelism runs over the N // M model groups (``run.data_parallel``, if given,
+must be N // M).
 """
 
 from __future__ import annotations

@@ -254,7 +254,7 @@ class RunConfig:
     ckpt_interval: int = 20_000
     log_interval: int = 100
     seed: int = 594461
-    model_parallel: int = 1  # tensor parallelism: 1 only (not ported yet)
+    model_parallel: int = 1  # tensor parallelism: the processes of a model group (parallel/tp.py)
     data_parallel: int | None = None  # None: the number of processes (torchrun's WORLD_SIZE) // model_parallel
     precision: str = "highest"  # "highest": fp32, TF32 off; "default": TF32 on
     ckpt_path: str | None = None

@@ -26,6 +26,12 @@ backbone given as numpy arrays under ``transformers``' ``HubertModel`` keys
 
 ``load_reference_state_dict`` reads a reference ``.ckpt``/``.pt`` file and
 keeps the generator's entries (``generator.`` prefix) under the port's names.
+
+Tensor parallelism: ``shard_state_dict`` cuts a whole state_dict (from any of
+the above) into one rank's shard by a model's ``param_specs``
+(``parallel/tp_specs.py``), and ``gather_state_dict`` puts the ranks' shards
+back together, so that a sharded model loads a one-process checkpoint and its
+checkpoints load in one process.
 """
 
 from __future__ import annotations
@@ -35,6 +41,8 @@ from pathlib import Path
 
 import numpy as np
 import torch
+
+from vocoder_tpu_torch.parallel.tp_specs import key_dims
 
 
 def _t(a) -> torch.Tensor:
@@ -275,3 +283,25 @@ def load_reference_state_dict(path: str | Path, prefix: str = "generator.", keys
     if not out:
         raise ValueError(f"{path}: no {prefix!r} entries")
     return out
+
+
+def shard_state_dict(sd: dict, specs: dict, rank: int, world: int) -> dict[str, torch.Tensor]:
+    """Rank ``rank``'s shard, of ``world`` model ranks, of a whole state_dict: each key that ``specs`` (a
+    model's ``param_specs``) shards cut to its rank's contiguous slice, the others as they are."""
+    dims = key_dims(specs, sd)
+    out = {}
+    for key, val in sd.items():
+        if key in dims:
+            n = val.shape[dims[key]]
+            if n % world:
+                raise ValueError(f"{key}: {n} channels on dim {dims[key]} do not split over {world} model ranks")
+            val = val.narrow(dims[key], rank * (n // world), n // world).contiguous()
+        out[key] = val
+    return out
+
+
+def gather_state_dict(shards: list[dict], specs: dict) -> dict[str, torch.Tensor]:
+    """The whole state_dict from the ranks' shards, in rank order (``shard_state_dict``'s inverse)."""
+    dims = key_dims(specs, shards[0])
+    return {key: torch.cat([s[key] for s in shards], dims[key]) if key in dims else val
+            for key, val in shards[0].items()}

@@ -34,6 +34,18 @@ layer's output is masked past each item's length (scaled by each upsample
 rate), and the kernels clamp each item's anti-aliased activations at its own
 end, so row i equals item i's forward over its first ``frame_lengths[i]``
 frames, followed by zeros.  The lengths stay on the device.
+
+Tensor parallelism (``param_specs``, the JAX package's; ``parallel/tp.py``):
+HiFiGAN's scheme (``hifigan.upsampler_specs``), with Snake's alpha and beta
+sharded with their channels, so that in training every AMP activation runs
+K1 on this rank's channel shard.  K2 takes no shard: each of its convs mixes
+all input channels, and the JAX package's fused stage, a Pallas call that
+GSPMD replicates, runs on gathered operands.  So in eval mode a sharded
+stage gathers its input over the model group, runs K2 on the whole stage with
+the stage's gathered weights (``tp.whole_blocks``: made once per model state,
+so K2 packs them once) and keeps this rank's channel shard of the output: the
+stages gain no speed from tensor parallelism, as in the JAX package.
+``activation_post`` and conv_post run whole on every rank.
 """
 
 from __future__ import annotations
@@ -45,11 +57,12 @@ import numpy as np
 import torch
 from torch import nn
 
-from vocoder_tpu_torch.models.hifigan import add_noise, check_template, noise_conv_weight, noise_convs
+from vocoder_tpu_torch.models.hifigan import add_noise, check_template, noise_conv_weight, noise_convs, upsampler_specs
 from vocoder_tpu_torch.nn import checkpointed, conv1d, conv_transpose1d, get_padding, length_mask
 from vocoder_tpu_torch.ops.aa_snake import aa_snake
 from vocoder_tpu_torch.ops.amp_block import amp_stage, amp_stage_plain, kernel_takes
 from vocoder_tpu_torch.ops.antialias import aa_snake_plain, snake_params
+from vocoder_tpu_torch.parallel import tp, tp_specs
 
 
 @dataclasses.dataclass(frozen=True)
@@ -134,16 +147,33 @@ class AMPBlock(nn.Module):
         """x (B, C, T) -> x + the block's residual branches; ``lens`` masks each conv output past
         each item's length; ``plain``: the activations' plain version."""
         for i, (c1, c2) in enumerate(zip(self.convs1, self.convs2)):
-            xt = length_mask(c1(self.activations[2 * i](x, lens, plain)), lens)
-            xt = length_mask(c2(self.activations[2 * i + 1](xt, lens, plain)), lens)
+            xt = length_mask(tp.conv(c1, self.activations[2 * i](x, lens, plain)), lens)
+            xt = length_mask(tp.conv(c2, self.activations[2 * i + 1](xt, lens, plain)), lens)
             x = x + xt
         return x
+
+
+def param_specs(cfg: BigVGANConfig) -> dict:
+    """{module name: tp_specs.Spec} (``vocoder_tpu/models/bigvgan.py::param_specs``): HiFiGAN's
+    skeleton, each AMP block's convs row-parallel and its Snake parameters sharded with the channels."""
+    n_k = len(cfg.resblock_kernel_sizes)
+
+    def stage(i: int, c: int) -> dict:
+        specs = {}
+        for j, d in enumerate(cfg.resblock_dilation_sizes):
+            name = f"resblocks.{i * n_k + j}"
+            specs.update({f"{name}.convs{n}.{k}": tp_specs.row_conv(c, c) for n in (1, 2) for k in range(len(d))})
+            specs.update({f"{name}.activations.{a}.activation": tp_specs.snake(c) for a in range(2 * len(d))})
+        return specs
+
+    return upsampler_specs(cfg, stage)
 
 
 class BigVGAN(nn.Module):
     """mel (B, num_mels, F) [+ template (B, 1, F * hop)] -> waveform (B, 1, F * hop)."""
 
     blockwise_stages = 0  # AMP stages the kernel path ran block by block, over every instance
+    model_group = None  # the tensor-parallel group when sharded (parallel/tp.py::shard_module)
 
     def __init__(self, cfg: BigVGANConfig, device=None):
         super().__init__()
@@ -187,21 +217,27 @@ class BigVGAN(nn.Module):
         dtype = self.conv_post.bias.dtype
         lens = None if frame_lengths is None else torch.as_tensor(frame_lengths, device=mel.device)
         remat = cfg.checkpointing and self.training and torch.is_grad_enabled()
-        x = length_mask(self.conv_pre(mel.to(dtype)), lens)
+        mg = self.model_group
+        x = length_mask(tp.conv(self.conv_pre, mel.to(dtype)), lens)
         for i, (up, u) in enumerate(zip(self.ups, cfg.upsample_rates)):
-            x = up(x)
+            x = tp.conv(up, x)
             if lens is not None:
                 lens = lens * u
                 x = length_mask(x, lens)
             if template is not None:
                 x = add_noise(x, self.noise_convs[i], template.to(dtype), lens)
             blocks = list(self.resblocks[i * n_k : (i + 1) * n_k])
-            if self.training or not kernel_takes(x.shape[1]):
+            c = cfg.upsample_initial_channel // 2 ** (i + 1)
+            if self.training or not kernel_takes(c):
                 if not plain:
                     BigVGAN.blockwise_stages += 1
                 x = sum(checkpointed(blk, x, lens, plain) if remat else blk(x, lens, plain) for blk in blocks) / n_k
+            elif x.shape[1] < c:  # a channel shard: the whole stage on gathered input and weights
+                whole = tp.whole_blocks(blocks, mg, x.device)
+                x = tp.scatter(stage(whole, tp.gather(x, mg, 1), cfg.snake_logscale, lens), mg, 1)
             else:
                 x = stage(blocks, x, cfg.snake_logscale, lens)
+        x = tp.whole(x, self.conv_post.in_channels, mg)
         x = self.activation_post(x, lens, plain)
         return length_mask(torch.tanh(self.conv_post(x)), lens)
 

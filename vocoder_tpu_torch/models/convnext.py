@@ -20,6 +20,15 @@ Stochastic depth (``drop_path_rate``): block i of all n takes rate
 together (``_drop_rates``), and in training mode, given a ``noise``
 generator, drops its branch per sample before the residual add.  Without a
 generator, or in eval mode, no branch is dropped.
+
+Tensor parallelism (``param_specs``, the JAX package's Megatron MLP;
+``parallel/tp.py``): each block's pwconv1 is column-parallel (this rank's
+hidden features; GELU on them) and pwconv2 row-parallel, its partial sums
+reduced once a block before the replicated bias, layer scale and residual;
+the depthwise convs, the norms and the transitions are replicated.  The
+drop_path mask acts on the replicated residual branch, so every rank of a
+model group draws the same one (its generator in lockstep, the same rows of
+the global batch).
 """
 
 from __future__ import annotations
@@ -32,6 +41,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from vocoder_tpu_torch.nn import drop_path, length_mask
+from vocoder_tpu_torch.parallel import tp, tp_specs
 
 LN_EPS = 1e-6  # vocoder_tpu/nn.py::layer_norm
 
@@ -99,12 +109,19 @@ class ConvNeXtBlock(nn.Module):
 
     def forward(self, x: torch.Tensor, noise: torch.Generator | None = None) -> torch.Tensor:
         y = self.norm(conv_time(self.dwconv, x))
-        y = self.pwconv2(F.gelu(self.pwconv1(y)))  # exact (erf) GELU, torch's default
+        y = tp.linear(self.pwconv2, F.gelu(tp.linear(self.pwconv1, y)))  # exact (erf) GELU, torch's default
         if self.gamma is not None:
             y = self.gamma * y
         if noise is not None:
             y = drop_path(y, self.drop_rate, self.training, noise)
         return x + y
+
+
+def param_specs(cfg: ConvNeXtConfig, prefix: str = "") -> dict:
+    """{module name: tp_specs.Spec} (``vocoder_tpu/models/convnext.py::param_specs``): every block's
+    pwconv1 column-parallel and pwconv2 row-parallel; the rest replicated."""
+    return {f"{prefix}stages.{i}.{j}.{name}": spec() for i, depth in enumerate(cfg.depths) for j in range(depth)
+            for name, spec in (("pwconv1", tp_specs.col_linear), ("pwconv2", tp_specs.row_linear))}
 
 
 class ConvNeXtEncoder(nn.Module):

@@ -28,6 +28,14 @@ again in the backward instead of keeping its activations
 The model has no kernel of its own: the JAX package left its convs to XLA
 and no Pallas kernel, so here they are ``torch.nn`` layers (cuDNN on the
 card).
+
+Tensor parallelism (``param_specs``, the JAX package's ``param_specs``;
+``parallel/tp.py``): conv_pre is column-parallel, and through every stage of
+at least ``tp_specs.MIN_CHANNELS`` channels the activations stay channel
+shards: each transposed conv and resblock conv is row-parallel, its partial
+sums reduced back to this rank's shard, and SiLU, the masks, the residuals
+and the template's (column-parallel) noise convs act on the shard.  A
+narrower stage and conv_post run whole on every rank.
 """
 
 from __future__ import annotations
@@ -41,6 +49,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from vocoder_tpu_torch.nn import checkpointed, conv1d, conv_transpose1d, get_padding, length_mask
+from vocoder_tpu_torch.parallel import tp, tp_specs
 
 
 @dataclasses.dataclass(frozen=True)
@@ -79,8 +88,8 @@ class ResBlock(nn.Module):
 
     def forward(self, x: torch.Tensor, lens=None) -> torch.Tensor:
         for c1, c2 in zip(self.convs1, self.convs2):
-            xt = F.silu(length_mask(c1(F.silu(x)), lens))
-            x = x + length_mask(c2(xt), lens)
+            xt = F.silu(length_mask(tp.conv(c1, F.silu(x)), lens))
+            x = x + length_mask(tp.conv(c2, xt), lens)
         return x
 
 
@@ -114,7 +123,7 @@ def noise_convs(cfg, device=None) -> nn.ModuleList:
 
 def add_noise(x: torch.Tensor, conv: nn.Conv1d, template: torch.Tensor, lens) -> torch.Tensor:
     """x + the stage's noise conv of the template, masked past each item's length."""
-    return length_mask(x + conv(template), lens)
+    return length_mask(x + tp.conv(conv, template), lens)
 
 
 def check_template(cfg, template) -> None:
@@ -126,8 +135,36 @@ def check_template(cfg, template) -> None:
         raise ValueError("a template was given to a generator built without use_template")
 
 
+def upsampler_specs(cfg, stage_specs) -> dict:
+    """The tensor-parallel specs (``parallel/tp_specs.py``) of HiFiGAN's skeleton, which BigVGAN shares:
+    conv_pre column-parallel, each upsample row-parallel, each noise conv column-parallel, and
+    ``stage_specs(i, c)``'s for stage i of c channels; each gated by its width, conv_post replicated."""
+    uic = cfg.upsample_initial_channel
+    specs = {"conv_pre": tp_specs.col_conv(uic)}
+    for i in range(len(cfg.upsample_rates)):
+        c_in, c_out = uic // 2**i, uic // 2 ** (i + 1)
+        specs[f"ups.{i}"] = tp_specs.row_up(c_in, c_out)
+        if cfg.use_template:
+            specs[f"noise_convs.{i}"] = tp_specs.noise_conv(c_out)
+        specs.update(stage_specs(i, c_out))
+    return {k: v for k, v in specs.items() if v is not None}
+
+
+def param_specs(cfg: HiFiGANConfig) -> dict:
+    """{module name: tp_specs.Spec} (``vocoder_tpu/models/hifigan.py::param_specs``): the skeleton's,
+    and every resblock conv of a stage row-parallel."""
+
+    def stage(i: int, c: int) -> dict:
+        return {f"resblocks.{i}.blocks.{j}.convs{n}.{k}": tp_specs.row_conv(c, c)
+                for j, d in enumerate(cfg.resblock_dilation_sizes) for n in (1, 2) for k in range(len(d))}
+
+    return upsampler_specs(cfg, stage)
+
+
 class HiFiGAN(nn.Module):
     """mel (B, num_mels, F) [+ template (B, 1, F * hop)] -> waveform (B, 1, F * hop)."""
+
+    model_group = None  # the tensor-parallel group when sharded (parallel/tp.py::shard_module)
 
     def __init__(self, cfg: HiFiGANConfig, device=None):
         super().__init__()
@@ -159,15 +196,16 @@ class HiFiGAN(nn.Module):
         dtype = self.conv_post.bias.dtype
         lens = None if frame_lengths is None else torch.as_tensor(frame_lengths, device=mel.device)
         remat = self.cfg.checkpointing and self.training and torch.is_grad_enabled()
-        x = length_mask(self.conv_pre(mel.to(dtype)), lens)
+        x = length_mask(tp.conv(self.conv_pre, mel.to(dtype)), lens)
         for i, (up, block, u) in enumerate(zip(self.ups, self.resblocks, self.cfg.upsample_rates)):
-            x = up(F.silu(x))
+            x = tp.conv(up, F.silu(x))
             if lens is not None:
                 lens = lens * u
                 x = length_mask(x, lens)
             if template is not None:
                 x = add_noise(x, self.noise_convs[i], template.to(dtype), lens)
             x = checkpointed(block, x, lens) if remat else block(x, lens)
+        x = tp.whole(x, self.conv_post.in_channels, self.model_group)
         return length_mask(torch.tanh(self.conv_post(F.silu(x))), lens)
 
 

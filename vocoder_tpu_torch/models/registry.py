@@ -3,11 +3,18 @@
 The JAX package's registry's five names (bigvgan, hifigan, vocos, refinegan
 and firefly_gan_base), and the vae, vqvae and ssl families' generators, which the
 JAX package builds outside its registry (``train/gan.py::create_train_state``).
+
+``param_specs`` (hifigan, bigvgan and vocos, as the JAX registry's) gives a
+model's tensor-parallel specs (``parallel/tp_specs.py``).  The others, the
+vae, vqvae and ssl generators and the discriminators run replicated over the
+model group: the same numbers as the JAX package's per-leaf storage heuristic
+(``vocoder_tpu/parallel/mesh.py::infer_param_specs``), which is not ported.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Callable
 
 PORTED = ("bigvgan", "hifigan", "vocos", "refinegan", "firefly_gan_base")  # the JAX registry's
 
@@ -16,21 +23,22 @@ PORTED = ("bigvgan", "hifigan", "vocos", "refinegan", "firefly_gan_base")  # the
 class GeneratorDef:
     config_cls: type
     module_cls: type
+    param_specs: Callable | None = None  # cfg -> {module name: tp_specs.Spec}; None: replicated
 
 
 def get_generator(name: str) -> GeneratorDef:
     if name == "bigvgan":
-        from vocoder_tpu_torch.models.bigvgan import BigVGAN, BigVGANConfig
+        from vocoder_tpu_torch.models.bigvgan import BigVGAN, BigVGANConfig, param_specs
 
-        return GeneratorDef(BigVGANConfig, BigVGAN)
+        return GeneratorDef(BigVGANConfig, BigVGAN, param_specs)
     if name == "hifigan":
-        from vocoder_tpu_torch.models.hifigan import HiFiGAN, HiFiGANConfig
+        from vocoder_tpu_torch.models.hifigan import HiFiGAN, HiFiGANConfig, param_specs
 
-        return GeneratorDef(HiFiGANConfig, HiFiGAN)
+        return GeneratorDef(HiFiGANConfig, HiFiGAN, param_specs)
     if name == "vocos":
-        from vocoder_tpu_torch.models.vocos import Vocos, VocosConfig
+        from vocoder_tpu_torch.models.vocos import Vocos, VocosConfig, param_specs
 
-        return GeneratorDef(VocosConfig, Vocos)
+        return GeneratorDef(VocosConfig, Vocos, param_specs)
     if name == "refinegan":
         from vocoder_tpu_torch.models.refinegan import RefineGAN, RefineGANConfig
 

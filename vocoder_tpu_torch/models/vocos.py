@@ -16,6 +16,12 @@ fp32 and the audio is cast back to the model's dtype.
 ``frame_lengths`` (B,) makes a right-padded batch exact: the backbone masks
 each item's padding, and the iSTFT drops the padded frames and divides by
 each item's own window envelope.
+
+Tensor parallelism (``param_specs``, the JAX package's): the backbone's
+Megatron MLP (``convnext.param_specs``) and the head's projection
+column-parallel, its 2 * n_fft channels gathered over the model group before
+the magnitude/phase split and the iSTFT, which run whole on every rank.
+``VocosConfig.huge()`` (650 M parameters) is the configuration it is for.
 """
 
 from __future__ import annotations
@@ -26,9 +32,11 @@ import numpy as np
 import torch
 from torch import nn
 
-from vocoder_tpu_torch.models.convnext import ConvNeXtConfig, ConvNeXtEncoder, pointwise
+from vocoder_tpu_torch.models.convnext import ConvNeXtConfig, ConvNeXtEncoder
+from vocoder_tpu_torch.models.convnext import param_specs as convnext_param_specs
 from vocoder_tpu_torch.models.convnext import random_state_dict as convnext_random_state_dict
 from vocoder_tpu_torch.ops.spectral import istft_same
+from vocoder_tpu_torch.parallel import tp, tp_specs
 
 MAG_CLIP = 1e2  # the reference's exp clip (vocos.py:58-61)
 
@@ -83,7 +91,7 @@ class ISTFTHead(nn.Module):
     def forward(self, x: torch.Tensor, frame_lengths=None) -> torch.Tensor:
         cfg = self.cfg
         bins = cfg.n_fft // 2 + 1
-        x = pointwise(self.out, x).float()  # (B, T, 2 n_fft)
+        x = tp.whole(tp.linear(self.out, x), 2 * cfg.n_fft, tp.group_of(self.out), dim=-1).float()  # (B, T, 2 n_fft)
         mag = torch.clamp(torch.exp(x[..., :bins]), max=MAG_CLIP)
         phase = x[..., cfg.n_fft : cfg.n_fft + bins]
         re, im = (mag * torch.cos(phase)).transpose(1, 2), (mag * torch.sin(phase)).transpose(1, 2)
@@ -91,10 +99,17 @@ class ISTFTHead(nn.Module):
                           frame_lengths=frame_lengths)
 
 
+def param_specs(cfg: VocosConfig) -> dict:
+    """{module name: tp_specs.Spec} (``vocoder_tpu/models/vocos.py::param_specs``): the backbone's MLPs and
+    the head's column-parallel projection."""
+    return {**convnext_param_specs(cfg.backbone, "backbone."), "head.out": tp_specs.col_linear()}
+
+
 class Vocos(nn.Module):
     """mel (B, num_mels, F) -> waveform (B, 1, F * hop)."""
 
     draws_noise = True  # forward takes ``noise``, the generator of the backbone's drop_path draws
+    model_group = None  # the tensor-parallel group when sharded (parallel/tp.py::shard_module)
 
     def __init__(self, cfg: VocosConfig, device=None):
         super().__init__()

@@ -132,8 +132,8 @@ def aa_snake(x: torch.Tensor, alpha: torch.Tensor, beta: torch.Tensor | None, lo
         if lengths is not None:
             raise NotImplementedError("aa_snake: per-item lengths under autograd are not ported")
         return AASnakeFunction.apply(x.contiguous(), *snake_params(alpha, beta, logscale))
-    if x.is_cuda:
-        return aa_snake_kernel(x, alpha, beta, logscale, lengths)
+    if x.is_cuda:  # a channel shard of tensor parallelism may come as a view: the kernel takes a copy
+        return aa_snake_kernel(x.contiguous(), alpha, beta, logscale, lengths)
     if x.device.type != "cpu":
         raise RuntimeError(f"aa_snake: no kernel for device {x.device}")
     return aa_snake_plain(x, *snake_params(alpha, beta, logscale), lengths)

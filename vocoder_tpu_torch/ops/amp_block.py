@@ -189,11 +189,17 @@ def stage_plan(blocks, logscale: bool) -> StagePlan:
     if plan is not None and plan.blocks == ids and plan.logscale == logscale:
         key = _key(plan.slots)
         if key is not None and key == plan.key:
+            stage_plan.hits += 1
             return plan
     slots = _slots(blocks)
     plan = _build_plan(list(blocks), logscale, ids, slots, _key(slots))
     _PLANS[blocks[0]] = plan
+    stage_plan.builds += 1
     return plan
+
+
+stage_plan.builds = 0  # plans packed
+stage_plan.hits = 0  # stages that took a cached plan
 
 
 def _build_plan(blocks, logscale: bool, ids, slots, key) -> StagePlan:

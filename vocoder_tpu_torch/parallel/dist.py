@@ -23,6 +23,12 @@ process's step on the ranks' batches concatenated in rank order:
   generator that every rank seeds alike, and each rank keeps its own rows,
   so the generators stay in lockstep and the draws are one process's.
 
+Under tensor parallelism (``parallel/tp.py``) the group of ``data_parallel``
+is the data group of the (data, model) grid, the ranks that hold the same
+shard of the generator, not the world: every rank and size above is the data
+group's, so the ranks of one model group read the same share of the batch and
+draw the same rows.
+
 ``init_from_env`` reads ``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``,
 ``MASTER_ADDR`` and ``MASTER_PORT``: on ``cuda`` it first makes
 ``cuda:LOCAL_RANK`` the current device (the hand kernels launch through
@@ -179,7 +185,7 @@ def batch_draw(draw, shape: tuple) -> torch.Tensor:
     return draw((b * count,) + tuple(shape[1:]))[index * b : (index + 1) * b]
 
 
-def _coalesced(tensors: list[torch.Tensor], op) -> None:
+def coalesced(tensors: list[torch.Tensor], op) -> None:
     """``op`` on one flat buffer per dtype and device holding ``tensors``, copied back into them."""
     buckets: dict = {}
     for t in tensors:
@@ -201,7 +207,7 @@ def all_reduce_grads(params) -> None:
         return
     grads = [p.grad for p in params if p.grad is not None]
     if grads:
-        _coalesced(grads, lambda flat: dist.all_reduce(flat, group=group))
+        coalesced(grads, lambda flat: dist.all_reduce(flat, group=group))
 
 
 def broadcast_modules(modules, group) -> None:
@@ -212,7 +218,7 @@ def broadcast_modules(modules, group) -> None:
     src = dist.get_process_group_ranks(group)[0]
     with torch.no_grad():
         tensors = [t for m in modules for t in (*m.parameters(), *m.buffers())]
-        _coalesced(tensors, lambda flat: dist.broadcast(flat, src=src, group=group))
+        coalesced(tensors, lambda flat: dist.broadcast(flat, src=src, group=group))
 
 
 def broadcast_flag(flag: bool, device: torch.device) -> bool:

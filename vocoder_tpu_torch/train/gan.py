@@ -91,6 +91,25 @@ fit neither the two backward passes and optimizers a step, nor the
 discriminators run with ``requires_grad`` off in the generator phase, nor the
 EMA buffers written after the backward.
 
+Tensor parallelism (``create_train_state(..., model_group=...)``, the trainer's
+``run.model_parallel``; ``parallel/tp.py``): the generator of a model with
+``param_specs`` (hifigan, bigvgan, vocos; the "gan" family, as the JAX
+package's ``model_param_specs``) is built whole from the seed, then each rank
+keeps its shard; its forward runs the model group's collectives, so the fake,
+the losses and the discriminators' work are whole and alike on every rank of
+the group (the discriminators replicated).  The gradients come out as the
+shards of the whole gradient (a replicated gain used on a shard gets the
+group's sum in its backward), ``train/generator/grad_norm`` is the whole
+gradient's norm (``tp.grad_norm``), and AdamW updates each shard, its moments
+sharded alike.  The gradient of every parameter the ranks hold whole (the
+discriminators, the replicated generator layers) is averaged over the model
+group (``tp.average_replicated_grads``), so the copies stay equal where the
+backward is not bitwise deterministic (cuDNN's).  With data parallelism beside it, ``group`` is the data group
+of the grid: the ranks that hold the same shard.  ``TrainState.state_dict``
+holds whole tensors (the generator and its moments gathered over the model
+group, as Orbax saves global arrays) and ``load_state_dict`` takes this rank's
+shard of them.
+
 Not ported: ``spectral_precision`` (a TPU MXU pass count) and the split step
 (an XLA compile workaround) are TPU machinery.  ``run.precision`` sets TF32
 in the trainer.
@@ -116,7 +135,7 @@ from vocoder_tpu_torch.models.mrd import MRDConfig, MultiResolutionDiscriminator
 from vocoder_tpu_torch.models.registry import get_generator
 from vocoder_tpu_torch.nn import cast_copy, cast_parameters
 from vocoder_tpu_torch.ops.spectral import linear_spectrogram, log_mel_spectrogram
-from vocoder_tpu_torch.parallel import dist
+from vocoder_tpu_torch.parallel import dist, tp
 from vocoder_tpu_torch.train.schedule import WarmupCosineConfig, warmup_cosine
 
 DEFAULT_RESOLUTIONS = ((2048, 512, 2048), (1024, 120, 600), (2048, 240, 1200), (4096, 480, 2400), (512, 50, 240))
@@ -184,7 +203,8 @@ def needs_template(cfg: GANTaskConfig) -> bool:
 @dataclasses.dataclass
 class TrainState:
     """Generator, discriminators {mpd, mrd}, their AdamW optimizers, the step, the crop generator
-    (``rng``, CPU) and the generator's noise generator (``noise``, on the model's device)."""
+    (``rng``, CPU), the generator's noise generator (``noise``, on the model's device) and, under tensor
+    parallelism, the model group over which the generator is sharded and the rest replicated."""
 
     step: int
     generator: nn.Module
@@ -193,20 +213,24 @@ class TrainState:
     opt_d: torch.optim.Optimizer
     rng: torch.Generator
     noise: torch.Generator
+    model_group: tp.ModelGroup | None = None
 
     def state_dict(self) -> dict:
-        return {"step": self.step, "generator": self.generator.state_dict(),
-                "discriminators": self.discriminators.state_dict(), "opt_g": self.opt_g.state_dict(),
+        """Whole tensors: a sharded generator's and its moments gathered over the model group, so every
+        rank of the group must call."""
+        return {"step": self.step, "generator": tp.whole_state_dict(self.generator),
+                "discriminators": self.discriminators.state_dict(),
+                "opt_g": tp.whole_optimizer_state(self.opt_g, self.generator),
                 "opt_d": self.opt_d.state_dict(), "rng": self.rng.get_state(), "noise": self.noise.get_state()}
 
     def load_state_dict(self, sd: dict, weights_only: bool = False) -> None:
-        """Everything, or with ``weights_only`` the generator's and discriminators' weights alone.  A
-        checkpoint without ``noise`` (written before the noise generator existed, for a generator that
-        draws none) leaves it as it was seeded."""
-        self.generator.load_state_dict(sd["generator"])
+        """Everything, or with ``weights_only`` the generator's and discriminators' weights alone; a
+        sharded generator takes this rank's shard of them.  A checkpoint without ``noise`` (written
+        before the noise generator existed, for a generator that draws none) leaves it as it was seeded."""
+        self.generator.load_state_dict(tp.shard_state(self.generator, sd["generator"]))
         self.discriminators.load_state_dict(sd["discriminators"])
         if not weights_only:
-            self.opt_g.load_state_dict(sd["opt_g"])
+            self.opt_g.load_state_dict(tp.shard_optimizer_state(sd["opt_g"], self.generator))
             self.opt_d.load_state_dict(sd["opt_d"])
             self.rng.set_state(sd["rng"])
             if "noise" in sd:
@@ -237,22 +261,33 @@ def reference_init(generator: nn.Module) -> nn.Module:
     return generator
 
 
-def create_train_state(cfg: GANTaskConfig, seed: int, device) -> TrainState:
+def model_param_specs(cfg: GANTaskConfig) -> dict:
+    """The generator's tensor-parallel specs (``parallel/tp_specs.py``), or {} (replicated): the "gan"
+    family's models with ``param_specs``, as the JAX package's ``model_param_specs``."""
+    if cfg.family != "gan":
+        return {}
+    specs = get_generator(cfg.generator_name).param_specs
+    return {} if specs is None else specs(cfg.generator)
+
+
+def create_train_state(cfg: GANTaskConfig, seed: int, device, model_group: tp.ModelGroup | None = None) -> TrainState:
     """Modules initialised on the CPU from ``seed`` (the same weights on any device), then moved to
-    ``device``; the crop generator (CPU) and the noise generator (on ``device``) seeded with ``seed``."""
+    ``device``; the crop generator (CPU) and the noise generator (on ``device``) seeded with ``seed``.
+    ``model_group``: tensor parallelism, this rank's shard of the generator (``model_param_specs``)."""
     check_trainable(cfg)
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(seed)
         generator = reference_init(get_generator(cfg.generator_name).module_cls(cfg.generator))
         discriminators = nn.ModuleDict(
             {"mpd": MultiPeriodDiscriminator(cfg.mpd), "mrd": MultiResolutionDiscriminator(cfg.mrd)})
+    tp.shard_module(generator, model_param_specs(cfg), model_group)
     generator.to(device).train()
     discriminators.to(device).train()
     return TrainState(step=0, generator=generator, discriminators=discriminators,
                       opt_g=make_optimizer(cfg, generator.parameters()),
                       opt_d=make_optimizer(cfg, discriminators.parameters()),
                       rng=torch.Generator().manual_seed(seed),
-                      noise=torch.Generator(device=device).manual_seed(seed))
+                      noise=torch.Generator(device=device).manual_seed(seed), model_group=model_group)
 
 
 def sequence_mask(lengths: torch.Tensor, max_length: int) -> torch.Tensor:
@@ -403,12 +438,6 @@ def _discriminator_loss(discriminators, audio_c, fake_c, cfg: GANTaskConfig):
     return loss, metrics
 
 
-def global_norm(params) -> torch.Tensor:
-    """sqrt of the sum of squares of every gradient (optax.global_norm)."""
-    grads = [p.grad for p in params if p.grad is not None]
-    return torch.linalg.vector_norm(torch.stack([torch.linalg.vector_norm(g) for g in grads]))
-
-
 def _global_values(metrics: dict) -> dict:
     """The ranks' shares of each logged loss summed: the global batch's values (as they are, outside a
     data-parallel group).  One all-reduce."""
@@ -430,7 +459,8 @@ def make_train_step(cfg: GANTaskConfig, plain: bool = False, group=None):
     through its kernels' plain versions (what the card checks hold the kernel path against).
     ``group``: a process group whose ranks each pass their share of the global batch (equal shares, in
     rank order) and a state of the same weights (``dist.broadcast_modules``); the step is then the
-    global batch's on every rank, metrics included.  None: one process."""
+    global batch's on every rank, metrics included.  None: one process.  Under tensor parallelism it is
+    the data group of the grid, and the state's generator is sharded over the model group."""
     check_trainable(cfg)
 
     def g_phase(state: TrainState, batch: dict, crop_start: int | None = None):
@@ -446,8 +476,9 @@ def make_train_step(cfg: GANTaskConfig, plain: bool = False, group=None):
                 state.noise, batch.get("ssl_features"))
             loss.backward()
             dist.all_reduce_grads(state.generator.parameters())
+            tp.average_replicated_grads(state.generator, state.model_group)
             metrics = _global_values(metrics)
-            metrics["train/generator/grad_norm"] = global_norm(state.generator.parameters())
+            metrics["train/generator/grad_norm"] = tp.grad_norm(state.generator)
             for param_group in state.opt_g.param_groups:
                 param_group["lr"] = warmup_cosine(state.step, cfg.schedule)
             state.opt_g.step()
@@ -462,9 +493,10 @@ def make_train_step(cfg: GANTaskConfig, plain: bool = False, group=None):
             loss, metrics = _discriminator_loss(state.discriminators, audio_c, fake_c, cfg)
             loss.backward()
             dist.all_reduce_grads(state.discriminators.parameters())
+            tp.average_replicated_grads(state.discriminators, state.model_group)
             metrics = _global_values(metrics)
         for key, d in state.discriminators.items():
-            metrics[f"train/discriminator/grad_norm_{key}"] = global_norm(d.parameters())
+            metrics[f"train/discriminator/grad_norm_{key}"] = tp.grad_norm(d)
         for param_group in state.opt_d.param_groups:
             param_group["lr"] = warmup_cosine(state.step, cfg.schedule)
         state.opt_d.step()

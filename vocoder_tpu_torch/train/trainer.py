@@ -46,23 +46,31 @@ matmuls in full fp32 (TF32 off), as the JAX package's ``Precision.HIGHEST``;
 Data parallelism (``torchrun --nproc_per_node N -m vocoder_tpu_torch.cli.train
 ...``; ``parallel/dist.py``): ``train`` joins the process group of torchrun's
 environment first (``cuda`` is then ``cuda:LOCAL_RANK``, NCCL; gloo on the
-CPU), refuses a batch that the ranks cannot share equally and any
-``run.model_parallel`` but 1, and each rank reads its share of the batch from
-``batch_iterator(host_index=rank)`` (``data.batch_size // ranks`` items, as the
-JAX package's hosts) into its own card.  Every rank builds the state from the
-seed or restores the same checkpoint, and rank 0's weights are broadcast; the
+CPU), refuses a layout that the processes cannot run (``check_parallel``) and
+lays them out as the JAX package's ("data", "model") mesh (``parallel/tp.py::
+make_grid``): ``run.model_parallel`` consecutive ranks form a model group that
+holds one generator in shards (tensor parallelism, ``train/gan.py``), and the
+ranks that hold the same shard form the data group.  Each model group reads
+one share of the batch from ``batch_iterator(host_index=data rank)``
+(``data.batch_size // data-parallel ranks`` items, as the JAX package's hosts)
+into each of its cards.  Every rank builds the state from the seed or restores
+the same checkpoint; the first rank of each data group broadcasts the
+generator's shard over it and rank 0 the discriminators over all ranks; the
 step is the global batch's (``train/gan.py``).  Rank 0 alone writes
-``config.json``, ``metrics.jsonl``, media, TensorBoard, checkpoints,
-``crash.log`` and the profiler trace, and runs the validation (the eval
-forwards and PESQ over every validation batch, so its figures are one
-process's) while the other ranks wait for its early-stop decision.  The logged
-losses and grad norms are the global batch's and ``perf/audio_s_per_s``
-counts the global batch.  The run's log ends with the hand kernels' launches
-in this process (``ops.launch_counts``).
+``config.json``, ``metrics.jsonl``, media, TensorBoard, checkpoints (whole
+tensors, gathered over its model group), ``crash.log`` and the profiler trace;
+rank 0's model group runs the validation's forwards (the eval forwards over
+every validation batch, so its figures are one process's) and rank 0 its PESQ,
+while the other ranks wait for its early-stop decision.  The logged losses and
+grad norms are the global batch's and ``perf/audio_s_per_s`` counts the global
+batch.  The run's log ends with the hand kernels' launches in this process
+(``ops.launch_counts``).
 
-Not ported yet (ROADMAP.md): tensor parallelism (``run.model_parallel`` > 1 is
-refused), and W&B (the card's machine has neither ``wandb`` nor a network;
-``metrics.jsonl``, the media PNGs and TensorBoard stand in).
+Not ported (ROADMAP.md): W&B (the card's machine has neither ``wandb`` nor a
+network; ``metrics.jsonl``, the media PNGs and TensorBoard stand in), and the
+JAX package's per-leaf storage sharding of the generators without
+``param_specs`` and of the discriminators, which run replicated over a model
+group.
 """
 
 from __future__ import annotations
@@ -85,7 +93,7 @@ from vocoder_tpu_torch.eval_metrics import pesq as pesq_metric
 from vocoder_tpu_torch.models.ssl_encoders import HubertFeatureExtractor
 from vocoder_tpu_torch.nn import set_full_precision
 from vocoder_tpu_torch.ops import launch_counts
-from vocoder_tpu_torch.parallel import dist
+from vocoder_tpu_torch.parallel import dist, tp
 from vocoder_tpu_torch.train import gan
 from vocoder_tpu_torch.utils.checkpoint import CheckpointManager
 from vocoder_tpu_torch.utils.logging import MetricsLogger, log
@@ -171,19 +179,23 @@ def _check_config(cfg: TrainConfig, workdir: Path, ckpt: CheckpointManager) -> N
 
 
 def check_parallel(cfg: TrainConfig, world: int) -> None:
-    """Refuse, by the field's name, a layout that ``world`` processes cannot run: tensor parallelism, a
-    ``run.data_parallel`` other than the processes, a batch the ranks cannot share equally."""
+    """Refuse, by the field's name, a layout that ``world`` processes cannot run: a ``run.model_parallel``
+    that does not divide them, a ``run.data_parallel`` other than world // run.model_parallel, a batch or
+    validation batch that the data-parallel ranks cannot share equally (the JAX trainer's checks)."""
     run, data = cfg.run, cfg.data
-    if run.model_parallel != 1:
-        raise SystemExit(f"run.model_parallel={run.model_parallel}: tensor parallelism is not ported yet; "
-                         "ROADMAP Queue 1 item 2")
-    if run.data_parallel is not None and run.data_parallel != world // run.model_parallel:
+    mp = run.model_parallel
+    if mp < 1 or world % mp:
+        raise SystemExit(f"run.model_parallel={mp} does not divide the number of processes ({world}); launch a "
+                         "multiple of it with torchrun --nproc_per_node")
+    dp = world // mp
+    if run.data_parallel is not None and run.data_parallel != dp:
         raise SystemExit(f"run.data_parallel={run.data_parallel} must be the number of processes ({world}) // "
-                         f"run.model_parallel ({run.model_parallel}), or None")
-    if data.batch_size % world:
-        raise SystemExit(f"data.batch_size={data.batch_size} is not divisible by the {world} processes")
-    if data.val_root is not None and data.val_batch_size % world:
-        raise SystemExit(f"data.val_batch_size={data.val_batch_size} is not divisible by the {world} processes")
+                         f"run.model_parallel ({mp}), or None")
+    of = "" if mp == 1 else f" of data parallelism ({world} // run.model_parallel={mp})"
+    if data.batch_size % dp:
+        raise SystemExit(f"data.batch_size={data.batch_size} is not divisible by the {dp} processes{of}")
+    if data.val_root is not None and data.val_batch_size % dp:
+        raise SystemExit(f"data.val_batch_size={data.val_batch_size} is not divisible by the {dp} processes{of}")
 
 
 def _make_val_pesq(task):
@@ -328,8 +340,10 @@ def train(cfg: TrainConfig, device: str | torch.device = "cuda") -> gan.TrainSta
     device = dist.init_from_env(device)  # before anything touches a card
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("no CUDA device is available; pass --device cpu to train on the CPU")
-    world, main, group = dist.world_size(), dist.is_main(), dist.world_group()
+    world, main = dist.world_size(), dist.is_main()
     check_parallel(cfg, world)
+    grid = tp.make_grid(cfg.run.model_parallel)
+    group, shares = grid.data, grid.data_size
     set_precision(cfg.run.precision)
     task = cfg.task
     workdir = Path(cfg.run.workdir)
@@ -340,7 +354,7 @@ def train(cfg: TrainConfig, device: str | torch.device = "cuda") -> gan.TrainSta
         workdir.mkdir(parents=True, exist_ok=True)
         (workdir / "config.json").write_text(json.dumps(dataclasses.asdict(cfg), indent=2, default=str))
 
-    state = gan.create_train_state(task, cfg.run.seed, device)
+    state = gan.create_train_state(task, cfg.run.seed, device, grid.model)
     latest = ckpt.saved_step
     if cfg.run.ckpt_path is not None and cfg.run.resume_weights_only:
         CheckpointManager(cfg.run.ckpt_path).restore_weights_only(state)
@@ -348,25 +362,32 @@ def train(cfg: TrainConfig, device: str | torch.device = "cuda") -> gan.TrainSta
     elif latest is not None:
         ckpt.restore(state, latest)
         log(f"auto-resumed from step {state.step}")
-    dist.broadcast_modules([state.generator, state.discriminators], group)
+    dist.broadcast_modules([state.generator], group)  # the ranks that hold the same shard
+    dist.broadcast_modules([state.discriminators], dist.world_group())
     n_g = sum(p.numel() for p in state.generator.parameters())
     n_d = sum(p.numel() for p in state.discriminators.parameters())
-    log(f"params: generator {n_g:,}, discriminators {n_d:,} on {device}")
+    log(f"params: generator {n_g:,}" + (" (this rank's shards)" if tp.is_sharded(state.generator) else "")
+        + f", discriminators {n_d:,} on {device}")
+    if grid.model is not None:
+        log(f"tensor parallel: model groups of {grid.model.size} processes "
+            f"({torch.distributed.get_backend()}), {shares} of data parallelism")
     if group is not None:
-        log(f"data parallel: {world} processes ({torch.distributed.get_backend()}), "
-            f"{cfg.data.batch_size // world} of the batch's {cfg.data.batch_size} items each")
+        log(f"data parallel: {shares} {'processes' if grid.model is None else 'model groups'} "
+            f"({torch.distributed.get_backend()}), {cfg.data.batch_size // shares} of the batch's "
+            f"{cfg.data.batch_size} items each")
 
     step_fn = gan.make_train_step(task, group=group)
     eval_fn = gan.make_eval_step(task)
     target_len = task.hop_length * task.num_frames
     profile = ProfileWindow(cfg.run.profile_steps if main else None, workdir, device)
-    host_it = batch_iterator(_build_train_sampler(cfg), batch_size=cfg.data.batch_size // world,
-                             target_length=target_len, seed=cfg.run.seed, host_index=dist.rank(),
+    host_it = batch_iterator(_build_train_sampler(cfg), batch_size=cfg.data.batch_size // shares,
+                             target_length=target_len, seed=cfg.run.seed, host_index=grid.data_rank,
                              start_step=state.step, num_workers=cfg.data.num_workers, template_fn=template_fn(task))
     extractor = HubertFeatureExtractor(task.generator.hubert, device) if task.family == "ssl" else None
     validating = cfg.data.val_root is not None
-    val_batches = _build_val_batches(cfg, extractor) if main else None  # rank 0 validates
-    pesq_fn = _make_val_pesq(task) if cfg.run.val_pesq else None
+    # Rank 0's model group runs the validation's forwards, rank 0 its PESQ and logs.
+    val_batches = _build_val_batches(cfg, extractor) if grid.data_rank == 0 else None
+    pesq_fn = _make_val_pesq(task) if cfg.run.val_pesq and main else None
     metrics_logger = MetricsLogger(workdir)
     prefetcher = DevicePrefetcher(host_it, device, depth=2)  # its thread starts here; closed in the finally
     ssl_time = Timer(device)  # the backbone's time in the log window
@@ -411,8 +432,9 @@ def train(cfg: TrainConfig, device: str | torch.device = "cuda") -> gan.TrainSta
                 t0 = time.perf_counter()
             if validating and step % cfg.run.val_interval == 0:
                 stop = False
-                if val_batches:  # rank 0's, when the validation root holds clips
+                if val_batches:  # rank 0's model group, when the validation root holds clips
                     val_scalars, first = validate(state, eval_fn, val_batches, pesq_fn, device)
+                if val_batches and main:
                     val_mel = val_scalars["val/metrics/mel"]
                     metrics_logger.write(step, val_scalars)
                     log(f"step {step}: val mel-L1 {val_mel:.4f}" + (

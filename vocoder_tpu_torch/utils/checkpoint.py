@@ -10,7 +10,11 @@ same directory and renamed over the target, so a reader never sees half a
 checkpoint.  Saves are synchronous; ``wait`` returns at once.  Under data
 parallelism every rank takes the same decisions (the latest step is read from
 the directory once, then kept), rank 0 alone writes, and every rank waits at a
-barrier after each save; every rank restores from the same file.
+barrier after each save; every rank restores from the same file.  Under tensor
+parallelism the saved state holds whole tensors (``TrainState.state_dict``
+gathers the generator and its moments over the model group, so every rank
+makes it), and a restore gives each rank its shard; a checkpoint of a sharded
+run loads in one process and the reverse.
 """
 
 from __future__ import annotations
@@ -58,9 +62,10 @@ class CheckpointManager:
         latest = self._latest
         if not force and (step % self.save_interval_steps or (latest is not None and step <= latest)):
             return False
+        sd = state.state_dict()  # on every rank: a sharded generator is gathered over its model group
         if dist.is_main():
             tmp = self.directory / f".{step}.pt.tmp"
-            torch.save(state.state_dict(), tmp)
+            torch.save(sd, tmp)
             os.replace(tmp, self.path(step))
         self._latest = step
         dist.barrier()
