@@ -152,8 +152,8 @@ Phases, in order; any failure exits non-zero:
      --device cpu`, codes equal above the margin, each WAV the eval forward; audio-s/s;
  35. `cli.bench_infer` for BigVGAN, HiFiGAN and Vocos at b16 x 256 frames in bf16 and
      fp32, each within 15% of `profile_forward`'s generator ms in the same run;
- 36-37 run in child processes beside phases 17, 18, 23 and 24 (all checks, none a timing), started
- after 15 and read after 24 (23 and 24 run right after 18):
+ 36-37 run in child processes beside phases 17, 18, 23, 24 and 25 (all checks, none a timing), started
+ after 15 and read after 25 (23-25 run right after 18):
  36. `torchrun --standalone --nproc_per_node 1 -m vocoder_tpu_torch.cli.train` (NCCL at world size 1)
      with phase 12's first run's arguments over its corpus (BigVGAN at full width, b16 x 128 frames, 3
      steps, a validation at 2): its metrics.jsonl against that one-process run's within DP_CLI_REL;
@@ -165,9 +165,13 @@ Phases, in order; any failure exits non-zero:
      folded, b4 x 256 frames, fp32 twice, with lengths and bf16, each stage K2 on the gathered stage (90
      K2 launches a rank a forward, the gathered stages' plans packed once) and K1; (b) vocos-huge (650 M)
      and (c) HiFiGAN at the preset, fp32, and a rank's share of vocos-huge's bytes; (d) BigVGAN's b2
-     step at full width, K1 under autograd on channel shards: losses, grad norms, every gathered
-     gradient, the weights after AdamW, the ranks' whole states equal to the bit.  Their times are of two
-     gloo ranks sharing one card;
+     step at full width, K1 under autograd on channel shards, the MPD in storage shards: losses, grad
+     norms, every gathered gradient, the weights after AdamW, the ranks' whole states equal to the bit;
+     (e) one vqvae step at the preset's width (2 WaveNet layers, one resblock a stage), b2 x 8,192
+     samples, a 4,096-sample crop, every large tensor (the codebook too) in storage shards: as (d), and
+     the EMA codebook; (f) Firefly-GAN at the preset through `cli.infer.load_generator` with the model
+     group (folded, in storage shards), b4 x 256 frames, fp32; each rank's bytes held for (d)-(f) against
+     one process's.  Their times are of two gloo ranks sharing one card;
  38. `cli.bench_scaling --meshes 1,2` under torchrun: the line of dp 1 alone (one card); during the
      build (0), before phase 16.
 
@@ -2840,79 +2844,88 @@ def _tp_library_forwards(mg, dev, rank: int) -> dict:
     return out
 
 
-def _tp_step(mg, dev, rank: int, batch: dict) -> dict:
-    """(d) BigVGAN's training step at full width on ``batch`` (b2, fp32), sharded over the model group (K1
-    under autograd on each rank's channel shards), against one process's step (rank 0) from the same weights
-    and crop start: losses, grad norms, every gathered gradient, the gathered weights after AdamW; and every
-    rank's whole state after the step against rank 0's, bit for bit."""
+def _held(state) -> dict:
+    """The bytes a rank holds of each part of a training state, counted from its tensors: the generator's and
+    the discriminators' parameters, their AdamW moments, and the codebook buffers."""
+    from vocoder_tpu_torch.parallel import tp
+
+    g, d = tp.held_bytes(state.generator, state.opt_g), tp.held_bytes(state.discriminators, state.opt_d)
+    return {"generator": g["parameters"], "discriminators": d["parameters"], "opt_g": g["moments"],
+            "opt_d": d["moments"], "buffers": g["buffers"]}
+
+
+def _tp_train_step(mg, dev, rank: int, task, sd: dict, batch: dict) -> dict:
+    """One training step of ``task`` on ``batch`` from the generator weights ``sd``, the state sharded over the
+    model group (the generator by its specs or in storage shards, the discriminators in storage shards),
+    against one process's step (rank 0) from the same weights and crop start: losses, grad norms, every
+    gathered gradient, the gathered weights after AdamW and the gathered buffers (the EMA codebook); every rank's
+    whole state after the step against rank 0's, bit for bit; the bytes each rank holds and one process holds."""
     import torch
 
-    from vocoder_tpu_torch.config import build_task_config
-    from vocoder_tpu_torch.models.bigvgan import random_state_dict
     from vocoder_tpu_torch.ops import launch_counts
     from vocoder_tpu_torch.ops.aa_snake import aa_snake
     from vocoder_tpu_torch.ops.amp_block import amp_stage
     from vocoder_tpu_torch.parallel import tp
     from vocoder_tpu_torch.train import gan
 
-    task = build_task_config("bigvgan", "44100_512_2048")
-    sd = random_state_dict(task.generator, SEED)
     t = batch["audio"].shape[2]
+    modules = ("generator", "discriminators")
 
     def fresh(group):
         state = gan.create_train_state(task, SEED, dev, group)
         state.generator.load_state_dict(tp.shard_state(state.generator, sd))
         return state
 
-    def whole_weights(state) -> dict:  # every parameter, whole
-        names = [f"discriminators.{n}" for n, _ in state.discriminators.named_parameters()]
-        weights = {**{f"generator.{n}": v for n, v in tp.whole_state_dict(state.generator).items()},
-                   **{f"discriminators.{n}": v for n, v in state.discriminators.state_dict().items()}}
-        return {n: weights[n].detach().clone() for n in
-                [f"generator.{n}" for n, _ in state.generator.named_parameters()] + names}
-
-    def whole_grads(state) -> dict:  # every parameter's gradient, whole
-        grads = tp.whole_state_dict(state.generator, {n: p.grad for n, p in state.generator.named_parameters()})
-        return {**{f"generator.{n}": v for n, v in grads.items()},
-                **{f"discriminators.{n}": p.grad for n, p in state.discriminators.named_parameters()}}
-
-    def whole(state) -> tuple[dict, dict]:
-        return whole_grads(state), whole_weights(state)
+    def whole(state, with_grads: bool = True) -> tuple[dict, dict, dict]:
+        """(every gradient, every weight, every buffer), whole."""
+        grads, weights, buffers = {}, {}, {}
+        for key in modules:
+            m = getattr(state, key)
+            names = {n for n, _ in m.named_parameters()}
+            for n, v in tp.whole_state_dict(m).items():
+                (weights if n in names else buffers)[f"{key}.{n}"] = v.detach().clone()
+            if with_grads:
+                grads.update({f"{key}.{n}": v for n, v in
+                              tp.whole_state_dict(m, {n: p.grad for n, p in m.named_parameters()}).items()})
+        return grads, weights, buffers
 
     def words(t) -> torch.Tensor:  # a tensor's bits: the sum of its 32-bit words, and weighted by position
         w = t.detach().contiguous().view(-1).view(torch.int32).long()
         return torch.stack([w.sum(), (w * torch.arange(1, w.numel() + 1, device=w.device)).sum()])
 
-    def state_words(state, weights: dict) -> torch.Tensor:
-        """The bits of the whole state: every whole weight, and the AdamW moments of each parameter that the
-        ranks hold whole (a sharded parameter's are this rank's shard)."""
-        tensors = list(weights.values())
-        sharded = state.generator.tp_params
-        for opt, module, skip in ((state.opt_g, state.generator, sharded), (state.opt_d, state.discriminators, {})):
-            for n, p in module.named_parameters():
-                if n not in skip:
+    def state_words(state, weights: dict, buffers: dict) -> torch.Tensor:
+        """The bits of the whole state: every whole weight and buffer, and the AdamW moments of each parameter
+        that the ranks hold whole (a sharded parameter's are this rank's shard)."""
+        tensors = [*weights.values(), *buffers.values()]
+        for opt, key in ((state.opt_g, "generator"), (state.opt_d, "discriminators")):
+            m = getattr(state, key)
+            sharded = getattr(m, "tp_params", {})
+            for n, p in m.named_parameters():
+                if n not in sharded:
                     tensors += [opt.state[p]["exp_avg"], opt.state[p]["exp_avg_sq"]]
         return torch.cat([words(t) for t in tensors])
 
     state = fresh(mg)
-    old = whole_weights(state)
     start = gan.draw_crop_start(state, task, t)
     aa_snake.launches = amp_stage.launches = amp_stage.mma_launches = 0
     metrics, ms = _timed(lambda: gan.make_train_step(task)(state, batch, start))
     counts = launch_counts()
     metrics = {k: float(v) for k, v in metrics.items()}
-    grads, new = whole(state)
-    bits = _every_rank(state_words(state, new), mg)
+    grads, new, buffers = whole(state)
+    bits = _every_rank(state_words(state, new, buffers), mg)
     out = {"launches": counts, "ms_2_gloo_ranks_on_one_card": ms, "crop_start": start, "metrics": metrics,
-           "sharded_parameters": len(state.generator.tp_params), "state_tensors_compared": len(bits[0]) // 2,
+           "sharded_parameters": {k: len(getattr(getattr(state, k), "tp_params", {})) for k in modules},
+           "state_tensors_compared": len(bits[0]) // 2, "bytes_held": _held(state),
            "ranks_state_bit_equal": all(torch.equal(b, bits[0]) for b in bits)}
     del state
     torch.cuda.empty_cache()
     if rank == 0:
         ref = fresh(None)
+        _, old, _ = whole(ref, with_grads=False)  # the weights before the step, the sharded state's too
         want, ms_one = _timed(lambda: gan.make_train_step(task)(ref, batch, start))
         want = {k: float(v) for k, v in want.items()}
-        ref_grads, ref_new = whole(ref)
+        ref_grads, ref_new, ref_buffers = whole(ref)
+        out["bytes_one_process"] = _held(ref)
         norms = [k for k in want if "grad_norm" in k]
         losses = [k for k in want if k not in norms and k != "lr"]
         grad_rel = {n: rel_l2(g, ref_grads[n]) for n, g in grads.items()}
@@ -2923,8 +2936,11 @@ def _tp_step(mg, dev, rank: int, batch: dict) -> dict:
         out.update(one_process_ms=ms_one, loss_rel={k: rel(metrics[k], want[k]) for k in losses},
                    grad_norm_rel={k: rel(metrics[k], want[k]) for k in norms}, grad_tensors=len(grad_rel),
                    max_grad_rel_l2=grad_rel[worst], worst_grad=worst,
-                   max_row_gain_grad_rel_l2=max(grad_rel[n] for n in gains), row_gains=len(gains),
+                   max_row_gain_grad_rel_l2=max((grad_rel[n] for n in gains), default=None), row_gains=len(gains),
                    max_weight_abs_err=weight_abs[worst_w], worst_weight=worst_w,
+                   buffer_rel_l2={n: rel_l2(b, ref_buffers[n]) for n, b in buffers.items()},
+                   codebooks_moved={n: bool((ref_buffers[n] != sd[n[len("generator."):]].to(dev)).any())
+                                    for n in buffers if ".vq." in n},
                    params_adam_close=all(adam_step_close(new[n], ref_new[n], old[n], ref_grads[n],
                                                          float((grads[n] - ref_grads[n]).abs().max()), want["lr"],
                                                          task.weight_decay) for n in grads),
@@ -2934,13 +2950,100 @@ def _tp_step(mg, dev, rank: int, batch: dict) -> dict:
     return out
 
 
+def _tp_step(mg, dev, rank: int, batch: dict) -> dict:
+    """(d) BigVGAN's training step at full width on ``batch`` (b2, fp32): the generator by its specs (K1 under
+    autograd on each rank's channel shards), the MPD's larger convs in storage shards."""
+    from vocoder_tpu_torch.config import build_task_config
+    from vocoder_tpu_torch.models.bigvgan import random_state_dict
+
+    task = build_task_config("bigvgan", "44100_512_2048")
+    return _tp_train_step(mg, dev, rank, task, random_state_dict(task.generator, SEED), batch)
+
+
+def _tp_vqvae_step(mg, dev, rank: int) -> dict:
+    """(e) One vqvae step at the preset's width and reduced depth (``reduced_family_task``: 2 WaveNet layers, one
+    resblock a stage), b2 x 8,192 samples, a 4,096-sample crop, the codebook fitted to the batch's latents
+    (``fit_codebook``, rank 0's fit on every rank): every tensor of the generator, the codebook and the
+    discriminators of 65,536 elements or more in storage shards."""
+    import torch
+
+    from vocoder_tpu_torch.models.vae import VQVAEGenerator, vqvae_random_state_dict
+    from vocoder_tpu_torch.tools.profile_train import synthetic_batch
+    from vocoder_tpu_torch.train import gan
+
+    task = reduced_family_task("vqvae", "hifigan", "vqvae")
+    t = task.hop_length * task.num_frames
+    batch = synthetic_batch(TP_STEP_BATCH, t, task.sampling_rate, SEED, "cpu")
+    batch["lengths"][1] = t * 4 // 5
+    batch["audio"][1, :, t * 4 // 5 :] = 0.0
+    m = VQVAEGenerator(task.generator)
+    m.load_state_dict(vqvae_random_state_dict(task.generator, SEED))
+    fit_codebook(m, gan.input_transform(task, batch["audio"][:, 0]), SEED)
+    sd = {k: v.detach().clone() for k, v in m.state_dict().items()}
+    del m
+    # The fit runs on each child's CPU threads, whose sums need not round alike in two processes: every rank
+    # takes rank 0's weights (as the trainer broadcasts its modules), and the record says whether they differed.
+    mine = torch.cat([v.contiguous().view(-1).view(torch.int32).long().sum().view(1) for v in sd.values()])
+    fits = [torch.zeros_like(mine) for _ in range(mg.size)]
+    torch.distributed.all_gather(fits, mine, group=mg.group)
+    for v in sd.values():
+        torch.distributed.broadcast(v, src=torch.distributed.get_global_rank(mg.group, 0), group=mg.group)
+    out = _tp_train_step(mg, dev, rank, task, sd, {k: v.to(dev) for k, v in batch.items()})
+    out["fits_equal_before_broadcast"] = all(torch.equal(f, fits[0]) for f in fits)
+    return out
+
+
+def _tp_firefly_forward(mg, dev, rank: int) -> dict:
+    """(f) Firefly-GAN at the preset through ``cli.infer.load_generator`` with the model group (weight norm
+    folded, then every weight of 65,536 elements or more in storage shards, gathered at each forward), b4 x
+    F_FRAMES, fp32, against one process's ``load_generator`` (rank 0); the parameter bytes each holds."""
+    import torch
+
+    from vocoder_tpu_torch.cli.infer import load_generator
+    from vocoder_tpu_torch.config import build_task_config
+    from vocoder_tpu_torch.models.firefly import random_state_dict
+    from vocoder_tpu_torch.parallel import tp
+
+    task = build_task_config("firefly_gan_base", "44100_512_2048")
+    g = torch.Generator(device=dev).manual_seed(SEED + 39)
+    mel = torch.randn(TP_BATCH, task.num_mels, F_FRAMES, device=dev, generator=g) - 5.0
+    with tempfile.TemporaryDirectory() as tmp:
+        Path(tmp, "checkpoints").mkdir()
+        torch.save({"generator": random_state_dict(task.generator, SEED)}, Path(tmp, "checkpoints", "0.pt"))
+        model = load_generator(tmp, task, dev, model_group=mg)
+        with torch.inference_mode():
+            y, ms = _timed(lambda: model(mel))
+            ys = _every_rank(y, mg)
+        out = {"ms_2_gloo_ranks_on_one_card": ms, "sharded_tensors": len(getattr(model, "tp_params", {})),
+               "param_bytes_held": tp.held_bytes(model)["parameters"]}
+        del model
+        if rank == 0:
+            ref = load_generator(tmp, task, dev)
+            with torch.inference_mode():
+                want, ms_one = _timed(lambda: ref(mel))
+            out.update(one_process_ms=ms_one, param_bytes_whole=tp.held_bytes(ref)["parameters"],
+                       rel_l2=max(rel_l2(v, want) for v in ys), max_abs_err=max(float((v - want).abs().max()) for v in ys),
+                       finite=all(bool(torch.isfinite(v).all()) for v in ys), shape=list(y.shape))
+            del ref, want
+    del y, ys
+    torch.cuda.empty_cache()
+    return out
+
+
 def _tp_rank(rank: int, dev, batch: dict) -> dict:
-    """37's tensor-parallel part on this gloo child: (a)-(d) in the model group of both children."""
+    """37's tensor-parallel part on this gloo child: (a)-(f) in the model group of both children."""
     from vocoder_tpu_torch.parallel import tp
 
     mg = tp.make_grid(DP_RANKS).model
-    return {"bigvgan": _tp_bigvgan_forwards(mg, dev, rank), **_tp_library_forwards(mg, dev, rank),
-            "step": _tp_step(mg, dev, rank, batch)}
+    out, seconds, t = {}, {}, time.perf_counter()
+    for part, run in (("a", lambda: {"bigvgan": _tp_bigvgan_forwards(mg, dev, rank)}),
+                      ("b-c", lambda: _tp_library_forwards(mg, dev, rank)),
+                      ("d", lambda: {"step": _tp_step(mg, dev, rank, batch)}),
+                      ("e", lambda: {"vqvae_step": _tp_vqvae_step(mg, dev, rank)}),
+                      ("f", lambda: {"firefly": _tp_firefly_forward(mg, dev, rank)})):
+        out.update(run())
+        seconds[part], t = time.perf_counter() - t, time.perf_counter()
+    return {**out, "seconds": seconds}
 
 
 def start_dp_ranks() -> tuple:
@@ -3005,8 +3108,12 @@ def check_tp_gloo(ranks: list, paths: dict, stamp: dict) -> None:
     (b) vocos-huge and (c) HiFiGAN within TP_GEN_REL_L2, a rank holding TP_SHARE of vocos-huge's bytes;
     (d) BigVGAN's b2 step against one process's: losses, grad norms, every gathered gradient (the row-parallel
     convs' replicated gains named apart), the gathered weights after AdamW (Adam's first-step rule), each
-    rank's whole state after the step equal to rank 0's to the bit.  The launches of each run go to
-    the kernels line.  Times are of 2 gloo ranks sharing one card, not of tensor parallelism on cards."""
+    rank's whole state after the step equal to rank 0's to the bit, the discriminators in storage shards;
+    (e) the vqvae's step by (d)'s rules, the EMA codebook within FAMILY_EMA_REL_L2 and moved, the generator and
+    the discriminators in storage shards; (f) Firefly-GAN's forward through ``load_generator`` within
+    TP_GEN_REL_L2, each rank holding fewer parameter bytes; each rank's bytes held for (d)-(f).  The launches
+    of each run go to the kernels line.  Times are of 2 gloo ranks sharing one card, not of tensor
+    parallelism on cards."""
     zero = {"aa_snake": 0, FP32_K2: 0, BF16_K2: 0}
     big = ranks[0]["bigvgan"]
     k2 = {"fp32": FP32_K2, "fp32_again": FP32_K2, "fp32_masked": FP32_K2, "bf16": BF16_K2}
@@ -3054,6 +3161,7 @@ def check_tp_gloo(ranks: list, paths: dict, stamp: dict) -> None:
                    and loss_rel <= TP_LOSS_REL and norm_rel <= TP_NORM_REL
                    and step["max_grad_rel_l2"] <= TP_GRAD_REL_L2 and step["row_gains"] > 0
                    and step["params_adam_close"] and all(r["step"]["ranks_state_bit_equal"] for r in ranks)
+                   and step["sharded_parameters"]["discriminators"] > 0
                    and all(math.isfinite(v) for v in step["metrics"].values()))
     log({"phase": "tp_bigvgan_step", "ranks": DP_RANKS, "batch": TP_STEP_BATCH, "launches_by_rank": counts,
          "max_loss_rel_any_rank": loss_rel, "max_grad_norm_rel_any_rank": norm_rel,
@@ -3066,9 +3174,61 @@ def check_tp_gloo(ranks: list, paths: dict, stamp: dict) -> None:
          "ms_2_gloo_ranks_on_one_card": [r["step"]["ms_2_gloo_ranks_on_one_card"] for r in ranks],
          "limits": {"loss_rel": TP_LOSS_REL, "grad_norm_rel": TP_NORM_REL, "grad_rel_l2": TP_GRAD_REL_L2,
                     "weights": "adam_step_close"}, "weight_abs_reference": TP_WEIGHT_ABS, "ok": oks["step"], **stamp})
+    oks.update(check_tp_storage(ranks, stamp))
     failed = [k for k, v in oks.items() if not v]
     if failed:
         raise SystemExit(f"tensor parallelism over 2 gloo ranks differs from one process: {failed}")
+
+
+def check_tp_storage(ranks: list, stamp: dict) -> dict:
+    """37 (e) and (f), storage sharding on the two gloo children: the vqvae's step and Firefly-GAN's forward
+    against one process (``check_tp_gloo``'s rules), then each rank's bytes held for (d)-(f) against one
+    process's.  -> {check: ok}."""
+    oks = {}
+    vq = ranks[0]["vqvae_step"]
+    want = vq["metrics_one_process"]
+    loss_rel = max(rel(r["vqvae_step"]["metrics"][k], want[k]) for r in ranks for k in vq["loss_rel"])
+    norm_rel = max(rel(r["vqvae_step"]["metrics"][k], want[k]) for r in ranks for k in vq["grad_norm_rel"])
+    oks["vqvae_step"] = (all(r["vqvae_step"]["crop_start"] == vq["crop_start"] for r in ranks)
+                         and loss_rel <= TP_LOSS_REL and norm_rel <= TP_NORM_REL
+                         and vq["max_grad_rel_l2"] <= TP_GRAD_REL_L2 and vq["params_adam_close"]
+                         and all(v <= FAMILY_EMA_REL_L2 for v in vq["buffer_rel_l2"].values())
+                         and vq["codebooks_moved"] and all(vq["codebooks_moved"].values())
+                         and all(r["vqvae_step"]["ranks_state_bit_equal"] for r in ranks)
+                         and all(v > 0 for v in vq["sharded_parameters"].values())
+                         and all(math.isfinite(v) for v in vq["metrics"].values()))
+    log({"phase": "tp_vqvae_step", "ranks": DP_RANKS, "batch": TP_STEP_BATCH,
+         "max_loss_rel_any_rank": loss_rel, "max_grad_norm_rel_any_rank": norm_rel,
+         "ranks_state_bit_equal": [r["vqvae_step"]["ranks_state_bit_equal"] for r in ranks],
+         **{k: vq[k] for k in ("state_tensors_compared", "loss_rel", "grad_norm_rel", "grad_tensors", "max_grad_rel_l2",
+                               "worst_grad", "max_weight_abs_err", "worst_weight", "params_adam_close",
+                               "buffer_rel_l2", "codebooks_moved", "sharded_parameters", "one_process_ms",
+                               "fits_equal_before_broadcast",
+                               "metrics", "metrics_one_process")},
+         "ms_2_gloo_ranks_on_one_card": [r["vqvae_step"]["ms_2_gloo_ranks_on_one_card"] for r in ranks],
+         "limits": {"loss_rel": TP_LOSS_REL, "grad_norm_rel": TP_NORM_REL, "grad_rel_l2": TP_GRAD_REL_L2,
+                    "ema_rel_l2": FAMILY_EMA_REL_L2, "weights": "adam_step_close"},
+         "ok": oks["vqvae_step"], **stamp})
+    ff = ranks[0]["firefly"]
+    oks["firefly"] = (ff["rel_l2"] <= TP_GEN_REL_L2 and ff["finite"]
+                      and all(0 < r["firefly"]["param_bytes_held"] < ff["param_bytes_whole"] for r in ranks))
+    log({"phase": "tp_firefly_forward", "ranks": DP_RANKS, "batch": TP_BATCH, "frames": F_FRAMES, "shape": ff["shape"],
+         "rel_l2": ff["rel_l2"], "limit": TP_GEN_REL_L2, "max_abs_err": ff["max_abs_err"],
+         "sharded_tensors": ff["sharded_tensors"],
+         "ms_2_gloo_ranks_on_one_card": [r["firefly"]["ms_2_gloo_ranks_on_one_card"] for r in ranks],
+         "one_process_ms": ff["one_process_ms"], "ok": oks["firefly"], **stamp})
+    # Each rank's bytes held, counted from its tensors, against one process's (the storage rule at model 2).
+    for tag, key in (("d_bigvgan_step", "step"), ("e_vqvae_step", "vqvae_step")):
+        one = ranks[0][key]["bytes_one_process"]
+        by_rank = [r[key]["bytes_held"] for r in ranks]
+        log({"phase": "tp_bytes_held", "run": tag, "bytes_held_by_rank": by_rank, "bytes_one_process": one,
+             "share_by_rank": [{k: v / one[k] for k, v in b.items() if one[k]} for b in by_rank], **stamp})
+    log({"phase": "tp_seconds_by_part", "seconds_by_rank": [r["seconds"] for r in ranks], **stamp})
+    log({"phase": "tp_bytes_held", "run": "f_firefly_forward",
+         "bytes_held_by_rank": [{"parameters": r["firefly"]["param_bytes_held"]} for r in ranks],
+         "bytes_one_process": {"parameters": ff["param_bytes_whole"]},
+         "share_by_rank": [r["firefly"]["param_bytes_held"] / ff["param_bytes_whole"] for r in ranks], **stamp})
+    return oks
 
 
 def check_bench_scaling(stamp: dict) -> list:
@@ -3387,8 +3547,9 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         check_codec(Path(tmp), dev, paths, stamp)
     mark("15 vqvae codec")
-    # Phases 36 and 37 (data parallelism, below) are checks in child processes: they run beside 17, 18, 23
-    # and 24, which are checks too, and are read after 24; no timing phase runs beside them.
+    # Phases 36 and 37 (data and tensor parallelism, below) are checks in child processes: they run beside 17,
+    # 18, 23, 24 and 25, which are checks too (25's peak memory is this process's allocator's), and are read
+    # after 25; no timing phase runs beside them.
     torch.cuda.empty_cache()
     dp_ranks = start_dp_ranks()
     dp_cli = start_cli_train_torchrun(Path(cli_train_dir.name), cli_train)
@@ -3401,12 +3562,14 @@ def main() -> int:
     mark("23 bf16 step (beside 36-37)")
     k1_grad_bf16 = check_k1_autograd_bf16(dev)
     mark("24 k1 autograd bf16 (beside 36-37)")
+    ckpt_rec = check_checkpointing(dev, paths, stamp)
+    mark("25 checkpointing (beside 36-37)")
     check_cli_train_torchrun(dp_cli, Path(cli_train_dir.name), cli_train, paths, stamp)
     cli_train_dir.cleanup()
     tf32_off()
-    mark("36 cli.train torchrun nccl (beside 17-24)")
+    mark("36 cli.train torchrun nccl (beside 17-25)")
     check_dp_step_gloo(dp_ranks, paths, stamp)
-    mark("37 dp and tp over gloo (beside 17-24)")
+    mark("37 dp and tp over gloo (beside 17-25)")
 
     # 19-22. FLAC/Ogg/MP3 input through the host library, training with validation PESQ, evaluation.
     libs = host_audio()
@@ -3422,9 +3585,7 @@ def main() -> int:
         tf32_off()
         mark("22 cli.evaluate")
 
-        # 25-30. Checkpointing, bf16 training, the profiler window and the bench CLIs (23 and 24 ran after 18).
-        ckpt_rec = check_checkpointing(dev, paths, stamp)
-        mark("25 checkpointing")
+        # 26-30. bf16 training, the profiler window and the bench CLIs (23-25 ran after 18).
         bf16_times = time_train_step_bf16(dev, stamp)
         mark("26 bf16 step timing")
         step_s = check_cli_train_bf16(Path(tmp) / "formats", paths, stamp)

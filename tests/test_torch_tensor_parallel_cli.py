@@ -3,7 +3,8 @@
 ``torchrun --nproc_per_node 2 -m vocoder_tpu_torch.cli.infer --device cpu --model-parallel 2`` from a
 training workdir of BigVGAN at 256 channels (its config.json sets the widths; the first stage shards)
 writes the WAVs that one process writes, per file (one past ``--chunk-frames``, one stereo) and with
-``--batch 2``, within two 16-bit steps, and only rank 0 writes.  ``cli.train run.model_parallel=2``
+``--batch 2``, within two 16-bit steps, and only rank 0 writes; so does a Firefly-GAN workdir (no
+``param_specs``: its folded weights of 65,536 elements or more stored in shards and gathered at each forward).  ``cli.train run.model_parallel=2``
 under torchrun (``tests/torch_dp_ranks.py``'s ``cli`` mode, which records each rank's writes and
 batches): two steps with a validation at 2 and a resume to 3; only rank 0 writes, both ranks train on
 the whole batch (one data-parallel share), the checkpoints hold whole tensors that load in one process,
@@ -27,7 +28,10 @@ from tests.torch_tp_ranks import UPSAMPLER
 from vocoder_tpu_torch import config as tconfig
 from vocoder_tpu_torch.cli import infer
 from vocoder_tpu_torch.data.audio_io import read_wav, write_wav
+from vocoder_tpu_torch.models import firefly
 from vocoder_tpu_torch.models.bigvgan import BigVGAN, BigVGANConfig, random_state_dict
+from vocoder_tpu_torch.models.convnext import ConvNeXtConfig
+from vocoder_tpu_torch.models.hifigan import HiFiGANConfig
 from vocoder_tpu_torch.train import gan, trainer
 from vocoder_tpu_torch.utils.checkpoint import CheckpointManager
 
@@ -53,16 +57,26 @@ def wait(proc: subprocess.Popen) -> str:
     return out
 
 
-def infer_workdir(root: Path) -> Path:
+# Firefly-GAN at widths whose larger weights reach the storage rule's 65,536 elements: the second stage's MLP
+# (128 x 512), the head's conv_pre and first upsample; the rest stays whole.
+FIREFLY = firefly.FireflyConfig(
+    backbone=ConvNeXtConfig(input_channels=8, depths=(1, 1), dims=(64, 128)),
+    head=HiFiGANConfig(**{**UPSAMPLER, "num_mels": 128, "resblock_kernel_sizes": (3,),
+                          "resblock_dilation_sizes": ((1, 2),)}, pre_conv_kernel_size=13, post_conv_kernel_size=13))
+
+
+def infer_workdir(root: Path, name: str = "bigvgan") -> Path:
     """A training run's workdir as the trainer leaves one: config.json recording an 8 kHz BigVGAN task at
-    ``UPSAMPLER``'s widths, and checkpoints/0.pt holding its generator (numpy seed 5)."""
-    cfg = BigVGANConfig(**UPSAMPLER)
-    task = gan.GANTaskConfig(sampling_rate=8000, n_fft=16, hop_length=cfg.hop_length, win_length=16,
-                             num_mels=cfg.num_mels, generator_name="bigvgan", generator=cfg)
-    work = root / "run"
+    ``UPSAMPLER``'s widths (or ``FIREFLY``'s), and checkpoints/0.pt holding its generator (numpy seed 5)."""
+    cfg = BigVGANConfig(**UPSAMPLER) if name == "bigvgan" else FIREFLY
+    hop = UPSAMPLER["hop_length"]
+    task = gan.GANTaskConfig(sampling_rate=8000, n_fft=16, hop_length=hop, win_length=16, num_mels=8,
+                             generator_name=name, generator=cfg)
+    work = root / f"run_{name}"
     (work / "checkpoints").mkdir(parents=True)
     (work / "config.json").write_text(json.dumps(dataclasses.asdict(tconfig.TrainConfig(task=task)), default=str))
-    torch.save({"generator": random_state_dict(cfg, 5)}, work / "checkpoints" / "0.pt")
+    weights = random_state_dict(cfg, 5) if name == "bigvgan" else firefly.random_state_dict(cfg, 5)
+    torch.save({"generator": weights}, work / "checkpoints" / "0.pt")
     return work
 
 
@@ -90,21 +104,23 @@ def runs(tmp_path_factory):
     _wavs(root / "val", 2, rng)
     base = ["--model", "bigvgan", "--ckpt", str(work), "--input", str(root / "in"), "--device", "cpu",
             "--chunk-frames", "100"]
-    infer_tp = {tag: torchrun(["vocoder_tpu_torch.cli.infer", *base, *extra, "--model-parallel", "2",
-                               "--output", str(root / f"tp_{tag}")])
-                for tag, extra in (("files", []), ("batch", ["--batch", "2"]))}
+    runs = (("files", base), ("batch", [*base, "--batch", "2"]),
+            ("firefly", ["--model", "firefly_gan_base", "--ckpt", str(infer_workdir(root, "firefly_gan_base")),
+                         *base[4:]]))
+    infer_tp = {tag: torchrun(["vocoder_tpu_torch.cli.infer", *args, "--model-parallel", "2",
+                               "--output", str(root / f"tp_{tag}")]) for tag, args in runs}
     argv = ["--model", "bigvgan", "--device", "cpu", f"data.train_roots=('{root / 'train'}',)",
             f"data.val_root={root / 'val'}", f"run.workdir={root / 'train_run'}", *TINY, *WIDE, "run.model_parallel=2"]
     train = torchrun(["tests.torch_dp_ranks", "cli", str(root), "first", *argv, "run.max_steps=2"])
-    for tag, extra in (("files", []), ("batch", ["--batch", "2"])):
-        infer.main([*base, *extra, "--output", str(root / f"one_{tag}")])
+    for tag, args in runs:
+        infer.main([*args, "--output", str(root / f"one_{tag}")])
     outs = {tag: wait(p) for tag, p in infer_tp.items()}
     wait(train)
     wait(torchrun(["tests.torch_dp_ranks", "cli", str(root), "resume", *argv, "run.max_steps=3"]))
     return root, outs, argv
 
 
-@pytest.mark.parametrize("tag", ["files", "batch"])
+@pytest.mark.parametrize("tag", ["files", "batch", "firefly"])
 def test_model_parallel_infer_writes_one_process_wavs(runs, tag):
     root, outs, _ = runs
     names = sorted(p.name for p in (root / "in").iterdir())
@@ -115,6 +131,7 @@ def test_model_parallel_infer_writes_one_process_wavs(runs, tag):
         assert sr == 8000 and got.shape == want.shape and np.abs(want).max() > 1e-3
         assert float(np.abs(got - want).max()) <= WAV_TOL, name
     assert "model-parallel inference: 2-way tensor sharding (gloo)" in outs[tag]
+    assert int(outs[tag].split("(gloo), ")[1].split(" tensors sharded")[0]) > 0
     assert outs[tag].count("stereo.wav: ") == 1  # rank 0 alone prints
 
 

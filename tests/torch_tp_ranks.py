@@ -10,7 +10,11 @@ from the JAX package's parameters), ``model_parallel``, and ``cases``, a list of
 ``forward`` (an eval-mode forward, weight norm folded, as ``cli.infer`` runs it), ``step`` (one
 training step on the whole batch, tensor parallel only; ``save``: the state after it, and a one-process
 checkpoint restored), ``dp_step`` (one step of the (data, model) grid, each model group on its rows of the
-global batch), ``drift`` (a ``step`` whose ranks' backwards differ in the gradients of what they hold whole).  The ranks form ``make_grid(model_parallel)``'s grid: model groups of consecutive ranks;
+global batch), ``drift`` (a ``step`` whose ranks' backwards differ in the gradients of what they hold whole),
+``storage_step`` and ``storage_forward`` (``STORAGE``'s generators without explicit specs, every module
+storage-sharded at ``STORAGE_MIN_SIZE``: a step as ``step``, with the state's bytes held; an eval forward, weight
+norm folded, as ``cli.infer.load_generator`` builds it) and ``storage_checkpoint`` (a one-process checkpoint
+restored into a storage-sharded state and gathered back).  The ranks form ``make_grid(model_parallel)``'s grid: model groups of consecutive ranks;
 a ``forward`` or ``step`` case runs in every model group on the whole batch, with no data parallelism.
 """
 
@@ -23,7 +27,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from vocoder_tpu_torch.models import bigvgan, hifigan, mpd, mrd, vocos
+from vocoder_tpu_torch.models import bigvgan, convnext, firefly, hifigan, mpd, mrd, refinegan, vae, vocos, vq, wavenet
 from vocoder_tpu_torch.models.convnext import ConvNeXtConfig
 from vocoder_tpu_torch.models.registry import get_generator
 from vocoder_tpu_torch.nn import fold_weight_norm
@@ -51,6 +55,40 @@ SCHEDULE = dict(val_base=2e-4, max_decay_steps=1000)
 FRAMES = 24
 DP_BATCH = 4  # the global batch of the dp_step cases
 PERTURB = 2.0**-8  # the drift case's relative change of a replicated gradient per model rank
+# Storage sharding: generators without explicit specs at small widths, every tensor of at least STORAGE_MIN_SIZE
+# elements stored in shards (most convs of the generator and the discriminators, the codebook; the small ones
+# whole); {case: (registry name, family)}.
+STORAGE = {"refinegan": ("refinegan", "gan"), "vae": ("vae", "vae"), "vqvae": ("vqvae", "vqvae"),
+           "firefly": ("firefly_gan_base", "gan")}
+STORAGE_MIN_SIZE = 256
+STORAGE_MPD = dict(periods=(2, 3), channels=(1, 16, 32))
+STORAGE_DEC = dict(hop_length=HOP, upsample_rates=(2, 2), upsample_kernel_sizes=(4, 4), resblock_kernel_sizes=(3,),
+                   resblock_dilation_sizes=((1, 2),), upsample_initial_channel=32)
+PORT_MODULES = dict(convnext=convnext, firefly=firefly, hifigan=hifigan, refinegan=refinegan, vae=vae, vq=vq,
+                    wavenet=wavenet)
+
+
+def storage_generator_config(name: str, m: dict = PORT_MODULES):
+    """A ``STORAGE`` case's generator config from one package's modules ``m`` (the port's, or the JAX package's
+    of the same names)."""
+    bins = TASK["n_fft"] // 2 + 1
+    if name == "refinegan":
+        return m["refinegan"].RefineGANConfig(sampling_rate=8000, hop_length=HOP, downsample_rates=(2, 2),
+                                              upsample_rates=(2, 2), num_mels=8, start_channels=8)
+    if name == "vae":
+        return m["vae"].VAEGeneratorConfig(
+            latent_size=8, encoder_kind="convnext",
+            encoder=m["convnext"].ConvNeXtConfig(input_channels=bins, depths=(1, 1), dims=(16, 16)),
+            decoder=m["hifigan"].HiFiGANConfig(num_mels=8, **STORAGE_DEC))
+    if name == "vqvae":
+        return m["vae"].VQVAEGeneratorConfig(
+            latent_size=16,
+            encoder=m["wavenet"].PosteriorEncoderConfig(in_channels=bins, out_channels=16, hidden_channels=16,
+                                                        kernel_size=3, n_layers=2),
+            decoder=m["hifigan"].HiFiGANConfig(num_mels=16, **STORAGE_DEC), vq=m["vq"].VQConfig(dim=16, codebook_size=32))
+    return m["firefly"].FireflyConfig(
+        backbone=m["convnext"].ConvNeXtConfig(input_channels=8, depths=(1, 1), dims=(16, 32)),
+        head=m["hifigan"].HiFiGANConfig(num_mels=32, pre_conv_kernel_size=13, post_conv_kernel_size=13, **STORAGE_DEC))
 
 
 def generator_config(name: str):
@@ -80,6 +118,12 @@ def model_name(name: str) -> str:
 
 def task_config(name: str, crop: bool = True) -> gan.GANTaskConfig:
     """The tiny GAN task of a step case (tests/test_torch_train.py's discriminators and losses)."""
+    if name in STORAGE:
+        generator_name, family = STORAGE[name]
+        return gan.GANTaskConfig(generator_name=generator_name, generator=storage_generator_config(name),
+                                 family=family, input_transform="mel" if family == "gan" else "linear",
+                                 crop_length=HOP * 8, mpd=mpd.MPDConfig(**STORAGE_MPD), mrd=mrd.MRDConfig(resolutions=RES),
+                                 schedule=WarmupCosineConfig(**SCHEDULE), **TASK)
     kw = VOCOS_TASK if name.startswith("vocos") else TASK
     return gan.GANTaskConfig(generator_name=model_name(name), generator=generator_config(name),
                              crop_length=kw["hop_length"] * 8 if crop else None, mpd=mpd.MPDConfig(**MPD),
@@ -90,8 +134,8 @@ def mel_input(name: str, batch: int = 2) -> dict:
     """A forward case's inputs: a log-mel-like (B, num_mels, FRAMES); ``lengths`` (FRAMES, FRAMES - 7) for
     HiFiGAN and BigVGAN (the forward with them runs on the mel zeroed past each); a template of two sines
     for the template variants."""
-    cfg = generator_config(name)
-    num_mels = cfg.backbone.input_channels if name.startswith("vocos") else cfg.num_mels
+    cfg = storage_generator_config(name) if name in STORAGE else generator_config(name)
+    num_mels = cfg.backbone.input_channels if name.startswith(("vocos", "firefly")) else cfg.num_mels
     rng = np.random.default_rng((SEED, len(name)))
     mel = (rng.standard_normal((batch, num_mels, FRAMES)) - 1.0).astype(np.float32)
     out = {"mel": mel}
@@ -218,6 +262,65 @@ def checkpoint_round_trip(name: str, sd: dict, one_process: Path, model_group) -
                              "opt_g_state": len(fresh.opt_g.state_dict()["state"])}}
 
 
+def storage_state(name: str, model_group=None) -> gan.TrainState:
+    return gan.create_train_state(task_config(name), SEED, "cpu", model_group, min_size=STORAGE_MIN_SIZE)
+
+
+def held(state: gan.TrainState) -> dict:
+    """The bytes this rank holds of each part of the state: the generator's and discriminators' parameters, their
+    AdamW moments, and the generator's buffers (the codebooks)."""
+    g, d = tp.held_bytes(state.generator, state.opt_g), tp.held_bytes(state.discriminators, state.opt_d)
+    return {"generator": g["parameters"], "discriminators": d["parameters"], "opt_g": g["moments"],
+            "opt_d": d["moments"], "buffers": g["buffers"]}
+
+
+def run_storage_step(name: str, start, model_group=None) -> dict:
+    """One step of a ``STORAGE`` case on its batch, every module storage-sharded over ``model_group``: metrics,
+    the whole gradients, the whole state after it (``state``: weights and buffers; ``ckpt``: the whole
+    ``state_dict()``, both optimizers' moments included), the bytes held and the number of sharded tensors by
+    module."""
+    task = task_config(name)
+    state = storage_state(name, model_group)
+    batch = {k: torch.from_numpy(v) for k, v in step_batch(name).items()}
+    metrics = gan.make_train_step(task)(state, batch, start)
+    grads = {f"{key}.{k}": v for key, module in (("generator", state.generator), ("discriminators", state.discriminators))
+             for k, v in tp.whole_state_dict(module, {n: p.grad for n, p in module.named_parameters()}).items()}
+    whole = state.state_dict()
+    return {"metrics": {k: float(v) for k, v in metrics.items()}, "grads": _numpy(grads),
+            "state": _numpy({**{f"generator.{k}": v for k, v in whole["generator"].items()},
+                             **{f"discriminators.{k}": v for k, v in whole["discriminators"].items()}}),
+            "ckpt": whole, "held": held(state),
+            "sharded": {key: len(getattr(m, "tp_params", {})) for key, m in (("generator", state.generator),
+                                                                              ("discriminators", state.discriminators))},
+            "_state": state}
+
+
+def run_storage_forward(name: str, sd: dict, model_group=None) -> dict:
+    """The eval forward of a ``STORAGE`` case's generator with the whole weights ``sd``, weight norm folded and
+    storage-sharded (``cli.infer.load_generator``'s order), twice; the parameter bytes held."""
+    cfg = storage_generator_config(name)
+    model = get_generator(STORAGE[name][0]).module_cls(cfg)
+    model.load_state_dict(sd)
+    model = tp.storage_shard(fold_weight_norm(model), model_group, STORAGE_MIN_SIZE).eval()
+    mel = torch.from_numpy(mel_input(name)["mel"])
+    with torch.inference_mode():
+        out = _numpy({"audio": model(mel), "audio_again": model(mel)})
+    out["param_bytes"] = tp.held_bytes(model)["parameters"]
+    out["sharded"] = len(getattr(model, "tp_params", {}))
+    return out
+
+
+def storage_checkpoint(name: str, one_process: Path, model_group) -> dict:
+    """A one-process checkpoint of a ``STORAGE`` case restored into a storage-sharded state: its whole
+    ``state_dict()`` back, and this rank's shard of the generator and the discriminators."""
+    ckpt = torch.load(one_process, weights_only=False)
+    state = storage_state(name, model_group)
+    state.load_state_dict(ckpt)
+    whole = state.state_dict()
+    return {"whole": whole, "shard": {key: _numpy(getattr(state, key).state_dict())
+                                      for key in ("generator", "discriminators")}}
+
+
 def _cases(plan_path: Path, out: Path) -> None:
     torch.set_num_threads(1)
     plan = json.loads(plan_path.read_text())
@@ -239,6 +342,12 @@ def _cases(plan_path: Path, out: Path) -> None:
             results[key] = r
         elif case["kind"] == "drift":
             results[key] = run_step(name, weights[name], case["start"], model_group=grid.model, perturb=True)
+        elif case["kind"] == "storage_step":
+            results[key] = run_storage_step(name, case["start"], grid.model)
+        elif case["kind"] == "storage_forward":
+            results[key] = run_storage_forward(name, weights[name], grid.model)
+        elif case["kind"] == "storage_checkpoint":
+            results[key] = storage_checkpoint(name, Path(case["save"]), grid.model)
         elif case["kind"] == "dp_step":
             results[key] = run_step(name, weights[name], case["start"], grid.data_rank, grid.data_size, grid.model,
                                     grid.data, DP_BATCH)

@@ -34,9 +34,13 @@ torchrun (``torchrun --standalone --nproc_per_node N -m
 vocoder_tpu_torch.cli.infer ... --model-parallel N``; one model group, no
 data parallelism, as the JAX package's CLI): hifigan, bigvgan and vocos by
 their ``param_specs`` after weight norm is folded (``parallel/tp.py``), the
-other generators replicated.  Each rank runs on its card (NCCL; ``--device
-cpu``: gloo), every rank reads the same inputs and runs the same forwards,
-and rank 0 writes the WAVs and prints.  N must be the number of processes.
+other generators (refinegan, firefly_gan_base) storage-sharded: each rank
+stores a slice of every folded weight of at least 65,536 elements and each
+forward gathers them (``tp.storage_shard``, the JAX package's
+``train_state_specs(params, mesh, None)``).  Each rank runs on its card
+(NCCL; ``--device cpu``: gloo), every rank reads the same inputs and runs the
+same forwards, and rank 0 writes the WAVs and prints.  N must be the number
+of processes.
 
 Runs on ``cuda`` unless ``--device cpu`` is given; it never falls back to the
 CPU by itself.  It reads WAV, FLAC, Ogg/Vorbis and (where libmpg123 loads)
@@ -85,7 +89,8 @@ def load_generator(ckpt: str | Path, task: GANTaskConfig, device: torch.device, 
 
     ``ckpt``: a reference-layout file (``trust``: see ``load_reference_state_dict``), or a port
     training run's workdir or its ``checkpoints`` directory, whose latest checkpoint is read.
-    ``model_group``: this rank's shard of the folded weights (the model's ``param_specs``)."""
+    ``model_group``: this rank's shard of the folded weights (the model's ``param_specs``, else its storage
+    shards)."""
     gen = get_generator(task.generator_name)
     model = gen.module_cls(task.generator)
     path = Path(ckpt)
@@ -97,6 +102,8 @@ def load_generator(ckpt: str | Path, task: GANTaskConfig, device: torch.device, 
     fold_weight_norm(model)
     if gen.param_specs is not None:
         tp.shard_module(model, gen.param_specs(task.generator), model_group)
+    else:
+        tp.storage_shard(model, model_group)
     return model.to(device).eval()
 
 
@@ -276,7 +283,8 @@ def main(argv=None) -> None:
     ap.add_argument(
         "--model-parallel", type=int, default=1,
         help="shard the generator over N processes started by torchrun --nproc_per_node N (tensor "
-        "parallelism by the model's param_specs: hifigan, bigvgan, vocos; the others replicated)",
+        "parallelism by the model's param_specs: hifigan, bigvgan, vocos; the others' weights stored in "
+        "shards and gathered for each forward)",
     )
     args = ap.parse_args(argv)
 
@@ -300,7 +308,7 @@ def _run(args, task: GANTaskConfig, device: torch.device) -> None:
     model = load_generator(args.ckpt, task, device, args.trust_checkpoint, grid.model)
     if grid.model is not None:
         say(f"model-parallel inference: {args.model_parallel}-way tensor sharding "
-            f"({torch.distributed.get_backend()})")
+            f"({torch.distributed.get_backend()}), {len(getattr(model, 'tp_params', {}))} tensors sharded")
 
     input_path = Path(args.input)
     files = [input_path] if input_path.is_file() else sorted(input_path.rglob("*"))

@@ -31,7 +31,9 @@ and the step is the global batch's):
 
 and on the CPU over gloo with ``--device cpu``.  Rank 0 writes the workdir.
 With ``run.model_parallel=M`` (M dividing N) each M consecutive ranks hold one
-generator in shards (tensor parallelism, ``parallel/tp.py``) and data
+generator in shards (tensor parallelism, ``parallel/tp.py``: hifigan, bigvgan
+and vocos by their ``param_specs``; the discriminators, the other generators and
+the vq codebooks in storage shards, gathered where they are used) and data
 parallelism runs over the N // M model groups (``run.data_parallel``, if given,
 must be N // M).
 """

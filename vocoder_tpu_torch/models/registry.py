@@ -6,9 +6,10 @@ JAX package builds outside its registry (``train/gan.py::create_train_state``).
 
 ``param_specs`` (hifigan, bigvgan and vocos, as the JAX registry's) gives a
 model's tensor-parallel specs (``parallel/tp_specs.py``).  The others, the
-vae, vqvae and ssl generators and the discriminators run replicated over the
-model group: the same numbers as the JAX package's per-leaf storage heuristic
-(``vocoder_tpu/parallel/mesh.py::infer_param_specs``), which is not ported.
+vae, vqvae and ssl generators and the discriminators are storage-sharded over
+the model group by the JAX package's per-leaf rule
+(``vocoder_tpu/parallel/mesh.py::infer_param_specs``; ``tp_specs.storage_dims``,
+``tp.storage_shard``): each rank stores slices and computes whole.
 """
 
 from __future__ import annotations
@@ -23,7 +24,7 @@ PORTED = ("bigvgan", "hifigan", "vocos", "refinegan", "firefly_gan_base")  # the
 class GeneratorDef:
     config_cls: type
     module_cls: type
-    param_specs: Callable | None = None  # cfg -> {module name: tp_specs.Spec}; None: replicated
+    param_specs: Callable | None = None  # cfg -> {module name: tp_specs.Spec}; None: storage-sharded
 
 
 def get_generator(name: str) -> GeneratorDef:

@@ -26,7 +26,11 @@ before the backward reads it.  ``from_codes`` is the codec's decode path.
 Inside ``parallel.dist.data_parallel`` the commitment loss is this rank's
 share of the global batch's and the EMA step sums each codebook's counts
 and frame sums over the ranks first, so every rank writes the global
-batch's codebooks.
+batch's codebooks.  Under a model group the training state stores ``embed``
+and ``embed_avg`` in storage shards (``state_buffers``; ``parallel/tp.py``):
+the forward reads the whole codebooks that the generator's call gathers, and
+the trainer runs ``ema_update`` inside ``tp.gathered``, so the update is
+computed whole on every rank and each rank keeps its slice.
 """
 
 from __future__ import annotations
@@ -70,6 +74,8 @@ def distances(x: torch.Tensor, embed: torch.Tensor) -> torch.Tensor:
 
 
 class Codebook(nn.Module):
+    state_buffers = ("embed", "embed_avg", "cluster_size")  # the JAX package's TrainState.extra (tp_specs.storage_dims)
+
     def __init__(self, cfg: VQConfig, device=None):
         super().__init__()
         embed = torch.randn(cfg.codebook_size, cfg.dim, device=device)  # uniform random init, no k-means

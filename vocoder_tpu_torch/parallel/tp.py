@@ -30,10 +30,24 @@ A replicated parameter that a rank uses on its own shard (a row-parallel conv's 
 through ``copy_to``, so its gradient is the model group's sum when the backward ends, before AdamW.
 Every parameter that the ranks hold whole then takes the group's mean of its gradient
 (``average_replicated_grads``), so that their copies stay equal to the bit.
+
+Storage shards (``storage_shard``; the JAX package's per-leaf fallback, ``parallel/tp_specs.py::
+storage_dims``): a module without explicit specs keeps its computation whole on every rank, but each rank
+stores only its contiguous slice of every tensor that the rule shards.  Each call of the module gathers all
+of them over the model group (one all-gather of their bytes) and runs on the whole tensors, which it puts in
+the slices' places for the call and takes out after it; the gather's backward is this rank's slice of the
+whole gradient, with no collective, since every rank of the group runs the same call on the same inputs
+and so holds the whole gradient.  A call inside ``nn.cast_parameters`` gathers the cast slices, and
+``nn.checkpointed`` recomputes on the tensors gathered for the forward.  ``gathered`` does the same around
+code that is not a call of the module (the vq's EMA update, which then writes this rank's slice back).  The
+sharded tensors join the module's ``tp_params``, so that ``grad_norm``, ``average_replicated_grads``, the
+whole state dicts and the optimizer's moments (sharded like their parameters) treat them as they treat the
+explicit specs' shards.
 """
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
 import weakref
@@ -47,7 +61,7 @@ from torch.nn.utils import parametrize
 
 from vocoder_tpu_torch.convert import shard_state_dict
 from vocoder_tpu_torch.parallel import dist
-from vocoder_tpu_torch.parallel.tp_specs import Spec, key_dims
+from vocoder_tpu_torch.parallel.tp_specs import MIN_SIZE, Spec, key_dims, storage_dims
 
 
 class ModelGroup:
@@ -275,8 +289,7 @@ def linear(module: nn.Module, x: torch.Tensor) -> torch.Tensor:
 def shard_module(model: nn.Module, specs: dict, mg: ModelGroup | None) -> nn.Module:
     """Keep, in place, this rank's shard of every parameter that ``specs`` (a model's ``param_specs``)
     shards, and mark each sharded layer (``tp_layer``) so that ``conv`` and ``linear`` compute its part.
-    The model records its group (``model_group``), ``specs`` (``tp_specs``) and its sharded parameters'
-    dims (``tp_params``).
+    The model records its group (``model_group``) and its sharded parameters' dims (``tp_params``).
     Without a group of more than one rank, or where nothing shards, the model stays as it is."""
     if mg is None or mg.size == 1 or not specs:
         return model
@@ -293,12 +306,139 @@ def shard_module(model: nn.Module, specs: dict, mg: ModelGroup | None) -> nn.Mod
         params[name].data = shard
     for name, spec in specs.items():
         modules[name].tp_layer = Layer(spec, mg)
-    model.model_group, model.tp_specs, model.tp_params = mg, specs, dims
+    model.model_group, model.tp_params = mg, dims
     return model
 
 
 def is_sharded(module: nn.Module) -> bool:
     return getattr(module, "model_group", None) is not None
+
+
+def _stores(module: nn.Module, names) -> list:
+    """(the dict that holds it, its key) of each named parameter or buffer of ``module``."""
+    out = []
+    for name in names:
+        prefix, _, attr = name.rpartition(".")
+        owner = module.get_submodule(prefix)
+        out.append((owner._parameters if attr in owner._parameters else owner._buffers, attr))
+    return out
+
+
+def _gather_many(tensors: list, dims: list, mg: ModelGroup) -> list:
+    """The model group's shards of each tensor concatenated along its dim, in rank order: one all-gather of
+    all their bytes."""
+    flat = torch.cat([t.detach().contiguous().reshape(-1).view(torch.uint8) for t in tensors])
+    parts = [torch.empty_like(flat) for _ in range(mg.size)]
+    tdist.all_gather(parts, flat, group=mg.group)
+    out, at = [], 0
+    for t, d in zip(tensors, dims):
+        n = t.numel() * t.element_size()
+        out.append(torch.cat([p[at : at + n].view(t.dtype).view(t.shape) for p in parts], d))
+        at += n
+    return out
+
+
+class _GatherShards(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, mg, dims, *shards):
+        ctx.mg, ctx.dims = mg, dims
+        ctx.set_materialize_grads(False)
+        wholes = tuple(_gather_many(list(shards), dims, mg))
+        ctx.mark_non_differentiable(*(w for w, s in zip(wholes, shards) if not s.requires_grad))  # buffers
+        return wholes
+
+    @staticmethod
+    def backward(ctx, *grads):
+        return (None, None, *(None if g is None else _slice(g, ctx.mg, d) for g, d in zip(grads, ctx.dims)))
+
+
+def _swap_in(module: nn.Module, names: list) -> list:
+    """Put the whole tensors of ``module``'s storage shards ``names`` in their slices' places (through the
+    gather's autograd function); what ``_swap_out`` takes to put the slices back."""
+    if not names:
+        return []
+    stores = _stores(module, names)
+    shards = [store[key] for store, key in stores]
+    wholes = _GatherShards.apply(module.model_group, tuple(module.tp_storage[n] for n in names), *shards)
+    for (store, key), w in zip(stores, wholes):
+        store[key] = w
+    return [(store, key, shard) for (store, key), shard in zip(stores, shards)]
+
+
+def _swap_out(swapped: list) -> None:
+    for store, key, shard in swapped:
+        store[key] = shard
+
+
+def _gather_hook(module: nn.Module, args) -> None:
+    module._tp_swapped.append(_swap_in(module, list(module.tp_storage)))
+
+
+def _release_hook(module: nn.Module, args, output) -> None:
+    _swap_out(module._tp_swapped.pop())
+
+
+@contextlib.contextmanager
+def gathered(module: nn.Module, prefix: str = ""):
+    """Within the block, ``module``'s storage shards under ``prefix`` are whole (gathered over the model group,
+    no autograd); after it each sharded buffer takes this rank's slice of what the block left in the whole
+    one.  Every rank of the group must enter.  Nothing for a module without storage shards."""
+    names = [n for n in getattr(module, "tp_storage", {}) if n.startswith(prefix)]
+    with torch.no_grad():
+        swapped = _swap_in(module, names)
+    try:
+        yield module
+    finally:
+        with torch.no_grad():
+            for (store, key, shard), name in zip(swapped, names):
+                if not isinstance(shard, nn.Parameter):
+                    shard.copy_(_slice(store[key], module.model_group, module.tp_storage[name]))
+        _swap_out(swapped)
+
+
+def storage_shard(module: nn.Module, mg: ModelGroup | None, min_size: int = MIN_SIZE) -> nn.Module:
+    """Keep, in place, this rank's slice of every parameter (and codebook buffer) of ``module`` that the storage
+    rule (``tp_specs.storage_dims``) shards over ``mg``, and gather them where the module is called.  The module
+    records its group (``model_group``) and the sharded tensors' dims (``tp_storage``, also ``tp_params``).  A
+    ``ModuleDict`` (the discriminators, each called on its own) is sharded child by child and records their
+    dims under the children's names.  Without a group of more than one rank, or where nothing shards, the
+    module stays as it is.  A dim that does not split raises."""
+    if mg is None or mg.size == 1:
+        return module
+    if isinstance(module, nn.ModuleDict):
+        dims = {}
+        for key, child in module.items():
+            storage_shard(child, mg, min_size)
+            dims.update({f"{key}.{n}": d for n, d in getattr(child, "tp_storage", {}).items()})
+        if dims:
+            module.model_group, module.tp_params = mg, dims
+        return module
+    dims = storage_dims(module, mg.size, min_size)
+    if not dims:
+        return module
+    with torch.no_grad():
+        for (store, key), (name, d) in zip(_stores(module, dims), dims.items()):
+            if isinstance(store[key], nn.Parameter):
+                store[key].data = _slice(store[key].data, mg, d)
+            else:
+                store[key] = _slice(store[key], mg, d)
+    module.model_group, module.tp_params, module.tp_storage, module._tp_swapped = mg, dims, dims, []
+    module.register_forward_pre_hook(_gather_hook)
+    module.register_forward_hook(_release_hook, always_call=True)
+    return module
+
+
+def held_bytes(module: nn.Module, optimizer: torch.optim.Optimizer | None = None) -> dict[str, int]:
+    """The bytes this rank holds of ``module``: its parameters, the buffers of its training state (those that a
+    submodule names in ``state_buffers``: the vq codebooks) and, with ``optimizer``, the optimizer's state
+    tensors but its step counts (AdamW's moments)."""
+    buffers = [getattr(sub, name) for sub in module.modules() for name in getattr(sub, "state_buffers", ())]
+    out = {"parameters": sum(p.numel() * p.element_size() for p in module.parameters()),
+           "buffers": sum(b.numel() * b.element_size() for b in buffers)}
+    if optimizer is not None:
+        out["moments"] = sum(v.numel() * v.element_size() for s in optimizer.state.values() for k, v in s.items()
+                             if torch.is_tensor(v) and k != "step")
+    return out
 
 
 def grad_norm(module: nn.Module) -> torch.Tensor:
@@ -347,7 +487,8 @@ def shard_state(module: nn.Module, sd: dict) -> dict:
     """This rank's shard of a whole state_dict for ``module`` (as it is for an unsharded module)."""
     if not is_sharded(module):
         return sd
-    return shard_state_dict(sd, module.tp_specs, module.model_group.rank, module.model_group.size)
+    dims, mg = module.tp_params, module.model_group
+    return {k: _slice(v, mg, dims[k]) if k in dims else v for k, v in sd.items()}
 
 
 def _moment_dims(module: nn.Module, sd: dict) -> dict:

@@ -20,13 +20,37 @@ output is a channel shard:
 The gate is the JAX package's: a layer whose sharded width is under ``MIN_CHANNELS`` replicates, so that
 the same parameters shard as in its spec trees.  It changes no number: every layout computes the
 unsharded function.
+
+Storage sharding (``storage_dims``), the JAX package's fallback (``vocoder_tpu/parallel/mesh.py::
+_heuristic_spec``, ``infer_param_specs`` and ``train_state_specs``): every tensor of the training state that no
+explicit spec covers (the discriminators, a generator without ``param_specs`` or outside the "gan" family, the
+vq codebooks; the AdamW moments follow their parameter) is stored in shards along one dim when it holds at least
+``min_size`` elements: the first axis, in the JAX layout of the tensor, whose size the model group divides with
+at least 8 elements a shard, taking the JAX layout's last axis (the output channels) first, then its axes in
+order.  The rule is decided in the JAX layout (``JAX_AXES``: a conv1d's (O, I, K) is JAX's (K, I, O), a
+transposed conv's (I, O, K) its (K, I, O), a conv2d's (O, I, kH, kW) its (kH, kW, I, O), a linear's (O, I)
+its (I, O); a weight-norm gain takes its conv's order, as (O, 1, 1) is JAX's (1, 1, O); anything else, the
+codebooks included, is laid out as in JAX) and mapped back to the torch dim.  Folded weights (inference) take
+the same rule.  A generator with ``param_specs`` in the "gan" family takes its explicit specs for every
+tensor, as the JAX package's spec trees cover every leaf of those generators; JAX's matching of a leaf's path
+suffix against the generator's spec paths reaches no discriminator leaf of any preset, which is why the
+discriminators take the rule alone (``tests/test_torch_storage_sharding.py`` holds every leaf's decision to
+JAX's).  Storage sharding changes where the bytes live, not what is computed: ``parallel/tp.py`` gathers the
+whole tensor where the module uses it.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
+
+from torch import nn
 
 MIN_CHANNELS = 128  # vocoder_tpu/models/hifigan.py::_TP_MIN_CHANNELS (one 128-lane tile per device)
+MIN_SIZE = 1 << 16  # vocoder_tpu/parallel/mesh.py::infer_param_specs's min_size: smaller tensors stay whole
+MIN_SHARD = 8  # elements of the sharded dim a rank must hold
+# The torch dim of each axis of the JAX layout of a layer's weight (and weight-norm gain), by layer type.
+JAX_AXES = ((nn.ConvTranspose1d, (2, 0, 1)), (nn.Conv1d, (2, 1, 0)), (nn.Conv2d, (2, 3, 1, 0)), (nn.Linear, (1, 0)))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -101,4 +125,45 @@ def key_dims(specs: dict, keys) -> dict[str, int]:
                 if spec is not None and role in dict(spec.dims):
                     out[key] = dict(spec.dims)[role]
                 break
+    return out
+
+
+def heuristic_dim(shape: tuple, axes: tuple, model: int, min_size: int = MIN_SIZE) -> int | None:
+    """The torch dim that a tensor of ``shape`` is stored sharded on over ``model`` ranks, or None (whole):
+    ``_heuristic_spec``'s rule on the JAX layout, whose axis i is the torch dim ``axes[i]``."""
+    if model == 1 or not shape or math.prod(shape) < min_size:
+        return None
+    for d in (axes[-1], *axes[:-1]):
+        if shape[d] % model == 0 and shape[d] // model >= MIN_SHARD:
+            return d
+    return None
+
+
+def _layer_axes(module: nn.Module) -> dict[str, tuple]:
+    """{name: JAX axes} of every conv's and linear's weight-shaped tensors (weight, weight-norm direction and
+    gain) in ``module``; a tensor absent from it has JAX's layout."""
+    out = {}
+    for prefix, layer in module.named_modules():
+        axes = next((a for cls, a in JAX_AXES if isinstance(layer, cls)), None)
+        if axes is not None:
+            for name, p in layer.named_parameters():
+                if p.dim() == len(axes):
+                    out[f"{prefix}.{name}" if prefix else name] = axes
+    return out
+
+
+def storage_dims(module: nn.Module, model: int, min_size: int = MIN_SIZE) -> dict[str, int]:
+    """{name: torch dim} of the parameters of ``module``, and of the buffers that a submodule names in its
+    ``state_buffers`` (the vq codebooks, which the JAX package's TrainState holds), that the storage rule shards
+    over ``model`` ranks.  It reads shapes only."""
+    axes = _layer_axes(module)
+    tensors = dict(module.named_parameters())
+    for prefix, sub in module.named_modules():
+        for name in getattr(sub, "state_buffers", ()):
+            tensors[f"{prefix}.{name}" if prefix else name] = getattr(sub, name)
+    out = {}
+    for name, t in tensors.items():
+        d = heuristic_dim(tuple(t.shape), axes.get(name, tuple(range(t.dim()))), model, min_size)
+        if d is not None:
+            out[name] = d
     return out

@@ -92,21 +92,30 @@ discriminators run with ``requires_grad`` off in the generator phase, nor the
 EMA buffers written after the backward.
 
 Tensor parallelism (``create_train_state(..., model_group=...)``, the trainer's
-``run.model_parallel``; ``parallel/tp.py``): the generator of a model with
-``param_specs`` (hifigan, bigvgan, vocos; the "gan" family, as the JAX
-package's ``model_param_specs``) is built whole from the seed, then each rank
-keeps its shard; its forward runs the model group's collectives, so the fake,
-the losses and the discriminators' work are whole and alike on every rank of
-the group (the discriminators replicated).  The gradients come out as the
-shards of the whole gradient (a replicated gain used on a shard gets the
-group's sum in its backward), ``train/generator/grad_norm`` is the whole
-gradient's norm (``tp.grad_norm``), and AdamW updates each shard, its moments
-sharded alike.  The gradient of every parameter the ranks hold whole (the
-discriminators, the replicated generator layers) is averaged over the model
-group (``tp.average_replicated_grads``), so the copies stay equal where the
+``run.model_parallel``; ``parallel/tp.py``), the JAX package's
+``train_state_specs``: the generator of a model with ``param_specs`` (hifigan,
+bigvgan, vocos; the "gan" family, as the JAX package's ``model_param_specs``)
+is built whole from the seed, then each rank keeps its shard; its forward runs
+the model group's collectives, so the fake, the losses and the discriminators'
+work are whole and alike on every rank of the group.  Everything else is
+storage-sharded (``tp.storage_shard``, the JAX package's per-leaf fallback):
+the discriminators always, and the whole generator of refinegan, firefly and
+the vae, vqvae and ssl families with its vq codebooks; each rank stores a
+slice of every tensor of at least ``min_size`` elements and each module call
+gathers them, so those modules compute whole on every rank.  The frozen
+HuBERT backbone is not part of the state and stays whole.  The gradients come
+out as the shards of the whole gradient (a replicated gain used on a shard
+gets the group's sum in its backward; a storage shard its slice of the whole
+gradient), ``train/generator/grad_norm`` and the discriminators' are the whole
+gradients' norms (``tp.grad_norm``), and AdamW updates each shard, its moments
+sharded alike.  The vq's EMA update runs on the gathered codebooks and writes
+this rank's slice (``tp.gathered``).  The gradient of every parameter the
+ranks hold whole (small discriminator and generator tensors, the replicated
+generator layers) is averaged over the model group
+(``tp.average_replicated_grads``), so the copies stay equal where the
 backward is not bitwise deterministic (cuDNN's).  With data parallelism beside it, ``group`` is the data group
 of the grid: the ranks that hold the same shard.  ``TrainState.state_dict``
-holds whole tensors (the generator and its moments gathered over the model
+holds whole tensors (every shard and its moments gathered over the model
 group, as Orbax saves global arrays) and ``load_state_dict`` takes this rank's
 shard of them.
 
@@ -204,7 +213,7 @@ def needs_template(cfg: GANTaskConfig) -> bool:
 class TrainState:
     """Generator, discriminators {mpd, mrd}, their AdamW optimizers, the step, the crop generator
     (``rng``, CPU), the generator's noise generator (``noise``, on the model's device) and, under tensor
-    parallelism, the model group over which the generator is sharded and the rest replicated."""
+    parallelism, the model group over which the modules are sharded."""
 
     step: int
     generator: nn.Module
@@ -216,22 +225,23 @@ class TrainState:
     model_group: tp.ModelGroup | None = None
 
     def state_dict(self) -> dict:
-        """Whole tensors: a sharded generator's and its moments gathered over the model group, so every
-        rank of the group must call."""
+        """Whole tensors: sharded modules' and their moments gathered over the model group, so every rank
+        of the group must call."""
         return {"step": self.step, "generator": tp.whole_state_dict(self.generator),
-                "discriminators": self.discriminators.state_dict(),
+                "discriminators": tp.whole_state_dict(self.discriminators),
                 "opt_g": tp.whole_optimizer_state(self.opt_g, self.generator),
-                "opt_d": self.opt_d.state_dict(), "rng": self.rng.get_state(), "noise": self.noise.get_state()}
+                "opt_d": tp.whole_optimizer_state(self.opt_d, self.discriminators),
+                "rng": self.rng.get_state(), "noise": self.noise.get_state()}
 
     def load_state_dict(self, sd: dict, weights_only: bool = False) -> None:
         """Everything, or with ``weights_only`` the generator's and discriminators' weights alone; a
-        sharded generator takes this rank's shard of them.  A checkpoint without ``noise`` (written
+        sharded module takes this rank's shard of them.  A checkpoint without ``noise`` (written
         before the noise generator existed, for a generator that draws none) leaves it as it was seeded."""
         self.generator.load_state_dict(tp.shard_state(self.generator, sd["generator"]))
-        self.discriminators.load_state_dict(sd["discriminators"])
+        self.discriminators.load_state_dict(tp.shard_state(self.discriminators, sd["discriminators"]))
         if not weights_only:
             self.opt_g.load_state_dict(tp.shard_optimizer_state(sd["opt_g"], self.generator))
-            self.opt_d.load_state_dict(sd["opt_d"])
+            self.opt_d.load_state_dict(tp.shard_optimizer_state(sd["opt_d"], self.discriminators))
             self.rng.set_state(sd["rng"])
             if "noise" in sd:
                 self.noise.set_state(sd["noise"])
@@ -261,26 +271,35 @@ def reference_init(generator: nn.Module) -> nn.Module:
     return generator
 
 
-def model_param_specs(cfg: GANTaskConfig) -> dict:
-    """The generator's tensor-parallel specs (``parallel/tp_specs.py``), or {} (replicated): the "gan"
-    family's models with ``param_specs``, as the JAX package's ``model_param_specs``."""
+def model_param_specs(cfg: GANTaskConfig) -> dict | None:
+    """The generator's tensor-parallel specs (``parallel/tp_specs.py``; {} where no layer is wide enough to
+    shard), or None, and then the storage rule covers it: the "gan" family's models with ``param_specs``, as
+    the JAX package's ``model_param_specs``."""
     if cfg.family != "gan":
-        return {}
+        return None
     specs = get_generator(cfg.generator_name).param_specs
-    return {} if specs is None else specs(cfg.generator)
+    return None if specs is None else specs(cfg.generator)
 
 
-def create_train_state(cfg: GANTaskConfig, seed: int, device, model_group: tp.ModelGroup | None = None) -> TrainState:
+def create_train_state(cfg: GANTaskConfig, seed: int, device, model_group: tp.ModelGroup | None = None,
+                       min_size: int = tp.MIN_SIZE) -> TrainState:
     """Modules initialised on the CPU from ``seed`` (the same weights on any device), then moved to
     ``device``; the crop generator (CPU) and the noise generator (on ``device``) seeded with ``seed``.
-    ``model_group``: tensor parallelism, this rank's shard of the generator (``model_param_specs``)."""
+    ``model_group``: tensor parallelism, this rank's shard of the generator (``model_param_specs``) and its
+    storage shards of the rest (tensors of at least ``min_size`` elements, the JAX package's
+    ``infer_param_specs`` argument)."""
     check_trainable(cfg)
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(seed)
         generator = reference_init(get_generator(cfg.generator_name).module_cls(cfg.generator))
         discriminators = nn.ModuleDict(
             {"mpd": MultiPeriodDiscriminator(cfg.mpd), "mrd": MultiResolutionDiscriminator(cfg.mrd)})
-    tp.shard_module(generator, model_param_specs(cfg), model_group)
+    specs = model_param_specs(cfg)
+    if specs is None:
+        tp.storage_shard(generator, model_group, min_size)
+    else:
+        tp.shard_module(generator, specs, model_group)
+    tp.storage_shard(discriminators, model_group, min_size)
     generator.to(device).train()
     discriminators.to(device).train()
     return TrainState(step=0, generator=generator, discriminators=discriminators,
@@ -351,7 +370,12 @@ def generator_forward(generator: nn.Module, audio: torch.Tensor, cfg: GANTaskCon
         return fake.float(), kl, {"train/generator/kl": kl}, None
     if cfg.family in ("vqvae", "ssl"):
         fake, latent, codes, vq_loss = generator(spec)
-        ema = (lambda: generator.vq.ema_update(latent, codes)) if generator.training else None
+
+        def ema():
+            with tp.gathered(generator, "vq."):  # storage shards: the whole codebooks, this rank's slice written
+                generator.vq.ema_update(latent, codes)
+
+        ema = ema if generator.training else None
         return _length_fix(fake, audio.shape[2], cfg.hop_length).float(), zero, {"train/generator/vq": vq_loss}, ema
     forward = generator.forward_plain if plain and hasattr(generator, "forward_plain") else generator
     dtype = compute_dtype(cfg)

@@ -49,13 +49,15 @@ environment first (``cuda`` is then ``cuda:LOCAL_RANK``, NCCL; gloo on the
 CPU), refuses a layout that the processes cannot run (``check_parallel``) and
 lays them out as the JAX package's ("data", "model") mesh (``parallel/tp.py::
 make_grid``): ``run.model_parallel`` consecutive ranks form a model group that
-holds one generator in shards (tensor parallelism, ``train/gan.py``), and the
-ranks that hold the same shard form the data group.  Each model group reads
+holds one generator in shards (tensor parallelism, ``train/gan.py``) and stores
+the discriminators, and a generator without explicit specs, in slices (the JAX
+package's per-leaf storage sharding), and the ranks that hold the same shard
+form the data group.  Each model group reads
 one share of the batch from ``batch_iterator(host_index=data rank)``
 (``data.batch_size // data-parallel ranks`` items, as the JAX package's hosts)
 into each of its cards.  Every rank builds the state from the seed or restores
-the same checkpoint; the first rank of each data group broadcasts the
-generator's shard over it and rank 0 the discriminators over all ranks; the
+the same checkpoint; the first rank of each data group broadcasts its shards
+over it (rank 0 the discriminators over all ranks where they are whole); the
 step is the global batch's (``train/gan.py``).  Rank 0 alone writes
 ``config.json``, ``metrics.jsonl``, media, TensorBoard, checkpoints (whole
 tensors, gathered over its model group), ``crash.log`` and the profiler trace;
@@ -67,10 +69,7 @@ batch.  The run's log ends with the hand kernels' launches in this process
 (``ops.launch_counts``).
 
 Not ported (ROADMAP.md): W&B (the card's machine has neither ``wandb`` nor a
-network; ``metrics.jsonl``, the media PNGs and TensorBoard stand in), and the
-JAX package's per-leaf storage sharding of the generators without
-``param_specs`` and of the discriminators, which run replicated over a model
-group.
+network; ``metrics.jsonl``, the media PNGs and TensorBoard stand in).
 """
 
 from __future__ import annotations
@@ -363,11 +362,16 @@ def train(cfg: TrainConfig, device: str | torch.device = "cuda") -> gan.TrainSta
         ckpt.restore(state, latest)
         log(f"auto-resumed from step {state.step}")
     dist.broadcast_modules([state.generator], group)  # the ranks that hold the same shard
-    dist.broadcast_modules([state.discriminators], dist.world_group())
+    dist.broadcast_modules([state.discriminators],
+                           group if tp.is_sharded(state.discriminators) else dist.world_group())
     n_g = sum(p.numel() for p in state.generator.parameters())
     n_d = sum(p.numel() for p in state.discriminators.parameters())
-    log(f"params: generator {n_g:,}" + (" (this rank's shards)" if tp.is_sharded(state.generator) else "")
-        + f", discriminators {n_d:,} on {device}")
+    held = {k: sum(tp.held_bytes(m, opt).values())
+            for k, m, opt in (("generator", state.generator, state.opt_g),
+                              ("discriminators", state.discriminators, state.opt_d))}
+    log(f"params: generator {n_g:,}, discriminators {n_d:,} on {device}"
+        + (" (this rank's shards)" if grid.model is not None else "")
+        + f"; bytes held: generator {held['generator']:,}, discriminators {held['discriminators']:,}")
     if grid.model is not None:
         log(f"tensor parallel: model groups of {grid.model.size} processes "
             f"({torch.distributed.get_backend()}), {shares} of data parallelism")

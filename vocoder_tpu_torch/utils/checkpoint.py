@@ -12,9 +12,11 @@ parallelism every rank takes the same decisions (the latest step is read from
 the directory once, then kept), rank 0 alone writes, and every rank waits at a
 barrier after each save; every rank restores from the same file.  Under tensor
 parallelism the saved state holds whole tensors (``TrainState.state_dict``
-gathers the generator and its moments over the model group, so every rank
-makes it), and a restore gives each rank its shard; a checkpoint of a sharded
-run loads in one process and the reverse.
+gathers every shard, the explicit specs' and the storage shards of the
+discriminators, of a generator without specs and of the vq codebooks, and
+their moments over the model group, so every rank makes it), and a restore
+gives each rank its shard; a checkpoint of a sharded run loads in one process
+and the reverse.
 """
 
 from __future__ import annotations
@@ -62,7 +64,7 @@ class CheckpointManager:
         latest = self._latest
         if not force and (step % self.save_interval_steps or (latest is not None and step <= latest)):
             return False
-        sd = state.state_dict()  # on every rank: a sharded generator is gathered over its model group
+        sd = state.state_dict()  # on every rank: the shards are gathered over the model group
         if dist.is_main():
             tmp = self.directory / f".{step}.pt.tmp"
             torch.save(sd, tmp)
