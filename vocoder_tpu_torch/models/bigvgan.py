@@ -63,6 +63,7 @@ from vocoder_tpu_torch.ops.aa_snake import aa_snake
 from vocoder_tpu_torch.ops.amp_block import amp_stage, amp_stage_plain, kernel_takes
 from vocoder_tpu_torch.ops.antialias import aa_snake_plain, snake_params
 from vocoder_tpu_torch.parallel import tp, tp_specs
+from vocoder_tpu_torch.utils.spans import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -198,6 +199,8 @@ class BigVGAN(nn.Module):
         self.conv_post = conv1d(
             ch, 1, cfg.post_conv_kernel_size, padding=get_padding(cfg.post_conv_kernel_size), device=device
         )
+        self.up_spans = tuple(f"gen.up.{i}" for i in range(len(cfg.upsample_rates)))
+        self.stage_spans = tuple(f"gen.stage.{i}" for i in range(len(cfg.upsample_rates)))
 
     def forward(self, mel: torch.Tensor, frame_lengths=None, template=None) -> torch.Tensor:
         """mel (B, num_mels, F) -> (B, 1, F * hop); ``frame_lengths`` (B,): each item's frames;
@@ -210,36 +213,45 @@ class BigVGAN(nn.Module):
         return self._forward(mel, frame_lengths, template, plain=True)
 
     def _forward(self, mel: torch.Tensor, frame_lengths, template, plain: bool) -> torch.Tensor:
-        cfg = self.cfg
-        check_template(cfg, template)
+        """The forward inside the span ``gen.forward``: each upsample (the transposed conv, its mask and the
+        template's noise) in ``gen.up.{i}``, each stage's AMP blocks in ``gen.stage.{i}``."""
+        with span("gen.forward"):
+            cfg = self.cfg
+            check_template(cfg, template)
+            lens = None if frame_lengths is None else torch.as_tensor(frame_lengths, device=mel.device)
+            dtype = self.conv_post.bias.dtype
+            x = length_mask(tp.conv(self.conv_pre, mel.to(dtype)), lens)
+            for i, (up, u) in enumerate(zip(self.ups, cfg.upsample_rates)):
+                with span(self.up_spans[i]):
+                    x = tp.conv(up, x)
+                    if lens is not None:
+                        lens = lens * u
+                        x = length_mask(x, lens)
+                    if template is not None:
+                        x = add_noise(x, self.noise_convs[i], template.to(dtype), lens)
+                with span(self.stage_spans[i]):
+                    x = self._stage(i, x, lens, plain)
+            x = tp.whole(x, self.conv_post.in_channels, self.model_group)
+            x = self.activation_post(x, lens, plain)
+            return length_mask(torch.tanh(self.conv_post(x)), lens)
+
+    def _stage(self, i: int, x: torch.Tensor, lens, plain: bool) -> torch.Tensor:
+        """Stage i's AMP blocks on x: K2 (``amp_stage``, on the gathered stage under tensor parallelism) in
+        eval mode where it takes the width, else block by block."""
+        cfg, mg = self.cfg, self.model_group
         n_k = len(cfg.resblock_kernel_sizes)
+        blocks = list(self.resblocks[i * n_k : (i + 1) * n_k])
+        c = cfg.upsample_initial_channel // 2 ** (i + 1)
         stage = amp_stage_plain if plain else amp_stage
-        dtype = self.conv_post.bias.dtype
-        lens = None if frame_lengths is None else torch.as_tensor(frame_lengths, device=mel.device)
-        remat = cfg.checkpointing and self.training and torch.is_grad_enabled()
-        mg = self.model_group
-        x = length_mask(tp.conv(self.conv_pre, mel.to(dtype)), lens)
-        for i, (up, u) in enumerate(zip(self.ups, cfg.upsample_rates)):
-            x = tp.conv(up, x)
-            if lens is not None:
-                lens = lens * u
-                x = length_mask(x, lens)
-            if template is not None:
-                x = add_noise(x, self.noise_convs[i], template.to(dtype), lens)
-            blocks = list(self.resblocks[i * n_k : (i + 1) * n_k])
-            c = cfg.upsample_initial_channel // 2 ** (i + 1)
-            if self.training or not kernel_takes(c):
-                if not plain:
-                    BigVGAN.blockwise_stages += 1
-                x = sum(checkpointed(blk, x, lens, plain) if remat else blk(x, lens, plain) for blk in blocks) / n_k
-            elif x.shape[1] < c:  # a channel shard: the whole stage on gathered input and weights
-                whole = tp.whole_blocks(blocks, mg, x.device)
-                x = tp.scatter(stage(whole, tp.gather(x, mg, 1), cfg.snake_logscale, lens), mg, 1)
-            else:
-                x = stage(blocks, x, cfg.snake_logscale, lens)
-        x = tp.whole(x, self.conv_post.in_channels, mg)
-        x = self.activation_post(x, lens, plain)
-        return length_mask(torch.tanh(self.conv_post(x)), lens)
+        if self.training or not kernel_takes(c):
+            if not plain:
+                BigVGAN.blockwise_stages += 1
+            remat = cfg.checkpointing and self.training and torch.is_grad_enabled()
+            return sum(checkpointed(blk, x, lens, plain) if remat else blk(x, lens, plain) for blk in blocks) / n_k
+        if x.shape[1] < c:  # a channel shard: the whole stage on gathered input and weights
+            whole = tp.whole_blocks(blocks, mg, x.device)
+            return tp.scatter(stage(whole, tp.gather(x, mg, 1), cfg.snake_logscale, lens), mg, 1)
+        return stage(blocks, x, cfg.snake_logscale, lens)
 
 
 def random_state_dict(cfg: BigVGANConfig, seed: int) -> dict[str, torch.Tensor]:

@@ -50,6 +50,7 @@ from torch import nn
 
 from vocoder_tpu_torch.nn import checkpointed, conv1d, conv_transpose1d, get_padding, length_mask
 from vocoder_tpu_torch.parallel import tp, tp_specs
+from vocoder_tpu_torch.utils.spans import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -188,25 +189,32 @@ class HiFiGAN(nn.Module):
         self.conv_post = conv1d(
             ch, 1, cfg.post_conv_kernel_size, padding=get_padding(cfg.post_conv_kernel_size), device=device
         )
+        self.up_spans = tuple(f"gen.up.{i}" for i in range(len(cfg.upsample_rates)))
+        self.stage_spans = tuple(f"gen.stage.{i}" for i in range(len(cfg.upsample_rates)))
 
     def forward(self, mel: torch.Tensor, frame_lengths=None, template=None) -> torch.Tensor:
         """mel (B, num_mels, F) -> (B, 1, F * hop); ``frame_lengths`` (B,): each item's frames;
-        ``template`` (B, 1, F * hop): the f0 template, required with ``use_template``."""
-        check_template(self.cfg, template)
-        dtype = self.conv_post.bias.dtype
-        lens = None if frame_lengths is None else torch.as_tensor(frame_lengths, device=mel.device)
-        remat = self.cfg.checkpointing and self.training and torch.is_grad_enabled()
-        x = length_mask(tp.conv(self.conv_pre, mel.to(dtype)), lens)
-        for i, (up, block, u) in enumerate(zip(self.ups, self.resblocks, self.cfg.upsample_rates)):
-            x = tp.conv(up, F.silu(x))
-            if lens is not None:
-                lens = lens * u
-                x = length_mask(x, lens)
-            if template is not None:
-                x = add_noise(x, self.noise_convs[i], template.to(dtype), lens)
-            x = checkpointed(block, x, lens) if remat else block(x, lens)
-        x = tp.whole(x, self.conv_post.in_channels, self.model_group)
-        return length_mask(torch.tanh(self.conv_post(F.silu(x))), lens)
+        ``template`` (B, 1, F * hop): the f0 template, required with ``use_template``.  Inside the span
+        ``gen.forward``: each upsample (SiLU, the transposed conv, its mask and the template's noise) in
+        ``gen.up.{i}``, each stage's parallel resblocks in ``gen.stage.{i}``."""
+        with span("gen.forward"):
+            check_template(self.cfg, template)
+            dtype = self.conv_post.bias.dtype
+            lens = None if frame_lengths is None else torch.as_tensor(frame_lengths, device=mel.device)
+            remat = self.cfg.checkpointing and self.training and torch.is_grad_enabled()
+            x = length_mask(tp.conv(self.conv_pre, mel.to(dtype)), lens)
+            for i, (up, block, u) in enumerate(zip(self.ups, self.resblocks, self.cfg.upsample_rates)):
+                with span(self.up_spans[i]):
+                    x = tp.conv(up, F.silu(x))
+                    if lens is not None:
+                        lens = lens * u
+                        x = length_mask(x, lens)
+                    if template is not None:
+                        x = add_noise(x, self.noise_convs[i], template.to(dtype), lens)
+                with span(self.stage_spans[i]):
+                    x = checkpointed(block, x, lens) if remat else block(x, lens)
+            x = tp.whole(x, self.conv_post.in_channels, self.model_group)
+            return length_mask(torch.tanh(self.conv_post(F.silu(x))), lens)
 
 
 def random_state_dict(cfg: HiFiGANConfig, seed: int) -> dict[str, torch.Tensor]:

@@ -44,6 +44,7 @@ import torch
 
 from vocoder_tpu_torch.ops import build
 from vocoder_tpu_torch.ops.antialias import aa_snake_plain, aa_snake_plain_vjp, snake_params
+from vocoder_tpu_torch.utils.spans import span
 
 # Operations per output sample, for the roofline bound, an FMA counted as two.
 # The plain version's order (aa::Exact, K2's prologue): two 6-tap branch FIRs
@@ -120,7 +121,7 @@ class AASnakeFunction(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, gz):
-        with torch.profiler.record_function("aa_snake_backward"):
+        with span("aa_snake_backward"):
             return aa_snake_plain_vjp(*ctx.saved_tensors, gz)
 
 

@@ -119,6 +119,12 @@ holds whole tensors (every shard and its moments gathered over the model
 group, as Orbax saves global arrays) and ``load_state_dict`` takes this rank's
 shard of them.
 
+While a profiler records, each phase is split into spans (``utils/spans.py``):
+``train.g.forward`` (the generator), ``train.g.loss`` (the losses, with
+``mr_stft_loss`` and ``discriminators`` inside), ``train.g.backward``,
+``train.g.update`` (all-reduce, global values, grad norm, lr, AdamW, EMA),
+then ``train.d.loss``, ``train.d.backward`` and ``train.d.update``.
+
 Not ported: ``spectral_precision`` (a TPU MXU pass count) and the split step
 (an XLA compile workaround) are TPU machinery.  ``run.precision`` sets TF32
 in the trainer.
@@ -146,6 +152,7 @@ from vocoder_tpu_torch.nn import cast_copy, cast_parameters
 from vocoder_tpu_torch.ops.spectral import linear_spectrogram, log_mel_spectrogram
 from vocoder_tpu_torch.parallel import dist, tp
 from vocoder_tpu_torch.train.schedule import WarmupCosineConfig, warmup_cosine
+from vocoder_tpu_torch.utils.spans import span
 
 DEFAULT_RESOLUTIONS = ((2048, 512, 2048), (1024, 120, 600), (2048, 240, 1200), (4096, 480, 2400), (512, 50, 240))
 TRAINABLE = ("bigvgan", "hifigan", "refinegan", "vocos", "firefly_gan_base", "vae", "vqvae", "ssl")
@@ -394,7 +401,7 @@ def generator_forward(generator: nn.Module, audio: torch.Tensor, cfg: GANTaskCon
 def _discriminators(discriminators: nn.ModuleDict, audio: torch.Tensor, cfg: GANTaskConfig) -> dict:
     """{key: (scores, feature maps)} of each discriminator, fp32; in ``compute_dtype`` inside."""
     dtype = compute_dtype(cfg)
-    with torch.profiler.record_function("discriminators"), cast_parameters(discriminators, dtype):
+    with span("discriminators"), cast_parameters(discriminators, dtype):
         outs = {key: d(audio.to(dtype)) for key, d in discriminators.items()}
     return outs if dtype == torch.float32 else {key: _to_float(o) for key, o in outs.items()}
 
@@ -411,13 +418,24 @@ def _generator_loss(generator, discriminators, audio, mask, cfg: GANTaskConfig, 
                     plain: bool = False, template=None, noise=None, features=None):
     """(loss, metrics, audio_c, fake_c, ema): the generator loss, the crops the discriminators see, and
     the EMA update to call after the backward (or None)."""
-    fake, base, fwd_metrics, ema = generator_forward(generator, audio, cfg, plain, template, noise, features)
+    with span("train.g.forward"):
+        fake, base, fwd_metrics, ema = generator_forward(generator, audio, cfg, plain, template, noise, features)
     if fake.shape != audio.shape:
         raise ValueError(f"generator output {tuple(fake.shape)} does not match the audio {tuple(audio.shape)}")
+    with span("train.g.loss"):
+        loss, metrics, audio_c, fake_c = _generator_loss_terms(discriminators, audio, fake, base, fwd_metrics, mask,
+                                                               cfg, start)
+    return loss, metrics, audio_c, fake_c, ema
+
+
+def _generator_loss_terms(discriminators, audio, fake, base, fwd_metrics, mask, cfg: GANTaskConfig,
+                          start: int | None):
+    """(loss, metrics, audio_c, fake_c) of the generator's output: the MR-STFT and mel losses, the
+    discriminators on the fake and real crops, and the adversarial and feature-matching losses."""
     audio_m, fake_m = audio * mask, fake * mask
     loss_dtype = DTYPES[cfg.loss_stft_dtype]
     audio_l, fake_l = audio_m[:, 0].to(loss_dtype), fake_m[:, 0].to(loss_dtype)
-    with torch.profiler.record_function("mr_stft_loss"):
+    with span("mr_stft_loss"):
         sc_loss, mag_loss = multi_resolution_stft_loss(fake_l, audio_l, cfg.stft_resolutions)
     loss_stft = sc_loss + mag_loss
     loss_mel = dist.mean_share(torch.abs(loss_mel_transform(cfg, audio_l).float()
@@ -449,7 +467,7 @@ def _generator_loss(generator, discriminators, audio, mask, cfg: GANTaskConfig, 
     loss = base + loss_stft * cfg.stft_weight + loss_mel * cfg.mel_weight + loss_adv_all
     metrics.update({"train/generator/stft": loss_stft, "train/generator/mel": loss_mel,
                     "train/generator/base": base, "train/generator/all": loss})
-    return loss, metrics, audio_c, fake_c, ema
+    return loss, metrics, audio_c, fake_c
 
 
 def _discriminator_loss(discriminators, audio_c, fake_c, cfg: GANTaskConfig):
@@ -498,32 +516,37 @@ def make_train_step(cfg: GANTaskConfig, plain: bool = False, group=None):
             loss, metrics, audio_c, fake_c, ema = _generator_loss(
                 state.generator, state.discriminators, audio, mask, cfg, start, plain, batch.get("template"),
                 state.noise, batch.get("ssl_features"))
-            loss.backward()
-            dist.all_reduce_grads(state.generator.parameters())
-            tp.average_replicated_grads(state.generator, state.model_group)
-            metrics = _global_values(metrics)
-            metrics["train/generator/grad_norm"] = tp.grad_norm(state.generator)
-            for param_group in state.opt_g.param_groups:
-                param_group["lr"] = warmup_cosine(state.step, cfg.schedule)
-            state.opt_g.step()
-            if ema is not None:
-                ema()
+            with span("train.g.backward"):
+                loss.backward()
+            with span("train.g.update"):
+                dist.all_reduce_grads(state.generator.parameters())
+                tp.average_replicated_grads(state.generator, state.model_group)
+                metrics = _global_values(metrics)
+                metrics["train/generator/grad_norm"] = tp.grad_norm(state.generator)
+                for param_group in state.opt_g.param_groups:
+                    param_group["lr"] = warmup_cosine(state.step, cfg.schedule)
+                state.opt_g.step()
+                if ema is not None:
+                    ema()
         return metrics, audio_c, fake_c
 
     def d_phase(state: TrainState, audio_c: torch.Tensor, fake_c: torch.Tensor) -> dict:
         """The discriminators' loss, backward and AdamW update on the crops; advances the step."""
         state.opt_d.zero_grad(set_to_none=True)
         with dist.data_parallel(group):
-            loss, metrics = _discriminator_loss(state.discriminators, audio_c, fake_c, cfg)
-            loss.backward()
-            dist.all_reduce_grads(state.discriminators.parameters())
-            tp.average_replicated_grads(state.discriminators, state.model_group)
-            metrics = _global_values(metrics)
-        for key, d in state.discriminators.items():
-            metrics[f"train/discriminator/grad_norm_{key}"] = tp.grad_norm(d)
-        for param_group in state.opt_d.param_groups:
-            param_group["lr"] = warmup_cosine(state.step, cfg.schedule)
-        state.opt_d.step()
+            with span("train.d.loss"):
+                loss, metrics = _discriminator_loss(state.discriminators, audio_c, fake_c, cfg)
+            with span("train.d.backward"):
+                loss.backward()
+            with span("train.d.update"):
+                dist.all_reduce_grads(state.discriminators.parameters())
+                tp.average_replicated_grads(state.discriminators, state.model_group)
+                metrics = _global_values(metrics)
+                for key, d in state.discriminators.items():
+                    metrics[f"train/discriminator/grad_norm_{key}"] = tp.grad_norm(d)
+                for param_group in state.opt_d.param_groups:
+                    param_group["lr"] = warmup_cosine(state.step, cfg.schedule)
+                state.opt_d.step()
         state.step += 1
         return metrics
 
