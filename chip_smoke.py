@@ -57,16 +57,22 @@ Phases, in order; any failure exits non-zero:
      card busy share and launches (`tools/profile_forward.py`) of BigVGAN
      with a template (b1, b16; bf16, fp32; K2's share of the forward),
      RefineGAN and Firefly-GAN (b16; fp32);
- 10. K1 under autograd (`AASnakeFunction`: the kernel forward, the plain VJP)
-     against autograd through the plain version, fp32, at C = 16, 256, 512,
-     T = K1's tile edge +- 1, under the halo and 65,536, B = 1 and 4: dx,
-     d alpha and d beta;
+ 10. K1 under autograd (`AASnakeFunction`: the kernel forward, the backward
+     kernel `csrc/aa_snake_bwd.cu`) against autograd through the plain version,
+     fp32, at C = 16, 256, 512, T = K1's tile edge +- 1, under the halo and
+     65,536, B = 1 and 4: dx, d alpha and d beta; then the backward kernel
+     against `aa_snake_plain_vjp` in fp32 at those C and B, T = 1, 2, under the
+     halo, its own tile edge +- 1 and 65,536, the upstream gradient contiguous
+     and as a channel shard's view, one count a call; then its card time at the
+     b16 step's five stage shapes in fp32 and bf16 beside its bound and the
+     plain VJP's;
  11. one full-width training step (`train.gan.make_train_step`, 44.1 kHz
      presets, b2 x 65,536 samples, fp32, TF32 off) with the kernels against
      the same step through the plain versions, from the same weights, batch
      and crop start: every loss, the grad norms and every generator gradient,
-     for BigVGAN (K1 launched 91 times in the step), HiFiGAN and BigVGAN with
-     an f0 template (its batch carrying each item's template; K1 91 times);
+     for BigVGAN (K1 and its backward launched 91 times each in the step),
+     HiFiGAN and BigVGAN with an f0 template (its batch carrying each item's
+     template; K1 and its backward 91 times each);
  12. `cli.train.main --model bigvgan` at the preset's batch 16 x 128 frames on
      32 generated WAVs, 3 steps with a validation at 2 (K2 in validation,
      the blockwise AMP path in training only), then a resume to step 4, then
@@ -119,13 +125,15 @@ Phases, in order; any failure exits non-zero:
      samples, full width) through K1 against the same step through the plain
      versions; the run's floor first (the plain bf16 step against the plain fp32
      step): the kernel step's losses and generator gradients (relative L2 of the
-     vectors) within twice that floor, capped at 2e-2 and 5e-2; K1 91 launches;
+     vectors) within twice that floor, capped at 2e-2 and 5e-2; K1 and its
+     backward 91 launches each;
  24. K1's bf16 route under autograd at phase 10's shapes (bf16 x, alpha, beta cast
      from fp32 leaves): dx, d alpha, d beta against the plain version's, within
-     twice the plain bf16-vs-fp32 distance (capped at 5e-2);
+     twice the plain bf16-vs-fp32 distance (capped at 5e-2); then the backward
+     kernel against `aa_snake_plain_vjp` in bf16 as in phase 10;
  25. an fp32 b16 BigVGAN step with task.generator.checkpointing=True against the
      step without it: losses within 1e-5, gradients within rel L2 1e-4, K1 91 and
-     181 launches, the peak memory of each;
+     181 launches, its backward 91 in each, the peak memory of each;
  26. the bf16 step at b16 by phase, rate, peak memory and card-time shares
      (tools/profile_train.py);
  27. `cli.train task.compute_dtype=bfloat16` over phase 21's corpus, 6 steps with the
@@ -245,6 +253,17 @@ HALO = 12  # the aa-snake's reach in x at the 1x rate, both sides together
 # (C, T, B) of the K1 autograd checks: BigVGAN's widths up to the 512 of a wide config, T at K1's tile
 # edges, under the halo and at the 65,536 samples of a training crop.
 K1_AUTOGRAD_SHAPES = list(itertools.product((16, 256, 512), (K1_TILE - 1, K1_TILE + 1, HALO - 5, 65536), (1, 4)))
+K1_BWD_TILE = 1274  # csrc/aa_snake_bwd.cu: kThreads * kRun - 6 outputs a block
+# (C, T, B) of the backward kernel's checks against the plain VJP: as above, T also 1 and 2 and at the backward
+# kernel's own tile edges.
+K1_BWD_SHAPES = list(itertools.product((16, 256, 512), (1, 2, HALO - 5, K1_BWD_TILE - 1, K1_BWD_TILE + 1, 65536),
+                                       (1, 4)))
+# The backward kernel against ``aa_snake_plain_vjp`` on the same inputs.  fp32: the same function in FMAs and
+# other sum orders (dx ~1e-7 apart; the parameter gradients are sums over B * 2T).  bf16: both compute in fp32
+# and round once, so they part only where the two fp32 values straddle a bf16 rounding: dx in a few elements,
+# each parameter gradient by at most one bf16 step (2^-7 of it).
+K1_BWD_FP32_DX, K1_BWD_FP32_PARAM = 1e-5, 1e-4
+K1_BWD_BF16_DX, K1_BWD_BF16_PARAM = 2e-3, 1e-2
 
 
 def log(obj) -> None:
@@ -256,9 +275,9 @@ def rel_l2(a, b) -> float:
     return float((a - b).norm() / b.norm().clamp_min(1e-30))
 
 
-def stage_shapes(cfg):
-    """(C, T) of each AMP stage at F_FRAMES frames."""
-    t, out = F_FRAMES, []
+def stage_shapes(cfg, frames: int = F_FRAMES):
+    """(C, T) of each AMP stage at `frames` frames."""
+    t, out = frames, []
     for i, u in enumerate(cfg.upsample_rates):
         t *= u
         out.append((cfg.upsample_initial_channel // 2 ** (i + 1), t))
@@ -463,7 +482,8 @@ def drive_path(name: str, fn, need: tuple[str, ...], paths: dict, blockwise: int
     from vocoder_tpu_torch.ops.aa_snake import aa_snake
     from vocoder_tpu_torch.ops.amp_block import amp_stage
 
-    aa_snake.launches = amp_stage.launches = amp_stage.mma_launches = BigVGAN.blockwise_stages = 0
+    aa_snake.launches = aa_snake.bwd_launches = amp_stage.launches = amp_stage.mma_launches = 0
+    BigVGAN.blockwise_stages = 0
     out = fn()
     torch.cuda.synchronize()
     paths[name] = launch_counts()
@@ -783,8 +803,8 @@ def rel(a, b) -> float:
 
 
 def check_k1_autograd(dev) -> dict:
-    """K1 under autograd against autograd through the plain version, from the same upstream gradient;
-    the worst of each of dx, d alpha, d beta and the forward."""
+    """K1 under autograd (the kernel forward, the backward kernel) against autograd through the plain
+    version, from the same upstream gradient; the worst of each of dx, d alpha, d beta and the forward."""
     import numpy as np
     import torch
 
@@ -800,14 +820,16 @@ def check_k1_autograd(dev) -> dict:
         x = torch.randn(b, c, t, device=dev, generator=gen).requires_grad_(True)
         gz = torch.randn(b, c, t, device=dev, generator=gen)
         z = aa_snake(x, alpha, beta, True)
+        before = aa_snake.bwd_launches
         got = torch.autograd.grad(z, (x, alpha, beta), gz)
+        bwd_launched = aa_snake.bwd_launches - before
         z_plain = aa_snake_plain(x, *snake_params(alpha, beta, True))
         want = torch.autograd.grad(z_plain, (x, alpha, beta), gz)
         rec = {"dx_rel_l2": rel_l2(got[0], want[0]), "d_alpha_rel_l2": rel_l2(got[1], want[1]),
                "d_beta_rel_l2": rel_l2(got[2], want[2]), "forward_max_abs": float((z - z_plain).detach().abs().max())}
         ok = (rec["dx_rel_l2"] <= K1_GRAD_DX_REL_L2 and rec["d_alpha_rel_l2"] <= K1_GRAD_PARAM_REL_L2
               and rec["d_beta_rel_l2"] <= K1_GRAD_PARAM_REL_L2 and rec["forward_max_abs"] <= K1_FP32_MAX_ABS
-              and all(bool(torch.isfinite(g).all()) for g in got))
+              and bwd_launched == 1 and all(bool(torch.isfinite(g).all()) for g in got))
         log({"phase": "k1_autograd_check", "shape": [b, c, t], **rec, "ok": ok})
         if not ok:
             raise SystemExit(f"K1 under autograd disagrees with autograd through its plain version at {(b, c, t)}")
@@ -816,6 +838,82 @@ def check_k1_autograd(dev) -> dict:
     log({"phase": "k1_autograd_worst", **worst,
          "limits": {"dx_rel_l2": K1_GRAD_DX_REL_L2, "d_param_rel_l2": K1_GRAD_PARAM_REL_L2}})
     return worst
+
+
+def check_k1_bwd(dev, dtype) -> dict:
+    """10 (fp32) and 24 (bf16): the backward kernel (``aa_snake_bwd_kernel``) against ``aa_snake_plain_vjp`` on
+    the same inputs at K1_BWD_SHAPES, with the upstream gradient contiguous and as a channel shard's view (the
+    second half of a 2C-channel tensor, as tensor parallelism hands it): dx, d alpha and d beta within the
+    dtype's limits, each call one count of ``aa_snake.bwd_launches``; the worst of each."""
+    import torch
+
+    from vocoder_tpu_torch.ops.aa_snake import aa_snake, aa_snake_bwd_kernel
+    from vocoder_tpu_torch.ops.antialias import aa_snake_plain_vjp
+
+    fp32 = dtype == torch.float32
+    lim_dx, lim_param = (K1_BWD_FP32_DX, K1_BWD_FP32_PARAM) if fp32 else (K1_BWD_BF16_DX, K1_BWD_BF16_PARAM)
+    gen = torch.Generator(device=dev).manual_seed(SEED + (10 if fp32 else 24))
+    worst = {"dx": 0.0, "d_alpha": 0.0, "d_beta": 0.0}
+    for (c, t, b), shard in itertools.product(K1_BWD_SHAPES, (False, True)):
+        params = [torch.exp(0.3 * torch.randn(c, device=dev, generator=gen)).to(dtype) for _ in range(2)]
+        wide = 2 * c if shard else c
+        x = torch.randn(b, wide, t, device=dev, generator=gen).to(dtype)[:, wide - c :].contiguous()
+        gz = torch.randn(b, wide, t, device=dev, generator=gen).to(dtype)[:, wide - c :]
+        before = aa_snake.bwd_launches
+        got = aa_snake_bwd_kernel(x, *params, gz)
+        launched = aa_snake.bwd_launches - before
+        want = aa_snake_plain_vjp(x, *params, gz)
+        rec = {name: rel_l2(g, w) for name, g, w in zip(worst, got, want)}
+        ok = (launched == 1 and rec["dx"] <= lim_dx and max(rec["d_alpha"], rec["d_beta"]) <= lim_param
+              and all(g.dtype == w.dtype and bool(torch.isfinite(g).all()) for g, w in zip(got, want)))
+        log({"phase": "k1_bwd_check", "dtype": dtag(dtype), "shape": [b, c, t], "gz_shard_view": shard, **rec,
+             "ok": ok})
+        if not ok:
+            raise SystemExit(f"the backward kernel disagrees with the plain VJP at {(b, c, t)}, {dtag(dtype)}")
+        worst = {k: max(worst[k], rec[k]) for k in worst}
+        del x, gz, got, want
+    log({"phase": "k1_bwd_worst", "dtype": dtag(dtype), **worst, "limits": {"dx": lim_dx, "d_param": lim_param}})
+    return worst
+
+
+def time_k1_bwd(dev, stamp: dict) -> dict:
+    """The backward kernel's card time (``device_time``) at the five AMP stage shapes of the 44.1 kHz preset's
+    training step (b16 x 128 frames), fp32 and bf16, beside its bound (the larger of BWD_FLOPS_PER_SAMPLE on the
+    CUDA cores and x, gz read and dx written once) and the plain VJP's time; and a step's 91 calls (18 a stage,
+    activation_post at the last stage's shape) summed from them."""
+    import torch
+
+    from vocoder_tpu_torch.config import build_task_config
+    from vocoder_tpu_torch.ops.aa_snake import BWD_FLOPS_PER_SAMPLE, aa_snake_bwd_kernel
+    from vocoder_tpu_torch.ops.antialias import aa_snake_plain_vjp
+    from vocoder_tpu_torch.tools.timing import cuda_ms, device_time
+
+    task = build_task_config("bigvgan", "44100_512_2048")
+    shapes = stage_shapes(task.generator, task.num_frames)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 13)
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        rows, step = [], {"ms": 0.0, "bound_ms": 0.0, "plain_ms": 0.0}
+        for i, (c, t) in enumerate(shapes):
+            params = [torch.exp(0.3 * torch.randn(c, device=dev, generator=gen)).to(dtype) for _ in range(2)]
+            x = torch.randn(16, c, t, device=dev, generator=gen).to(dtype)
+            gz = torch.randn(16, c, t, device=dev, generator=gen).to(dtype)
+            ms, host_us = device_time(lambda: aa_snake_bwd_kernel(x, *params, gz), 20)
+            plain_ms = cuda_ms(lambda: aa_snake_plain_vjp(x, *params, gz), 3, 1)
+            n = x.numel()
+            compute_s, memory_s = BWD_FLOPS_PER_SAMPLE * n / FP32_FLOPS, 3 * n * x.element_size() / HBM_BYTES_PER_S
+            bound_ms = 1e3 * max(compute_s, memory_s)
+            rows.append({"stage": i, "shape": [16, c, t], "ms": ms, "bound_ms": bound_ms,
+                         "bound_by": "operations" if compute_s > memory_s else "bytes",
+                         "share_of_bound": bound_ms / ms, "plain_ms": plain_ms, "host_us_per_call": host_us})
+            calls = 18 + (i == len(shapes) - 1)
+            for key, v in (("ms", ms), ("bound_ms", bound_ms), ("plain_ms", plain_ms)):
+                step[key] += calls * v
+            del x, gz
+        out[dtag(dtype)] = {"stages": rows, "step_91_calls": step}
+        log({"phase": "k1_bwd_timing", "dtype": dtag(dtype), "stages": rows, "step_91_calls": step, **stamp})
+    torch.cuda.empty_cache()
+    return out
 
 
 def check_eval_after_step(state, task, batch: dict, fake_before) -> None:
@@ -903,7 +1001,8 @@ def check_train_steps(dev, paths: dict) -> int:
               and grad_rel[worst_grad] <= STEP_GRAD_REL_L2
               and all(map(math.isfinite, list(mk.values()) + list(mp.values()))))
         if family == "bigvgan":
-            ok = ok and launches["aa_snake"] == K1_PER_BIGVGAN_FORWARD
+            ok = (ok and launches["aa_snake"] == K1_PER_BIGVGAN_FORWARD
+                  and launches["aa_snake_bwd"] == K1_PER_BIGVGAN_FORWARD)
         if name == "bigvgan":
             k1_step = launches["aa_snake"]
         log({"phase": "train_step_check", "model": name, "batch": TRAIN_CHECK_BATCH, "samples": t,
@@ -2034,7 +2133,8 @@ def check_bf16_step(dev, paths: dict) -> dict:
     dist = step_distance(runs["kernel_bf16"][:2], runs["plain_bf16"][:2])
     bound = {"losses": min(2 * floor["losses"], BF16_LOSS_CAP), "gradients": min(2 * floor["gradients"], BF16_GRAD_CAP)}
     launches = paths["train_step_bigvgan_bf16"]
-    ok = (all(dist[k] <= bound[k] for k in bound) and launches["aa_snake"] == K1_PER_BIGVGAN_FORWARD
+    ok = (all(dist[k] <= bound[k] for k in bound)
+          and launches["aa_snake"] == launches["aa_snake_bwd"] == K1_PER_BIGVGAN_FORWARD
           and all(r[2] for r in runs.values()) and len({r[3] for r in runs.values()}) == 1
           and all(math.isfinite(v) for r in runs.values() for v in r[0].values()))
     rec = {"phase": "train_step_check_bf16", "model": "bigvgan", "batch": TRAIN_CHECK_BATCH, "samples": t,
@@ -2044,7 +2144,7 @@ def check_bf16_step(dev, paths: dict) -> dict:
     log(rec)
     if not ok:
         raise SystemExit("bigvgan bf16: the training step with the kernels is farther from the plain bf16 step "
-                         "than the rule allows, or skipped K1")
+                         "than the rule allows, or K1 or its backward did not run 91 times")
     return rec
 
 
@@ -2101,8 +2201,8 @@ def check_k1_autograd_bf16(dev) -> dict:
 def check_checkpointing(dev, paths: dict, stamp: dict) -> dict:
     """25. One fp32 BigVGAN step at the preset's b16 x 65,536 samples with checkpointing=True against the
     same step without it (same weights, batch and crop; both through K1): losses within CKPT_LOSS_REL, each
-    generator gradient within CKPT_GRAD_REL_L2; K1's launches per step (91 and 91 + 90) and the peak
-    memory of each step."""
+    generator gradient within CKPT_GRAD_REL_L2; K1's launches per step (91 and 91 + 90), its backward's (91
+    in each) and the peak memory of each step."""
     import dataclasses
 
     import torch
@@ -2131,7 +2231,7 @@ def check_checkpointing(dev, paths: dict, stamp: dict) -> dict:
         peak = torch.cuda.max_memory_allocated()
         runs[remat] = ({k: float(v) for k, v in metrics.items()},
                        {n: p.grad.detach().clone() for n, p in state.generator.named_parameters()}, peak,
-                       paths[name]["aa_snake"])
+                       (paths[name]["aa_snake"], paths[name]["aa_snake_bwd"]))
         del state
         torch.cuda.empty_cache()
     (m0, g0, peak0, k0), (m1, g1, peak1, k1) = runs[False], runs[True]
@@ -2139,16 +2239,18 @@ def check_checkpointing(dev, paths: dict, stamp: dict) -> dict:
     grad_rel = {n: rel_l2(g1[n], g0[n]) for n in g0}
     worst = max(grad_rel, key=grad_rel.get)
     ok = (max(loss_rel.values()) <= CKPT_LOSS_REL and grad_rel[worst] <= CKPT_GRAD_REL_L2
-          and (k0, k1) == (K1_PER_BIGVGAN_FORWARD, K1_PER_BIGVGAN_FORWARD + K1_RECOMPUTED_PER_STEP))
+          and (k0[0], k1[0]) == (K1_PER_BIGVGAN_FORWARD, K1_PER_BIGVGAN_FORWARD + K1_RECOMPUTED_PER_STEP)
+          and k0[1] == k1[1] == K1_PER_BIGVGAN_FORWARD)
     rec = {"phase": "checkpointing_check", "model": "bigvgan", "batch": 16, "samples": t, "dtype": "fp32",
            "max_loss_rel": max(loss_rel.values()), "max_grad_rel_l2": grad_rel[worst], "worst_grad": worst,
-           "k1_launches_per_step": {"without": k0, "with": k1},
+           "k1_launches_per_step": {"without": k0[0], "with": k1[0]},
+           "k1_bwd_calls_per_step": {"without": k0[1], "with": k1[1]},
            "peak_memory_bytes": {"without": peak0, "with": peak1}, "peak_ratio": peak1 / peak0,
            "limits": {"loss_rel": CKPT_LOSS_REL, "grad_rel_l2": CKPT_GRAD_REL_L2}, "ok": ok, **stamp}
     log(rec)
     if not ok:
         raise SystemExit("checkpointing: the checkpointed step disagrees with the step without it, or K1's "
-                         "launches are not 91 and 181")
+                         "launches are not 91 and 181, or its backward's not 91 in each")
     return rec
 
 
@@ -2565,7 +2667,7 @@ def check_cli_train_torchrun(started: tuple, root: Path, one_process: dict, path
         raise SystemExit(f"torchrun cli.train exited {proc.returncode}")
     tagged = [ln.split("kernel launches: ", 1)[1] for ln in err.splitlines() if "kernel launches: " in ln]
     counts = json.loads(tagged[-1]) if tagged else {}
-    paths["cli_train_torchrun"] = {k: counts.get(k, 0) for k in ("aa_snake", FP32_K2, BF16_K2)}
+    paths["cli_train_torchrun"] = {k: counts.get(k, 0) for k in ("aa_snake", "aa_snake_bwd", FP32_K2, BF16_K2)}
     runs = [one_process["records"],
             [json.loads(ln) for ln in (root / "torchrun" / "metrics.jsonl").read_text().splitlines()]]
     shape = [[(r["step"], sorted(r)) for r in recs] for recs in runs]
@@ -2626,7 +2728,7 @@ def _dp_rank(rank: int, port: int, out: str) -> None:
     dist.broadcast_modules([state.generator, state.discriminators], dist.world_group())
     old = {n: p.detach().clone() for n, p in named(state)} if rank == 0 else None
     start = gan.draw_crop_start(state, task, t)
-    aa_snake.launches = amp_stage.launches = amp_stage.mma_launches = 0
+    aa_snake.launches = aa_snake.bwd_launches = amp_stage.launches = amp_stage.mma_launches = 0
     metrics = {k: float(v) for k, v in gan.make_train_step(task, group=dist.world_group())(state, mine, start).items()}
     torch.cuda.synchronize()
     counts = launch_counts()
@@ -2741,7 +2843,7 @@ def _tp_bigvgan_forwards(mg, dev, rank: int) -> dict:
                  ("fp32_masked", model, masked, {"frame_lengths": frames}), ("bf16", model_bf16, mel.bfloat16(), {}))
         for tag, m, x, kw in cases:
             before = (stage_plan.builds, stage_plan.hits, tp.whole_blocks.builds, tp.whole_blocks.hits)
-            aa_snake.launches = amp_stage.launches = amp_stage.mma_launches = 0
+            aa_snake.launches = aa_snake.bwd_launches = amp_stage.launches = amp_stage.mma_launches = 0
             y, ms = _timed(lambda: m(x, **kw))
             after = (stage_plan.builds, stage_plan.hits, tp.whole_blocks.builds, tp.whole_blocks.hits)
             runs[tag] = _every_rank(y, mg)
@@ -2907,7 +3009,7 @@ def _tp_train_step(mg, dev, rank: int, task, sd: dict, batch: dict) -> dict:
 
     state = fresh(mg)
     start = gan.draw_crop_start(state, task, t)
-    aa_snake.launches = amp_stage.launches = amp_stage.mma_launches = 0
+    aa_snake.launches = aa_snake.bwd_launches = amp_stage.launches = amp_stage.mma_launches = 0
     metrics, ms = _timed(lambda: gan.make_train_step(task)(state, batch, start))
     counts = launch_counts()
     metrics = {k: float(v) for k, v in metrics.items()}
@@ -3083,9 +3185,10 @@ def check_dp_step_gloo(started: tuple, paths: dict, stamp: dict) -> dict:
     tmp.cleanup()
     cmp = ranks[0]["compared"]
     counts = [r["launches"] for r in ranks]
-    paths["dp_step_gloo"] = {k: sum(c[k] for c in counts) for k in ("aa_snake", FP32_K2, BF16_K2)}
+    paths["dp_step_gloo"] = {k: sum(c[k] for c in counts) for k in ("aa_snake", "aa_snake_bwd", FP32_K2, BF16_K2)}
     ok = (all(r["ranks_agree"] and r["crop_start"] == ranks[0]["crop_start"] for r in ranks)
-          and all(c["aa_snake"] == K1_PER_BIGVGAN_FORWARD for c in counts) and cmp["same_crop_start"]
+          and all(c["aa_snake"] == c["aa_snake_bwd"] == K1_PER_BIGVGAN_FORWARD for c in counts)
+          and cmp["same_crop_start"]
           and max(cmp["loss_rel"].values()) <= DP_LOSS_REL and max(cmp["grad_norm_rel"].values()) <= DP_NORM_REL
           and cmp["max_grad_rel_l2"] <= DP_GRAD_REL_L2 and cmp["params_adam_close"]
           and all(math.isfinite(v) for r in ranks for v in r["metrics"].values()))
@@ -3114,7 +3217,7 @@ def check_tp_gloo(ranks: list, paths: dict, stamp: dict) -> None:
     TP_GEN_REL_L2, each rank holding fewer parameter bytes; each rank's bytes held for (d)-(f).  The launches
     of each run go to the kernels line.  Times are of 2 gloo ranks sharing one card, not of tensor
     parallelism on cards."""
-    zero = {"aa_snake": 0, FP32_K2: 0, BF16_K2: 0}
+    zero = {"aa_snake": 0, "aa_snake_bwd": 0, FP32_K2: 0, BF16_K2: 0}
     big = ranks[0]["bigvgan"]
     k2 = {"fp32": FP32_K2, "fp32_again": FP32_K2, "fp32_masked": FP32_K2, "bf16": BF16_K2}
     floor = big["bf16_plain_vs_plain_rel_l2"]
@@ -3156,7 +3259,7 @@ def check_tp_gloo(ranks: list, paths: dict, stamp: dict) -> None:
     norms = list(step["grad_norm_rel"])
     loss_rel = max(rel(r["step"]["metrics"][k], want[k]) for r in ranks for k in step["loss_rel"])
     norm_rel = max(rel(r["step"]["metrics"][k], want[k]) for r in ranks for k in norms)
-    oks["step"] = (all(c["aa_snake"] == K1_PER_BIGVGAN_FORWARD for c in counts)
+    oks["step"] = (all(c["aa_snake"] == c["aa_snake_bwd"] == K1_PER_BIGVGAN_FORWARD for c in counts)
                    and all(r["step"]["crop_start"] == step["crop_start"] for r in ranks)
                    and loss_rel <= TP_LOSS_REL and norm_rel <= TP_NORM_REL
                    and step["max_grad_rel_l2"] <= TP_GRAD_REL_L2 and step["row_gains"] > 0
@@ -3527,7 +3630,9 @@ def main() -> int:
 
     # 10-14. Training.
     k1_grad = check_k1_autograd(dev)
-    mark("10 k1 autograd")
+    k1_bwd = {"fp32": check_k1_bwd(dev, torch.float32)}
+    k1_bwd_times = time_k1_bwd(dev, stamp)
+    mark("10 k1 autograd and the backward kernel")
     k1_train_step = check_train_steps(dev, paths)
     tf32_off()
     mark("11 train steps")
@@ -3561,7 +3666,8 @@ def main() -> int:
     bf16_step = check_bf16_step(dev, paths)
     mark("23 bf16 step (beside 36-37)")
     k1_grad_bf16 = check_k1_autograd_bf16(dev)
-    mark("24 k1 autograd bf16 (beside 36-37)")
+    k1_bwd["bf16"] = check_k1_bwd(dev, torch.bfloat16)
+    mark("24 k1 autograd bf16 and the bf16 backward kernel (beside 36-37)")
     ckpt_rec = check_checkpointing(dev, paths, stamp)
     mark("25 checkpointing (beside 36-37)")
     check_cli_train_torchrun(dp_cli, Path(cli_train_dir.name), cli_train, paths, stamp)
@@ -3619,7 +3725,7 @@ def main() -> int:
     log({"phase": "timeline", "seconds_at_end": timeline})
 
     def launches(name):  # over the main paths' runs; each path's count beside it
-        by_path = {path: c[name] for path, c in paths.items() if c[name]}
+        by_path = {path: c[name] for path, c in paths.items() if c.get(name)}
         return {"launches": sum(by_path.values()), "launches_by_path": by_path}
 
     k1 = entries["aa_snake"][1]
@@ -3635,7 +3741,12 @@ def main() -> int:
                 "launches_train_step_checkpointed": ckpt_rec["k1_launches_per_step"]["with"],
                 "autograd_bf16_worst": k1_grad_bf16,
                 "train_step_bf16_share_of_busy": (bf16_times["shares_of_busy"] or {}).get(
-                    "k1_forward")}]
+                    "k1_forward")},
+               {"name": "aa_snake_bwd", "route": "cuda", "source": "vocoder_tpu_torch/csrc/aa_snake_bwd.cu",
+                "replaces": None, "yardstick": "ops/antialias.py::aa_snake_plain_vjp", **launches("aa_snake_bwd"),
+                "worst_vs_plain_vjp": k1_bwd, "times_b16_step": k1_bwd_times,
+                "train_step_share_of_busy": (train_rec["shares_of_busy"] or {}).get("aa_snake_backward"),
+                "calls_train_step_checkpointed": ckpt_rec["k1_bwd_calls_per_step"]["with"]}]
     for name, dtype in ((FP32_K2, "fp32"), (BF16_K2, "bf16")):
         k2, k2_b16 = entries[name][1], entries[name][16]
         kernels.append({"name": name, "route": "cuda", "source": "vocoder_tpu_torch/csrc/amp_conv_mma.cu",

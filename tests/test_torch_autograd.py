@@ -1,9 +1,10 @@
 """K1 under autograd (``AASnakeFunction``) against ``jax.grad`` of the JAX package, on the CPU.
 
 On the CPU the Function's forward is the plain version and its backward ``aa_snake_plain_vjp``, the
-code the card runs after K1's forward.  The oracle is ``jax.grad`` through the JAX package's unfolded
-BigVGAN activation (``models/bigvgan.py::_aa_snake`` in training, the poly4 backend), with the
-log-scale parameters' ``exp`` inside, at rtol 2e-4 / atol 2e-5 (the JAX kernel tests' tolerance).
+yardstick that the card's backward kernel (``csrc/aa_snake_bwd.cu``) is held to.  The oracle is
+``jax.grad`` through the JAX package's unfolded BigVGAN activation (``models/bigvgan.py::_aa_snake`` in
+training, the poly4 backend), with the log-scale parameters' ``exp`` inside, at rtol 2e-4 / atol 2e-5 (the
+JAX kernel tests' tolerance).
 ``torch.autograd.gradcheck`` holds the VJP against finite differences of the forward in float64.
 """
 

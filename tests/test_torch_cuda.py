@@ -12,9 +12,9 @@ import torch
 
 from vocoder_tpu_torch.models.bigvgan import BigVGAN, BigVGANConfig, random_state_dict
 from vocoder_tpu_torch.nn import fold_weight_norm
-from vocoder_tpu_torch.ops.aa_snake import aa_snake, aa_snake_kernel
+from vocoder_tpu_torch.ops.aa_snake import aa_snake, aa_snake_bwd_kernel, aa_snake_kernel
 from vocoder_tpu_torch.ops.amp_block import amp_stage, amp_stage_kernel, amp_stage_plain, stage_plan
-from vocoder_tpu_torch.ops.antialias import aa_snake_plain, snake_params
+from vocoder_tpu_torch.ops.antialias import aa_snake_plain, aa_snake_plain_vjp, snake_params
 
 pytestmark = pytest.mark.cuda
 
@@ -301,9 +301,9 @@ def test_cli_at_pytorch_tf32_defaults_equals_tf32_off(cuda_device, tmp_path, mon
 @pytest.mark.parametrize("t", [3967, 3969, 7, 65536])  # K1's 3968-output tile +- 1, under the halo, a training crop
 @pytest.mark.parametrize("c", [16, 256, 512])
 def test_k1_under_autograd_matches_plain_autograd(cuda_device, c, t, batch):
-    """``aa_snake`` with gradients on runs K1 forward (one launch) and the plain VJP backward: dx within
-    rel L2 1e-5 and the parameter gradients (sums over B * T) within 1e-4 of autograd through the plain
-    version, from the same upstream gradient."""
+    """``aa_snake`` with gradients on runs K1 forward (one launch) and the backward kernel (one call): dx
+    within rel L2 1e-5 and the parameter gradients (sums over B * T) within 1e-4 of autograd through the
+    plain version, from the same upstream gradient."""
     gen = torch.Generator(device=cuda_device).manual_seed(c + t + batch)
     alpha = (0.3 * torch.randn(c, device=cuda_device, generator=gen)).requires_grad_(True)
     beta = (0.3 * torch.randn(c, device=cuda_device, generator=gen)).requires_grad_(True)
@@ -312,11 +312,57 @@ def test_k1_under_autograd_matches_plain_autograd(cuda_device, c, t, batch):
     before = aa_snake.launches
     z = aa_snake(x, alpha, beta, True)
     assert aa_snake.launches == before + 1
+    before = aa_snake.bwd_launches
     got = torch.autograd.grad(z, (x, alpha, beta), gz)
+    assert aa_snake.bwd_launches == before + 1
     want = torch.autograd.grad(aa_snake_plain(x, *snake_params(alpha, beta, True)), (x, alpha, beta), gz)
     assert _rel_l2(got[0], want[0]) <= 1e-5
     assert _rel_l2(got[1], want[1]) <= 1e-4
     assert _rel_l2(got[2], want[2]) <= 1e-4
+
+
+# The backward kernel against ``aa_snake_plain_vjp`` on the same inputs.  fp32: the same function in FMAs and
+# other sum orders (dx ~1e-7 apart; the parameter gradients are sums over B * 2T).  bf16: both compute in fp32
+# and round once, so they part only where the two fp32 values straddle a bf16 rounding: dx in a few elements,
+# each parameter gradient by at most one bf16 step (2^-7 of it).
+BWD_LIMITS = {torch.float32: (1e-5, 1e-4), torch.bfloat16: (2e-3, 1e-2)}
+BWD_TILE = 1274  # csrc/aa_snake_bwd.cu: kThreads * kRun - 6 outputs a block
+
+
+@pytest.mark.parametrize("shard", [False, True])
+@pytest.mark.parametrize("batch", [1, 4])
+@pytest.mark.parametrize("t", [1, 2, 7, BWD_TILE - 1, BWD_TILE + 1, 65536])  # under the halo, the tile's edges
+@pytest.mark.parametrize("c", [16, 256, 512])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_aa_snake_bwd_kernel_matches_plain_vjp(cuda_device, dtype, c, t, batch, shard):
+    """The backward kernel's (dx, d alpha, d beta) against the plain VJP's, one count of
+    ``aa_snake.bwd_launches`` a call, each in the plain VJP's dtype; with ``shard`` the upstream gradient is
+    a channel shard's view (the second half of a 2C-channel tensor), as tensor parallelism hands it."""
+    gen = torch.Generator(device=cuda_device).manual_seed(c + t + batch)
+    params = [torch.exp(0.3 * torch.randn(c, device=cuda_device, generator=gen)).to(dtype) for _ in range(2)]
+    wide = 2 * c if shard else c
+    x = torch.randn(batch, wide, t, device=cuda_device, generator=gen).to(dtype)[:, wide - c :].contiguous()
+    gz = torch.randn(batch, wide, t, device=cuda_device, generator=gen).to(dtype)[:, wide - c :]
+    assert gz.is_contiguous() == (not shard or batch == 1)  # one item's shard is a contiguous slice
+    before = aa_snake.bwd_launches
+    got = aa_snake_bwd_kernel(x, *params, gz)
+    assert aa_snake.bwd_launches == before + 1
+    want = aa_snake_plain_vjp(x, *params, gz)
+    dx_limit, param_limit = BWD_LIMITS[dtype]
+    assert [g.dtype for g in got] == [w.dtype for w in want] == [dtype] * 3
+    assert _rel_l2(got[0].float(), want[0].float()) <= dx_limit
+    for g, w in zip(got[1:], want[1:]):
+        assert _rel_l2(g.float(), w.float()) <= param_limit
+
+
+def test_aa_snake_bwd_kernel_refuses_a_second_derivative(cuda_device):
+    """The backward kernel builds no graph: a backward with ``create_graph`` raises instead of returning
+    gradients that autograd cannot differentiate."""
+    x = torch.randn(1, 16, 64, device=cuda_device, requires_grad=True)
+    alpha, beta = (torch.zeros(16, device=cuda_device, requires_grad=True) for _ in range(2))
+    z = aa_snake(x, alpha, beta, True)
+    with pytest.raises(RuntimeError, match="second derivative"):
+        torch.autograd.grad(z, x, torch.ones_like(z), create_graph=True)
 
 
 def _tiny_task(name):
@@ -337,7 +383,7 @@ def _tiny_task(name):
 def test_train_step_kernel_path_matches_plain_path(cuda_device):
     """A tiny BigVGAN training step with K1 under autograd against the same step through the plain
     versions, from the same weights, batch and crop: every loss within rel 1e-5, the grad norms 1e-4,
-    every generator gradient rel L2 1e-3; K1 runs once per activation of the forward."""
+    every generator gradient rel L2 1e-3; K1 and its backward run once per activation of the forward."""
     from vocoder_tpu_torch.tools.profile_train import synthetic_batch
     from vocoder_tpu_torch.train import gan
 
@@ -346,13 +392,14 @@ def test_train_step_kernel_path_matches_plain_path(cuda_device):
     runs = []
     for plain in (False, True):
         state = gan.create_train_state(task, 0, cuda_device)
-        before = aa_snake.launches
+        before = aa_snake.launches, aa_snake.bwd_launches
         metrics = gan.make_train_step(task, plain=plain)(state, batch, 100)
-        launched = aa_snake.launches - before
+        launched = aa_snake.launches - before[0], aa_snake.bwd_launches - before[1]
         runs.append(({k: float(v) for k, v in metrics.items()},
                      {n: p.grad.detach().clone() for n, p in state.generator.named_parameters()}, launched))
     (mk, gk, nk), (mp, gp, npl) = runs
-    assert nk == 2 * 2 * 2 * 2 + 1 and npl == 0  # 2 stages x 2 blocks x 2 dilations x 2, and activation_post
+    # K1 and its backward: 2 stages x 2 blocks x 2 dilations x 2, and activation_post
+    assert nk == (2 * 2 * 2 * 2 + 1,) * 2 and npl == (0, 0)
     for key in mk:
         limit = 1e-4 if "grad_norm" in key else 1e-5
         assert abs(mk[key] - mp[key]) <= limit * max(abs(mp[key]), 1e-30), key
@@ -395,9 +442,9 @@ def _bf16_floor_bound(got, plain, plain32, cap):
 @pytest.mark.parametrize("t", [3969, 65536])
 def test_k1_bf16_under_autograd_matches_plain(cuda_device, t):
     """bf16 x, alpha and beta (cast from fp32 leaves, as bf16 training casts them) through ``aa_snake``
-    with gradients on: K1's bf16 route forward (one launch, a bf16 output), the plain VJP backward (fp32
-    sums, bf16 gradients).  dx, d alpha and d beta at the fp32 leaves against autograd through the plain
-    version on the same bf16 inputs, within twice the plain bf16 gradients' distance from the plain fp32
+    with gradients on: K1's bf16 route forward (one launch, a bf16 output), the backward kernel (fp32
+    inside, bf16 gradients; one call).  dx, d alpha and d beta at the fp32 leaves against autograd through the
+    plain version on the same bf16 inputs, within twice the plain bf16 gradients' distance from the plain fp32
     ones (capped at 5e-2)."""
     from vocoder_tpu_torch.ops.antialias import snake_params
 
@@ -412,9 +459,10 @@ def test_k1_bf16_under_autograd_matches_plain(cuda_device, t):
         z = fn(x, alpha, beta)
         return z, torch.autograd.grad(z, (x32, *leaves), gz.to(dtype))
 
-    before = aa_snake.launches
+    before = aa_snake.launches, aa_snake.bwd_launches
     z, got = grads(lambda x, a, b: aa_snake(x, a, b, True), torch.bfloat16)
-    assert aa_snake.launches == before + 1 and z.dtype == torch.bfloat16
+    assert (aa_snake.launches, aa_snake.bwd_launches) == (before[0] + 1, before[1] + 1)
+    assert z.dtype == torch.bfloat16
 
     def plain(x, a, b):
         return aa_snake_plain(x, *snake_params(a, b, True))

@@ -22,12 +22,13 @@ from vocoder_tpu.ops import antialias as jaa
 from vocoder_tpu.ops import spectral as jspectral
 from vocoder_tpu.ops.pallas import amp_block as jamp
 from vocoder_tpu.ops.pallas.aa_snake import fused_aa_snake
+from vocoder_tpu_torch import ops
 from vocoder_tpu_torch.convert import amp_block_state_dict_from_jax
 from vocoder_tpu_torch.models.bigvgan import AMPBlock, BigVGANConfig
 from vocoder_tpu_torch.nn import fold_weight_norm
 from vocoder_tpu_torch.ops import antialias as taa
 from vocoder_tpu_torch.ops import build
-from vocoder_tpu_torch.ops.aa_snake import aa_snake
+from vocoder_tpu_torch.ops.aa_snake import AASnakeFunction, aa_snake, aa_snake_bwd_kernel
 from vocoder_tpu_torch.ops.amp_block import amp_stage, amp_stage_plain, pack_conv_weight
 from vocoder_tpu_torch.ops.spectral import log_mel_spectrogram, mel_filterbank
 from vocoder_tpu_torch.tools import k1_variants, k2_phases, timing
@@ -95,6 +96,52 @@ def test_cuda_header_constants_match_python():
         assert repr(coef) in src
     for const in (taa._TP_HI, taa._TP_MID, taa._TP_LO):
         assert repr(const) in src
+
+
+def test_backward_kernel_constants_match_python():
+    """csrc/aa_snake_bwd.cu hard-codes the sine polynomial of ``aa_snake_plain_vjp`` and takes the taps, the
+    cosine polynomial and the 2 pi split from aa_snake.cuh (checked above); its tile, kThreads * kRun - 6
+    outputs, is the edge the card checks aim at (1274, tests/test_torch_cuda.py and chip_smoke.py)."""
+    src = (build.CSRC / "aa_snake_bwd.cu").read_text()
+    assert '#include "aa_snake.cuh"' in src
+    for coef in taa._SIN_COEF:
+        assert repr(coef) in src
+    threads, run = (int(re.search(rf"{name} = (\d+);", src).group(1)) for name in ("kThreads", "kRun"))
+    assert threads * run - 6 == 1274 and run % 2 == 1
+
+
+def test_backward_kernel_wrapper_refuses_what_it_cannot_take():
+    """The backward kernel's wrapper checks its inputs before it loads the library, so its refusals hold on
+    the CPU too: a gz that does not match x, an x that is not contiguous, parameters of another width, a
+    backward that would need a graph (``create_graph``) and tensors off the card raise."""
+    x, a = torch.randn(2, 4, 30), torch.ones(4)
+    with pytest.raises(ValueError, match="does not match"):
+        aa_snake_bwd_kernel(x, a, a, torch.randn(2, 4, 29))
+    with pytest.raises(ValueError, match="does not match"):
+        aa_snake_bwd_kernel(x, a, a, x.double())
+    with pytest.raises(ValueError, match="contiguous"):
+        aa_snake_bwd_kernel(x.transpose(0, 1), a, a, x.transpose(0, 1))
+    with pytest.raises(ValueError, match="alpha"):
+        aa_snake_bwd_kernel(x, torch.ones(3), a, x)
+    with pytest.raises(RuntimeError, match="second derivative"):
+        aa_snake_bwd_kernel(x.clone().requires_grad_(True), a, a, x)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        aa_snake_bwd_kernel(x, a, a, x)
+
+
+def test_function_backward_on_the_cpu_is_the_plain_vjp():
+    """On the CPU ``AASnakeFunction``'s backward is ``aa_snake_plain_vjp`` itself: the card's backward kernel
+    is not reached and its count stays, and ``ops.launch_counts`` reports that count."""
+    gen = torch.Generator().manual_seed(3)
+    x = torch.randn(2, 3, 50, generator=gen, requires_grad=True)
+    alpha, beta = ((0.5 + torch.rand(3, generator=gen)).requires_grad_(True) for _ in range(2))
+    gz = torch.randn(2, 3, 50, generator=gen)
+    before = aa_snake.bwd_launches
+    got = torch.autograd.grad(AASnakeFunction.apply(x, alpha, beta), (x, alpha, beta), gz)
+    want = taa.aa_snake_plain_vjp(x.detach(), alpha.detach(), beta.detach(), gz)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert aa_snake.bwd_launches == before == ops.launch_counts()["aa_snake_bwd"]
 
 
 @pytest.mark.parametrize("tool, source, variant", [

@@ -16,22 +16,26 @@ length and zero past it, so it equals the activation of that item alone.
 ``aa_snake`` takes a CPU tensor to the plain version
 (``antialias.aa_snake_plain``) and launches the kernel for a CUDA tensor, or
 raises.  ``aa_snake.launches`` counts kernel launches, with lengths or
-without.
+without; ``aa_snake.bwd_launches`` the backward kernel's calls (two launches each).
 
 Under autograd (grad enabled and an input that requires it) ``aa_snake``
 runs ``AASnakeFunction``: its forward is the kernel on a CUDA tensor (the
-plain version on the CPU), its backward ``antialias.aa_snake_plain_vjp`` in
-plain PyTorch, the exact VJP of the plain version's function.  It saves x
-and the exp'ed alpha and beta only, as the JAX package's ``custom_vjp`` of
+plain version on the CPU).  Its backward, on a CUDA tensor, is
+``aa_snake_bwd_kernel``, a hand-written CUDA kernel (``csrc/aa_snake_bwd.cu``)
+that computes (dx, d alpha, d beta) in one pass over x and the upstream
+gradient, with the parameter gradients' per-block partial sums reduced by a
+second kernel in a fixed order; on the CPU (and so for ``gradcheck``'s fp64)
+it is ``antialias.aa_snake_plain_vjp``, the exact VJP of the plain version's
+function, in plain PyTorch, which the card tests hold the kernel to.  Both save
+x and the exp'ed alpha and beta only, as the JAX package's ``custom_vjp`` of
 ``fused_aa_snake`` saves its primals; ``exp``'s chain rule stays outside, with
-autograd.  The JAX package's backward is XLA, not a Pallas kernel, so there is
-no backward kernel to port; one waits until its share of the training step
-calls for it.  ``aa_snake_kernel`` itself stays forward only.
+autograd.  The JAX package's backward is XLA, not a Pallas kernel, so the
+backward kernel replaces none.  ``aa_snake_kernel`` itself stays forward only.
 
 In bf16 training x, alpha and beta all arrive in bf16 (the parameters exp'ed
 in bf16, ``antialias.snake_params``): the forward launches K1's bf16
-route, and the backward accumulates in fp32 and returns bf16 gradients (see
-``aa_snake_plain_vjp``).  A failure to build or launch raises; nothing falls
+route, and the backward computes in fp32 and returns bf16 gradients (as
+``aa_snake_plain_vjp`` does).  A failure to build or launch raises; nothing falls
 back to the plain version on the card.
 """
 
@@ -59,6 +63,12 @@ EXACT_FLOPS_PER_SAMPLE = 104
 # in one FMA 2) and the 12-tap decimating FIR (12 FMAs, 24): 48 fp32
 # instructions.
 FLOPS_PER_SAMPLE = 88
+# The backward kernel's operations per sample of x, an FMA counted as two: y2 and G (the decimating
+# FIR's adjoint) at both parities (4 x 11: a product and five FMAs), two snake derivatives (2 x 41: the
+# argument 1, the rounding 3, the reduction 4, r^2 1, the sine polynomial and its factor r 13, 1 - cos
+# 11, dy2 3, the d alpha and d beta terms 5) and the upsampling FIR's adjoint (a product and 11 FMAs,
+# 23): 149.  Its bytes: x and gz read and dx written once.
+BWD_FLOPS_PER_SAMPLE = 149
 
 _C_VOID = ctypes.c_void_p
 _C_INT = ctypes.c_int
@@ -76,6 +86,29 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
+@functools.cache
+def _bwd_lib() -> ctypes.CDLL:
+    """The backward kernel's library with its C entries' types set, once."""
+    lib = build.load("aa_snake_bwd")
+    lib.aa_snake_bwd.argtypes = [_C_VOID, _C_VOID, _C_VOID, _C_INT, _C_VOID, _C_VOID, _C_VOID, _C_VOID, _C_INT,
+                                 _C_INT, _C_INT, _C_INT, _C_VOID, _C_VOID]
+    lib.aa_snake_bwd.restype = _C_INT
+    lib.aa_snake_bwd_scratch.argtypes = [_C_INT, _C_INT, _C_INT]
+    lib.aa_snake_bwd_scratch.restype = ctypes.c_longlong
+    lib.error_string.argtypes = [_C_INT]
+    lib.error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _check_params(x: torch.Tensor, alpha: torch.Tensor, beta: torch.Tensor) -> None:
+    c = x.shape[1]
+    for name, p in (("alpha", alpha), ("beta", beta)):
+        if p.shape != (c,) or p.device != x.device or not p.is_contiguous():
+            raise ValueError(f"aa_snake: {name} must be a contiguous ({c},) tensor on {x.device}")
+    if alpha.dtype != beta.dtype:
+        raise TypeError("aa_snake: alpha and beta must share a dtype")
+
+
 def aa_snake_kernel(x: torch.Tensor, alpha: torch.Tensor, beta: torch.Tensor | None, logscale: bool,
                     lengths=None) -> torch.Tensor:
     """Launch K1 on a CUDA (B, C, T) tensor; alpha/beta are the raw (C,) parameters, ``lengths``
@@ -84,11 +117,7 @@ def aa_snake_kernel(x: torch.Tensor, alpha: torch.Tensor, beta: torch.Tensor | N
         raise ValueError(f"aa_snake: expected a contiguous (B, C, T) tensor, got shape {tuple(x.shape)}")
     b, c, t = x.shape
     beta = alpha if beta is None else beta
-    for name, p in (("alpha", alpha), ("beta", beta)):
-        if p.shape != (c,) or p.device != x.device or not p.is_contiguous():
-            raise ValueError(f"aa_snake: {name} must be a contiguous ({c},) tensor on {x.device}")
-    if alpha.dtype != beta.dtype:
-        raise TypeError("aa_snake: alpha and beta must share a dtype")
+    _check_params(x, alpha, beta)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (x, alpha, beta)):
         raise RuntimeError("aa_snake: the kernel is forward only; run it under torch.inference_mode()")
     lens = build.lengths_arg(lengths, x)
@@ -105,10 +134,41 @@ def aa_snake_kernel(x: torch.Tensor, alpha: torch.Tensor, beta: torch.Tensor | N
     return z
 
 
+def aa_snake_bwd_kernel(x: torch.Tensor, alpha: torch.Tensor, beta: torch.Tensor, gz: torch.Tensor):
+    """(dx, d alpha, d beta) of the anti-aliased Snake on a CUDA (B, C, T) tensor for the upstream gradient gz,
+    by the backward kernel: alpha/beta the (C,) parameters already exp'ed, as ``aa_snake_plain_vjp`` takes
+    them; dx in x's dtype and the parameter gradients in the parameters', fp32 inside."""
+    if x.dim() != 3 or not x.is_contiguous():
+        raise ValueError(f"aa_snake backward: expected a contiguous (B, C, T) x, got shape {tuple(x.shape)}")
+    if gz.shape != x.shape or gz.dtype != x.dtype or gz.device != x.device:
+        raise ValueError(f"aa_snake backward: gz {gz.dtype} {tuple(gz.shape)} on {gz.device} does not match x "
+                         f"{x.dtype} {tuple(x.shape)} on {x.device}")
+    _check_params(x, alpha, beta)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, alpha, beta, gz)):
+        raise RuntimeError("aa_snake backward: the kernel builds no graph, so it gives no second derivative")
+    if not x.is_cuda:
+        raise ValueError(f"aa_snake backward: the kernel takes CUDA tensors, not {x.device}")
+    gz = gz.contiguous()  # a channel shard's gradient may come as a view
+    b, c, t = x.shape
+    lib = _bwd_lib()
+    dx = torch.empty_like(x)
+    d_alpha, d_beta = torch.empty_like(alpha), torch.empty_like(beta)
+    scratch = torch.empty(lib.aa_snake_bwd_scratch(b, c, t), dtype=torch.float32, device=x.device)
+    err = lib.aa_snake_bwd(
+        x.data_ptr(), gz.data_ptr(), dx.data_ptr(), build.dtype_code(x, "aa_snake backward x"),
+        alpha.data_ptr(), beta.data_ptr(), d_alpha.data_ptr(), d_beta.data_ptr(),
+        build.dtype_code(alpha, "aa_snake backward alpha"), b, c, t, scratch.data_ptr(), build.stream_ptr(x.device),
+    )
+    if err:
+        raise RuntimeError(f"aa_snake backward: launch failed: {lib.error_string(err).decode()}")
+    aa_snake.bwd_launches += 1
+    return dx, d_alpha, d_beta
+
+
 class AASnakeFunction(torch.autograd.Function):
     """The anti-aliased Snake under autograd: (x (B, C, T), alpha, beta) with alpha/beta the (C,)
-    parameters already exp'ed.  Forward: K1 on a CUDA tensor, the plain version on the CPU.
-    Backward: ``aa_snake_plain_vjp``, from x, alpha and beta alone."""
+    parameters already exp'ed, saved alone.  Forward: K1 on a CUDA tensor, the plain version on the CPU.
+    Backward: ``aa_snake_bwd_kernel`` on a CUDA tensor, ``aa_snake_plain_vjp`` on the CPU."""
 
     @staticmethod
     def forward(ctx, x, alpha, beta):
@@ -122,7 +182,10 @@ class AASnakeFunction(torch.autograd.Function):
     @staticmethod
     def backward(ctx, gz):
         with span("aa_snake_backward"):
-            return aa_snake_plain_vjp(*ctx.saved_tensors, gz)
+            x, alpha, beta = ctx.saved_tensors
+            if x.is_cuda:
+                return aa_snake_bwd_kernel(x, alpha, beta, gz)
+            return aa_snake_plain_vjp(x, alpha, beta, gz)
 
 
 def aa_snake(x: torch.Tensor, alpha: torch.Tensor, beta: torch.Tensor | None, logscale: bool,
@@ -141,3 +204,4 @@ def aa_snake(x: torch.Tensor, alpha: torch.Tensor, beta: torch.Tensor | None, lo
 
 
 aa_snake.launches = 0
+aa_snake.bwd_launches = 0

@@ -22,8 +22,10 @@ Arithmetic is fp32 whatever the input dtype (fp64 for an fp64 input, for
 
 ``aa_snake_plain_vjp`` is the exact VJP of that function, edges included
 (the clamped indices fold their gradients back onto the first and last
-samples): the backward of K1 under autograd, in plain PyTorch.  It takes
-x, alpha and beta only and recomputes the pre-activations, as the JAX
+samples), in plain PyTorch: the backward of K1 under autograd on the CPU,
+and the yardstick of the backward kernel (``csrc/aa_snake_bwd.cu``) that
+``ops/aa_snake.py::AASnakeFunction`` launches on the card.  It takes x,
+alpha and beta only and recomputes the pre-activations, as the JAX
 package's ``aa_snake_core_bwd`` does.
 """
 

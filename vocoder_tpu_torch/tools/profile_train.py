@@ -18,7 +18,8 @@ the median over the steps from the third on is reported, with the training
 rate in audio seconds a second and the peak device memory.  Then one more
 step runs under ``torch.profiler``: its top kernels by card time, and
 ``step_parts`` splits the card's busy time: K1's forward (the
-``aa_snake_kernel`` launches), the aa-snake backward (``AASnakeFunction.backward``), cuDNN's convolutions (forward,
+``aa_snake_kernel`` launches), the aa-snake backward (the backward kernel's
+``aa_snake_bwd`` launches), cuDNN's convolutions (forward,
 transposed and backward, generator and discriminators), the discriminators
 (their forwards in both phases and the backward nodes those forwards
 created) and the MR-STFT loss (its forward and its backward nodes).  The
@@ -80,7 +81,9 @@ def top_kernels(prof, top: int) -> list[dict]:
 
 def step_parts(prof) -> dict[str, float]:
     """The traced step's card time by part, in µs: each host op's ``device_time_total`` (the card time
-    of the kernels it launched, its children's included).  ``busy`` is every kernel's time."""
+    of the kernels it launched, its children's included), and K1's kernels and its backward's by name (a
+    launch through ctypes is no child of the range around it in the profiler's events).  ``busy`` is every
+    kernel's time."""
     cpu = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CPU]
 
     def total(pred) -> float:
@@ -97,7 +100,7 @@ def step_parts(prof) -> dict[str, float]:
     return {
         "busy": float(sum(k.duration for k in kernels)),
         "k1_forward": float(sum(k.duration for k in kernels if "aa_snake_kernel" in k.name)),
-        "aa_snake_backward": total(lambda e: e.name == "aa_snake_backward"),
+        "aa_snake_backward": float(sum(k.duration for k in kernels if "aa_snake_bwd" in k.name)),
         "cudnn_convs": total(lambda e: e.name in CONV_OPS),
         "discriminators": with_backward("discriminators"),
         "mr_stft_loss": with_backward("mr_stft_loss"),
