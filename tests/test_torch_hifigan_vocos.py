@@ -33,7 +33,7 @@ from vocoder_tpu_torch.models import vocos as tvocos
 from vocoder_tpu_torch.models.convnext import ConvNeXtConfig
 from vocoder_tpu_torch.models.registry import get_generator
 from vocoder_tpu_torch.nn import fold_weight_norm
-from vocoder_tpu_torch.ops.spectral import istft_same
+from vocoder_tpu_torch.ops.spectral import hann_window, istft_same
 
 HIFI = dict(hop_length=16, upsample_rates=(4, 4), upsample_kernel_sizes=(8, 8), resblock_kernel_sizes=(3, 5),
             resblock_dilation_sizes=((1, 3), (1, 3)), num_mels=8, upsample_initial_channel=32)
@@ -136,7 +136,8 @@ def test_istft_same_matches_jax(resolution, masked):
     kw = dict(n_fft=r["n_fft"], hop_length=r["hop_length"], win_length=r["win_length"])
     want = np.array(jspectral.istft_same(jnp.asarray(re), jnp.asarray(im), **kw,
                                            frame_lengths=None if lens is None else jnp.asarray(lens)))
-    got = istft_same(torch.from_numpy(re), torch.from_numpy(im), **kw,
+    window = torch.from_numpy(hann_window(r["win_length"]))
+    got = istft_same(torch.from_numpy(re), torch.from_numpy(im), window, **kw,
                      frame_lengths=None if lens is None else torch.from_numpy(lens)).numpy()
     assert got.shape == want.shape == (3, frames * r["hop_length"])
     if masked:

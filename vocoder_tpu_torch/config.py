@@ -33,6 +33,7 @@ from vocoder_tpu_torch.models.mrd import MRDConfig
 from vocoder_tpu_torch.models.registry import get_generator
 from vocoder_tpu_torch.train.gan import GANTaskConfig
 from vocoder_tpu_torch.train.schedule import WarmupCosineConfig
+from vocoder_tpu_torch.utils.config_tree import tuplify
 
 RESOLUTIONS: dict[str, dict] = {
     "44100_512_2048": dict(sampling_rate=44100, num_mels=128, n_fft=2048, hop_length=512, win_length=2048),
@@ -330,10 +331,6 @@ def apply_overrides(cfg, overrides) -> Any:
     return _apply_tree(cfg, tree) if tree else cfg
 
 
-def _tuplify(v):
-    return tuple(_tuplify(x) for x in v) if isinstance(v, list) else v
-
-
 def overlay_task_config(template, d: dict):
     """``template`` with the values of a ``config.json`` asdict() tree: nested dataclasses recovered by
     the template's types, lists back to tuples, keys the template does not know ignored."""
@@ -342,5 +339,5 @@ def overlay_task_config(template, d: dict):
         if f.name not in d:
             continue
         v, cur = d[f.name], getattr(template, f.name)
-        kw[f.name] = overlay_task_config(cur, v) if dataclasses.is_dataclass(cur) and isinstance(v, dict) else _tuplify(v)
+        kw[f.name] = overlay_task_config(cur, v) if dataclasses.is_dataclass(cur) and isinstance(v, dict) else tuplify(v)
     return dataclasses.replace(template, **kw)

@@ -29,6 +29,12 @@ the depthwise convs, the norms and the transitions are replicated.  The
 drop_path mask acts on the replicated residual branch, so every rank of a
 model group draws the same one (its generator in lockstep, the same rows of
 the global batch).
+
+Spans (``utils/spans.py``): ``gen.stage.{i}`` around stage i's entry (the
+stem or the transition), its blocks and their masks, and ``gen.mlp`` around
+each block's pwconv1 -> GELU -> pwconv2 (the layer scale and the residual
+outside it), wherever the encoder runs (Vocos' backbone, Firefly-GAN's, the
+vae encoders); the benchmark reads them in its Vocos cell.
 """
 
 from __future__ import annotations
@@ -42,6 +48,7 @@ from torch import nn
 
 from vocoder_tpu_torch.nn import drop_path, length_mask
 from vocoder_tpu_torch.parallel import tp, tp_specs
+from vocoder_tpu_torch.utils.spans import span
 
 LN_EPS = 1e-6  # vocoder_tpu/nn.py::layer_norm
 
@@ -109,7 +116,8 @@ class ConvNeXtBlock(nn.Module):
 
     def forward(self, x: torch.Tensor, noise: torch.Generator | None = None) -> torch.Tensor:
         y = self.norm(conv_time(self.dwconv, x))
-        y = tp.linear(self.pwconv2, F.gelu(tp.linear(self.pwconv1, y)))  # exact (erf) GELU, torch's default
+        with span("gen.mlp"):
+            y = tp.linear(self.pwconv2, F.gelu(tp.linear(self.pwconv1, y)))  # exact (erf) GELU, torch's default
         if self.gamma is not None:
             y = self.gamma * y
         if noise is not None:
@@ -144,18 +152,20 @@ class ConvNeXtEncoder(nn.Module):
              for rates, dim in zip(_drop_rates(cfg), cfg.dims)]
         )
         self.norm = LayerNorm(cfg.dims[-1], device)
+        self.stage_spans = tuple(f"gen.stage.{i}" for i in range(len(cfg.dims)))
 
     def forward(self, x: torch.Tensor, frame_lengths=None, noise: torch.Generator | None = None) -> torch.Tensor:
         """``noise``: the generator of the drop_path draws, in training mode (block after block)."""
         lens = None if frame_lengths is None else torch.as_tensor(frame_lengths, device=x.device)
         for i, (down, stage) in enumerate(zip(self.downsample_layers, self.stages)):
-            if i == 0:
-                x = down[1](down[0](x).transpose(1, 2))  # the stem takes (B, C, T)
-            else:
-                x = pointwise(down[1], down[0](x))
-            x = length_mask(x, lens, time_dim=1)  # LN and the 1x1 conv put their biases in the padding
-            for block in stage:
-                x = length_mask(block(x, noise), lens, time_dim=1)
+            with span(self.stage_spans[i]):
+                if i == 0:
+                    x = down[1](down[0](x).transpose(1, 2))  # the stem takes (B, C, T)
+                else:
+                    x = pointwise(down[1], down[0](x))
+                x = length_mask(x, lens, time_dim=1)  # LN and the 1x1 conv put their biases in the padding
+                for block in stage:
+                    x = length_mask(block(x, noise), lens, time_dim=1)
         return self.norm(x)
 
 

@@ -22,6 +22,17 @@ Megatron MLP (``convnext.param_specs``) and the head's projection
 column-parallel, its 2 * n_fft channels gathered over the model group before
 the magnitude/phase split and the iSTFT, which run whole on every rank.
 ``VocosConfig.huge()`` (650 M parameters) is the configuration it is for.
+
+``VocosConfig`` takes its nested configs as mappings too (a benchmark file's
+or a ``config.json``'s tree), by ``utils/config_tree.py``'s rule.  The
+head holds its Hann window on the model's device as a non-persistent buffer
+(kept fp32 whatever a cast of the module does), so a forward copies nothing
+from the host and the state dict keeps the reference's keys.
+
+Spans (``utils/spans.py``): ``gen.forward`` around the forward, ``gen.head``
+around the head (projection, exp and clip, cos and sin, irfft, overlap-add
+and envelope); the backbone's ``gen.stage.{i}`` and ``gen.mlp`` are
+``convnext.py``'s.
 """
 
 from __future__ import annotations
@@ -35,8 +46,10 @@ from torch import nn
 from vocoder_tpu_torch.models.convnext import ConvNeXtConfig, ConvNeXtEncoder
 from vocoder_tpu_torch.models.convnext import param_specs as convnext_param_specs
 from vocoder_tpu_torch.models.convnext import random_state_dict as convnext_random_state_dict
-from vocoder_tpu_torch.ops.spectral import istft_same
+from vocoder_tpu_torch.ops.spectral import hann_window, istft_same
 from vocoder_tpu_torch.parallel import tp, tp_specs
+from vocoder_tpu_torch.utils.config_tree import nested
+from vocoder_tpu_torch.utils.spans import span
 
 MAG_CLIP = 1e2  # the reference's exp clip (vocos.py:58-61)
 
@@ -56,6 +69,10 @@ class VocosConfig:
 
     backbone: ConvNeXtConfig
     head: ISTFTHeadConfig
+
+    def __post_init__(self):
+        object.__setattr__(self, "backbone", nested(ConvNeXtConfig, self.backbone))
+        object.__setattr__(self, "head", nested(ISTFTHeadConfig, self.head))
 
     @staticmethod
     def base(num_mels=128, n_fft=2048, hop_length=512, win_length=2048) -> "VocosConfig":
@@ -87,16 +104,28 @@ class ISTFTHead(nn.Module):
             raise NotImplementedError("only the 'same' iSTFT padding is supported (the shipped configs')")
         self.cfg = cfg
         self.out = nn.Conv1d(cfg.dim, 2 * cfg.n_fft, 1, device=device)
+        self.register_buffer("window", self._hann(device), persistent=False)
+
+    def _hann(self, device) -> torch.Tensor:
+        return torch.tensor(hann_window(self.cfg.win_length), device=device)
+
+    def _apply(self, fn, recurse=True):
+        super()._apply(fn, recurse)
+        if self.window.dtype != torch.float32:  # a cast of the module: the iSTFT stays fp32
+            self.window = self._hann(self.window.device)
+        return self
 
     def forward(self, x: torch.Tensor, frame_lengths=None) -> torch.Tensor:
         cfg = self.cfg
         bins = cfg.n_fft // 2 + 1
-        x = tp.whole(tp.linear(self.out, x), 2 * cfg.n_fft, tp.group_of(self.out), dim=-1).float()  # (B, T, 2 n_fft)
-        mag = torch.clamp(torch.exp(x[..., :bins]), max=MAG_CLIP)
-        phase = x[..., cfg.n_fft : cfg.n_fft + bins]
-        re, im = (mag * torch.cos(phase)).transpose(1, 2), (mag * torch.sin(phase)).transpose(1, 2)
-        return istft_same(re, im, n_fft=cfg.n_fft, hop_length=cfg.hop_length, win_length=cfg.win_length,
-                          frame_lengths=frame_lengths)
+        with span("gen.head"):
+            x = tp.linear(self.out, x)  # (B, T, 2 n_fft), or this rank's columns of it
+            x = tp.whole(x, 2 * cfg.n_fft, tp.group_of(self.out), dim=-1).float()
+            mag = torch.clamp(torch.exp(x[..., :bins]), max=MAG_CLIP)
+            phase = x[..., cfg.n_fft : cfg.n_fft + bins]
+            re, im = (mag * torch.cos(phase)).transpose(1, 2), (mag * torch.sin(phase)).transpose(1, 2)
+            return istft_same(re, im, self.window, n_fft=cfg.n_fft, hop_length=cfg.hop_length,
+                              win_length=cfg.win_length, frame_lengths=frame_lengths)
 
 
 def param_specs(cfg: VocosConfig) -> dict:
@@ -121,8 +150,9 @@ class Vocos(nn.Module):
         """mel (B, num_mels, F) -> (B, 1, F * hop); ``frame_lengths`` (B,): each item's frames; ``noise``: the
         generator of the backbone's drop_path draws in training mode."""
         dtype = self.head.out.weight.dtype
-        x = self.backbone(mel.to(dtype), frame_lengths, noise)
-        return self.head(x, frame_lengths)[:, None, :].to(dtype)
+        with span("gen.forward"):
+            x = self.backbone(mel.to(dtype), frame_lengths, noise)
+            return self.head(x, frame_lengths)[:, None, :].to(dtype)
 
 
 def random_state_dict(cfg: VocosConfig, seed: int) -> dict[str, torch.Tensor]:

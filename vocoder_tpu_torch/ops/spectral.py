@@ -166,11 +166,14 @@ def overlap_add(frames: torch.Tensor, hop_length: int) -> torch.Tensor:
     return total[:, : (f - 1) * hop_length + n]
 
 
-def istft_same(re: torch.Tensor, im: torch.Tensor, *, n_fft: int, hop_length: int, win_length: int,
-               frame_lengths=None) -> torch.Tensor:
+def istft_same(re: torch.Tensor, im: torch.Tensor, window: torch.Tensor, *, n_fft: int, hop_length: int,
+               win_length: int, frame_lengths=None) -> torch.Tensor:
     """Vocos-style "same"-padding iSTFT: (B, n_fft // 2 + 1, F) real and imaginary parts -> (B, F * hop), fp32.
 
-    irfft per frame, times the Hann window, overlap-add, divided by the
+    ``window``: the fp32 Hann window of ``win_length`` (``hann_window``) on
+    re's device, which the caller keeps there (Vocos' head holds it as a
+    buffer), so that no call copies it from the host.
+    irfft per frame, times the window, overlap-add, divided by the
     window-square envelope, trimmed by (win - hop) // 2 at both ends.
     ``frame_lengths`` (B,): frames past each item's count are zeroed and its
     envelope sums its own frames only, so row i equals the iSTFT of its first
@@ -183,9 +186,8 @@ def istft_same(re: torch.Tensor, im: torch.Tensor, *, n_fft: int, hop_length: in
     if n_fft % 2 == 0:
         im[:, -1] = 0.0
     frames = torch.fft.irfft(torch.complex(re.float(), im), n=n_fft, dim=1).transpose(1, 2)  # (B, F, n_fft)
-    win = torch.as_tensor(hann_window(win_length), device=re.device)
-    frames = frames * win
-    win_sq = (win * win).expand(1, f, n_fft)
+    frames = frames * window
+    win_sq = (window * window).expand(1, f, n_fft)
     if frame_lengths is not None:
         lens = torch.as_tensor(frame_lengths, device=re.device)
         fmask = (torch.arange(f, device=re.device)[None, :] < lens[:, None]).float()[..., None]
