@@ -43,6 +43,10 @@ Phases, in order; any failure exits non-zero:
      Then BigVGAN's masked b16 forward against the unmasked one at the same
      padded shape, HiFiGAN's and Vocos' forwards at b1 and b16 in both
      dtypes, and the CLI's seconds at --batch 1 and --batch 16 over 16 WAVs;
+     then the ConvNeXt MLP's 3xTF32 Linear (csrc/linear_3xtf32.cu) at vocos-huge's
+     eight MLP shapes (b16 x 504 frames, the benchmark mix's mean) and Vocos base's two
+     at b1: card time beside its bound, the plain version and cuBLAS's fp32 F.linear
+     (library_ms), each output against an fp64 product;
   8. BigVGAN with an f0 template (the 44.1 kHz preset, use_template=True):
      `BigVGAN.forward(mel, template=)` against `forward_plain` in fp32 and
      bf16 at the generator limits (K1 and the dtype's K2 route launched, no
@@ -264,6 +268,13 @@ K1_BWD_SHAPES = list(itertools.product((16, 256, 512), (1, 2, HALO - 5, K1_BWD_T
 # each parameter gradient by at most one bf16 step (2^-7 of it).
 K1_BWD_FP32_DX, K1_BWD_FP32_PARAM = 1e-5, 1e-4
 K1_BWD_BF16_DX, K1_BWD_BF16_PARAM = 2e-3, 1e-2
+# The 3xTF32 Linear (csrc/linear_3xtf32.cu) against an fp64 product: fp32 sums over up to 11,264 terms, only
+# lo·lo (2^-22 of a product) dropped.  Its shapes: each ConvNeXt MLP of vocos-huge (dims, 4x hidden) at b16 x
+# the benchmark mix's mean length (5.85 s at hop 512 and 44.1 kHz: 504 frames), and Vocos base's at b1.
+LINEAR_REL_L2 = 1e-5
+MIX_MEAN_FRAMES = 504
+LINEAR_SHAPES = (("vocos_huge_b16", 16 * MIX_MEAN_FRAMES, (352, 704, 1408, 2816), 4),
+                 ("vocos_b1", MIX_MEAN_FRAMES, (512,), 3))
 
 
 def log(obj) -> None:
@@ -468,8 +479,10 @@ def launch_counts() -> dict[str, int]:
     """Each kernel's launches (``ops.launch_counts``), and the AMP stages run block by block (not a kernel)."""
     from vocoder_tpu_torch import ops
     from vocoder_tpu_torch.models.bigvgan import BigVGAN
+    from vocoder_tpu_torch.models.convnext import ConvNeXtBlock
 
-    return {**ops.launch_counts(), "blockwise_stages": BigVGAN.blockwise_stages}
+    return {**ops.launch_counts(), "blockwise_stages": BigVGAN.blockwise_stages,
+            "convnext_library_mlps": ConvNeXtBlock.library_mlps}
 
 
 def drive_path(name: str, fn, need: tuple[str, ...], paths: dict, blockwise: int = 0):
@@ -479,11 +492,13 @@ def drive_path(name: str, fn, need: tuple[str, ...], paths: dict, blockwise: int
     import torch
 
     from vocoder_tpu_torch.models.bigvgan import BigVGAN
+    from vocoder_tpu_torch.models.convnext import ConvNeXtBlock
     from vocoder_tpu_torch.ops.aa_snake import aa_snake
     from vocoder_tpu_torch.ops.amp_block import amp_stage
+    from vocoder_tpu_torch.ops.linear_3xtf32 import linear_3xtf32
 
     aa_snake.launches = aa_snake.bwd_launches = amp_stage.launches = amp_stage.mma_launches = 0
-    BigVGAN.blockwise_stages = 0
+    BigVGAN.blockwise_stages = linear_3xtf32.launches = ConvNeXtBlock.library_mlps = 0
     out = fn()
     torch.cuda.synchronize()
     paths[name] = launch_counts()
@@ -637,18 +652,22 @@ def check_masked_generator(model, model_bf16, hop: int, dev, paths: dict) -> Non
 
 def library_models(dev) -> dict:
     """HiFiGAN and Vocos at the 44.1 kHz presets, full width, random weights from numpy seed 0: name ->
-    (task, fp32 state_dict, fp32 model on the card)."""
+    (task, fp32 state_dict, fp32 model on the card).  Built outside inference mode, as the CLI builds them,
+    so that their parameters keep version counters (Vocos' MLPs take the 3xTF32 kernel only then)."""
+    import torch
+
     from vocoder_tpu_torch.config import build_task_config
     from vocoder_tpu_torch.models import hifigan, vocos
     from vocoder_tpu_torch.nn import fold_weight_norm
 
     out = {}
-    for name, mod in (("hifigan", hifigan), ("vocos", vocos)):
-        task = build_task_config(name, "44100_512_2048")
-        sd = mod.random_state_dict(task.generator, SEED)
-        model = {"hifigan": hifigan.HiFiGAN, "vocos": vocos.Vocos}[name](task.generator)
-        model.load_state_dict(sd)
-        out[name] = (task, sd, fold_weight_norm(model).to(dev).eval())
+    with torch.inference_mode(False):
+        for name, mod in (("hifigan", hifigan), ("vocos", vocos)):
+            task = build_task_config(name, "44100_512_2048")
+            sd = mod.random_state_dict(task.generator, SEED)
+            model = {"hifigan": hifigan.HiFiGAN, "vocos": vocos.Vocos}[name](task.generator)
+            model.load_state_dict(sd)
+            out[name] = (task, sd, fold_weight_norm(model).to(dev).eval().requires_grad_(False))
     return out
 
 
@@ -771,6 +790,59 @@ def time_library_models(models: dict, dev, stamp: dict) -> dict:
                     raise SystemExit(f"{name} {dtype}: non-finite output")
                 out[(name, b, rec["dtype"])] = rec
     return out
+
+
+def time_linear_3xtf32(dev, stamp: dict) -> list:
+    """The 3xTF32 Linear at LINEAR_SHAPES (pwconv1 C -> rC with GELU, pwconv2 rC -> C): card time
+    (``device_time``) beside its bound (3 x 2 M N K at 495 TFLOP/s against x, both weight halves and the output
+    at 3.35 TB/s) and the product's own share of the tensor cores (2 M N K at 495 TFLOP/s: one pass, as
+    ``mlp_roofline.synth`` counts it), the plain version's time and cuBLAS's fp32 F.linear (and F.gelu where
+    the kernel applies it) as ``library_ms``; each output against an fp64 product."""
+    import torch
+    import torch.nn.functional as F
+
+    from vocoder_tpu_torch.ops.linear_3xtf32 import linear_3xtf32_kernel, linear_3xtf32_plain
+    from vocoder_tpu_torch.tools.timing import cuda_ms, device_time
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 20)
+    recs = []
+    for label, m, dims, ratio in LINEAR_SHAPES:
+        for c in dims:
+            for k, n, gelu in ((c, ratio * c, True), (ratio * c, c, False)):
+                # Made outside inference mode, as the CLI makes its models: the pack is kept between calls.
+                lin = torch.nn.Linear(k, n, device=dev).requires_grad_(False)
+                with torch.no_grad():
+                    lin.weight.copy_(torch.randn(n, k, device=dev, generator=gen) / math.sqrt(k))
+                    lin.bias.copy_(0.05 * torch.randn(n, device=dev, generator=gen))
+                with torch.inference_mode():
+                    x = torch.randn(m, k, device=dev, generator=gen)
+
+                    def library():
+                        y = F.linear(x, lin.weight, lin.bias)
+                        return F.gelu(y) if gelu else y
+
+                    got = linear_3xtf32_kernel(x, lin, gelu)
+                    want = x.double() @ lin.weight.double().T + lin.bias.double()
+                    want = F.gelu(want) if gelu else want
+                    err, lib_err = rel_l2(got, want), rel_l2(library(), want)
+                    del want
+                    ms, host_us = device_time(lambda: linear_3xtf32_kernel(x, lin, gelu), 20)
+                    plain_ms = cuda_ms(lambda: linear_3xtf32_plain(x, lin.weight, lin.bias, gelu), 3, warmup=1)
+                    library_ms = cuda_ms(library, 20, warmup=2)
+                    flops = 2 * m * n * k
+                    comp_s, mem_s = 3 * flops / TF32_TC_FLOPS, 4 * (m * k + 2 * n * k + m * n) / HBM_BYTES_PER_S
+                    rec = {"metric": "linear_3xtf32_ms", "shapes": label, "m": m, "k": k, "n": n, "gelu": gelu,
+                           "ms": ms, "host_us_per_launch": host_us,
+                           "bound_ms": 1e3 * max(comp_s, mem_s), "bound_share": 1e3 * max(comp_s, mem_s) / ms,
+                           "one_pass_share": 1e3 * flops / TF32_TC_FLOPS / ms,
+                           "bound_by": "operations" if comp_s >= mem_s else "bytes", "fp32_tflops": flops / ms / 1e9,
+                           "plain_ms": plain_ms, "library_ms": library_ms, "rel_l2_vs_fp64": err,
+                           "library_rel_l2_vs_fp64": lib_err, "ok": err <= LINEAR_REL_L2, **stamp}
+                    log(rec)
+                    recs.append(rec)
+                    if not rec["ok"]:
+                        raise SystemExit(f"linear_3xtf32 disagrees with the fp64 product at {(m, k, n)}")
+    return recs
 
 
 def time_cli(infer, root: Path, ckpt: Path, task, rng, stamp: dict) -> None:
@@ -3596,6 +3668,8 @@ def main() -> int:
         torch.save({"state_dict": {f"generator.{k}": v for k, v in sd.items()}}, ckpt)
         time_cli(infer, Path(tmp), ckpt, task, np.random.default_rng(SEED + 7), stamp)
     mark("7 timings")
+    linear_recs = time_linear_3xtf32(dev, stamp)
+    mark("7 linear_3xtf32")
 
     # 8. BigVGAN with an f0 template: BigVGAN.forward against its plain path, then cli.infer from a workdir.
     t_task, t_sd, t_model, t_model_bf16 = template_bigvgan()
@@ -3759,6 +3833,16 @@ def main() -> int:
                         "ms_b16": k2_b16["ms"], "bound_ms_b16": k2_b16["bound_ms"],
                         "conv_library_ms_b16": k2_b16["conv_library_ms"],
                         "design_floor_ms_b16": k2_b16["design_floor_ms"]})
+    big = [r for r in linear_recs if r["shapes"] == "vocos_huge_b16"]
+    kernels.append({"name": "linear_3xtf32", "route": "cuda", "source": "vocoder_tpu_torch/csrc/linear_3xtf32.cu",
+                    "replaces": None, "yardstick": "cuBLAS fp32 F.linear (+ F.gelu)", **launches("linear_3xtf32"),
+                    "convnext_library_mlps": launches("convnext_library_mlps"),
+                    "worst_rel_l2_vs_fp64": max(r["rel_l2_vs_fp64"] for r in linear_recs),
+                    "ms_vocos_huge_b16_mlps": sum(r["ms"] for r in big),
+                    "bound_ms_vocos_huge_b16_mlps": sum(r["bound_ms"] for r in big),
+                    "one_pass_ms_vocos_huge_b16_mlps": sum(r["one_pass_share"] * r["ms"] for r in big),
+                    "plain_ms_vocos_huge_b16_mlps": sum(r["plain_ms"] for r in big),
+                    "library_ms_vocos_huge_b16_mlps": sum(r["library_ms"] for r in big)})
     log({"kernels": kernels})
     log({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}})
     return 0

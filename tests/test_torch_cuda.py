@@ -701,3 +701,134 @@ def test_vqvae_codec_round_trip_on_the_card(cuda_device, tmp_path):
     wav, sr = read_wav(tmp_path / "wav" / "a.wav")
     assert sr == 8000 and wav.shape == (1, 4000)
     np.testing.assert_allclose(wav[0], want, rtol=0, atol=2.0 / 32768)
+
+
+# The 3xTF32 Linear (ops/linear_3xtf32.py) of the ConvNeXt MLP.  Its relative L2 distance to an fp64
+# product: fp32 sums over up to 11,264 terms, only lo·lo (2^-22 of a product) dropped; cuBLAS's fp32
+# SGEMM reads 1e-7 to 2e-6 at these shapes, one TF32 pass ~1e-4.
+LINEAR_REL_L2 = 1e-5
+VOCOS_HUGE_DIMS = (352, 704, 1408, 2816)
+
+
+def _vocos_linear(k, n, device, gen):
+    lin = torch.nn.Linear(k, n, device=device)
+    with torch.no_grad():
+        lin.weight.copy_(torch.randn(n, k, device=device, generator=gen) / k**0.5)
+        lin.bias.copy_(0.05 * torch.randn(n, device=device, generator=gen))
+    return lin.requires_grad_(False)
+
+
+@pytest.mark.parametrize("m", [1, 63, 1723, 16 * 1723])  # ragged rows up to the cell's longest b16 group
+@pytest.mark.parametrize("c", VOCOS_HUGE_DIMS)
+def test_linear_3xtf32_matches_fp64(cuda_device, c, m):
+    """Each MLP shape of vocos-huge (pwconv1 C -> 4C with GELU, pwconv2 4C -> C) against the fp64 product."""
+    from vocoder_tpu_torch.ops.linear_3xtf32 import linear_3xtf32
+
+    gen = torch.Generator(device=cuda_device).manual_seed(c + m)
+    x = torch.randn(m, c, device=cuda_device, generator=gen)
+    for k, n, gelu in ((c, 4 * c, True), (4 * c, c, False)):
+        lin = _vocos_linear(k, n, cuda_device, gen)
+        with torch.inference_mode():
+            got = linear_3xtf32(x, lin, gelu)
+        want = x.double() @ lin.weight.double().T + lin.bias.double()
+        want = torch.nn.functional.gelu(want) if gelu else want
+        assert got.shape == (m, n) and _rel_l2(got, want) < LINEAR_REL_L2, (k, n, _rel_l2(got, want))
+        x = got
+
+
+def test_linear_3xtf32_inference_tensor_weights(cuda_device):
+    """A Linear made under inference mode (no version counter) runs on the kernel, its weight split again at
+    each call, and a ConvNeXt block built so takes the kernel route."""
+    from vocoder_tpu_torch.models.convnext import ConvNeXtBlock, ConvNeXtConfig
+    from vocoder_tpu_torch.ops import linear_3xtf32 as lin3
+
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    with torch.inference_mode():
+        lin = _vocos_linear(704, 2816, cuda_device, gen)
+        x = torch.randn(63, 704, device=cuda_device, generator=gen)
+        block = ConvNeXtBlock(64, ConvNeXtConfig(dims=(64,), depths=(1,)), device=cuda_device).eval()
+        xb = torch.randn(2, 9, 64, device=cuda_device, generator=gen)
+    want = x.double() @ lin.weight.double().T + lin.bias.double()
+    builds, launches, library = lin3.packed_weight.builds, lin3.linear_3xtf32.launches, ConvNeXtBlock.library_mlps
+    with torch.inference_mode():
+        for _ in range(2):
+            assert _rel_l2(lin3.linear_3xtf32(x, lin), want) < LINEAR_REL_L2
+        block(xb)
+    assert lin3.packed_weight.builds == builds + 4 and lin3.linear_3xtf32.launches == launches + 4
+    assert ConvNeXtBlock.library_mlps == library
+
+
+def _vocos_huge(device):
+    import math
+
+    from vocoder_tpu_torch.models.vocos import Vocos, VocosConfig
+
+    model = Vocos(VocosConfig.huge(), device=device)
+    gen = torch.Generator(device=device).manual_seed(0)
+    with torch.no_grad():  # vocos.random_state_dict's scales (layer scales 0.1, so every block speaks)
+        for name, p in model.named_parameters():
+            r = torch.randn(p.shape, device=device, generator=gen)
+            if name.endswith("gamma"):
+                p.copy_(0.1 * (1.0 + 0.1 * r))
+            elif name == "head.out.weight":
+                p.copy_(0.5 / math.sqrt(p.shape[1]) * r)
+            elif p.dim() > 1:
+                p.copy_(r / math.sqrt(math.prod(p.shape[1:])))
+            elif name.endswith("weight"):
+                p.copy_(1.0 + 0.1 * r)
+            else:
+                p.copy_(0.05 * r)
+    return model.eval()
+
+
+def test_vocos_huge_b16_forward_on_the_kernel_matches_cublas(cuda_device, monkeypatch):
+    """A vocos-huge b16 forward with frame_lengths launches the kernel twice a block (72) and takes cuBLAS
+    never; each item's own samples against the same forward through cuBLAS's fp32 SGEMM.  Then a weight
+    changed in place is split again, and a forward under autograd, or in bf16, takes cuBLAS."""
+    from vocoder_tpu_torch.models.convnext import ConvNeXtBlock
+    from vocoder_tpu_torch.ops import linear_3xtf32 as lin3
+
+    model = _vocos_huge(cuda_device)
+    frames = [64 + 29 * i for i in range(16)]
+    gen = torch.Generator(device=cuda_device).manual_seed(1)
+    mel = torch.randn(16, 128, max(frames), device=cuda_device, generator=gen) - 5.0
+    for i, f in enumerate(frames):
+        mel[i, :, f:] = 0.0
+    lens = torch.tensor(frames, dtype=torch.int32, device=cuda_device)
+    hop = model.cfg.head.hop_length
+
+    def forward(kernel: bool):
+        launches, library = lin3.linear_3xtf32.launches, ConvNeXtBlock.library_mlps
+        with monkeypatch.context() as mp, torch.inference_mode():
+            if not kernel:
+                mp.setattr(lin3, "KERNEL_DEVICE", "no kernel")
+            out = model(mel, frame_lengths=lens)
+        return out, lin3.linear_3xtf32.launches - launches, ConvNeXtBlock.library_mlps - library
+
+    got, launches, library = forward(True)
+    want, launches_lib, library_lib = forward(False)
+    assert (launches, library) == (72, 0) and (launches_lib, library_lib) == (0, 36)
+    for i, f in enumerate(frames):
+        assert _rel_l2(got[i, 0, : f * hop], want[i, 0, : f * hop]) < LINEAR_REL_L2
+
+    block = model.backbone.stages[2][5]
+    builds = lin3.packed_weight.builds
+    with torch.no_grad():
+        block.pwconv1.weight.mul_(1.25)
+    got, _, _ = forward(True)
+    want, _, _ = forward(False)
+    assert lin3.packed_weight.builds == builds + 1
+    for i, f in enumerate(frames):
+        assert _rel_l2(got[i, 0, : f * hop], want[i, 0, : f * hop]) < LINEAR_REL_L2
+
+    launches, library = lin3.linear_3xtf32.launches, ConvNeXtBlock.library_mlps
+    short = mel[:2, :, :64]
+    model.backbone.requires_grad_(True)
+    model.backbone(short).sum().backward()  # training: the kernel has no backward
+    with torch.inference_mode():
+        model.to(torch.bfloat16)(short.to(torch.bfloat16))
+    assert lin3.linear_3xtf32.launches == launches and ConvNeXtBlock.library_mlps == library + 72
+    tp_marked = torch.nn.Linear(8, 8, device=cuda_device).requires_grad_(False)
+    tp_marked.tp_layer = object()
+    with torch.inference_mode():
+        assert not lin3.takes(torch.zeros(2, 8, device=cuda_device), tp_marked)

@@ -2,9 +2,12 @@
 
 from __future__ import annotations
 
-import pytest
+import types
 
-from vocoder_tpu_torch.tools import sass_diff, timing
+import pytest
+import torch
+
+from vocoder_tpu_torch.tools import profile_forward, sass_diff, timing
 
 _DUMP = """
 \tcode for sm_90a
@@ -42,3 +45,18 @@ def test_edit_replaces_each_text_once_and_refuses_a_missing_one():
         timing.edit("a b b", "v", [("b", "B")])
     with pytest.raises(RuntimeError, match="exactly one"):
         timing.edit("a b c", "v", [("d", "D")])
+
+
+def test_kernel_times_leave_out_the_spans_device_copies():
+    """The profiler lists a span's device-side range beside the kernels it holds; only kernels count."""
+    cuda, cpu = torch.autograd.DeviceType.CUDA, torch.autograd.DeviceType.CPU
+
+    def event(name, device, us, span=False):
+        return types.SimpleNamespace(name=name, device_type=device, is_user_annotation=span,
+                                     time_range=types.SimpleNamespace(elapsed_us=lambda: us))
+
+    prof = types.SimpleNamespace(events=lambda: [
+        event("gen.forward", cuda, 100.0, span=True), event("gen.mlp", cuda, 60.0, span=True),
+        event("gemm", cuda, 40.0), event("gemm", cuda, 20.0), event("gelu", cuda, 5.0),
+        event("aten::linear", cpu, 70.0)])
+    assert dict(profile_forward.kernel_times(prof)) == {"gemm": [40.0, 20.0], "gelu": [5.0]}

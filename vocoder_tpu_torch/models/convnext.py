@@ -35,6 +35,12 @@ stem or the transition), its blocks and their masks, and ``gen.mlp`` around
 each block's pwconv1 -> GELU -> pwconv2 (the layer scale and the residual
 outside it), wherever the encoder runs (Vocos' backbone, Firefly-GAN's, the
 vae encoders); the benchmark reads them in its Vocos cell.
+
+The MLP's two GEMMs run on the port's 3xTF32 kernel (``ops/linear_3xtf32.py``: fp32-grade products on
+the tensor cores, the bias and pwconv1's GELU in its epilogue) wherever ``linear_3xtf32.takes`` holds:
+fp32 on the card, no gradient recorded, neither Linear tensor-parallel.  Training, tensor-parallel
+inference, bf16 and the CPU keep ``tp.linear`` (cuBLAS, or PyTorch's CPU matmul);
+``ConvNeXtBlock.library_mlps`` counts the MLPs of CUDA tensors that took it.
 """
 
 from __future__ import annotations
@@ -47,6 +53,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from vocoder_tpu_torch.nn import drop_path, length_mask
+from vocoder_tpu_torch.ops import linear_3xtf32 as lin3
 from vocoder_tpu_torch.parallel import tp, tp_specs
 from vocoder_tpu_torch.utils.spans import span
 
@@ -114,10 +121,21 @@ class ConvNeXtBlock(nn.Module):
         else:
             self.register_parameter("gamma", None)
 
+    library_mlps = 0  # MLPs of CUDA tensors that took tp.linear (cuBLAS) and not the 3xTF32 kernel
+
+    def mlp(self, y: torch.Tensor) -> torch.Tensor:
+        """pwconv1 -> exact (erf) GELU, torch's default -> pwconv2: on the 3xTF32 kernel where
+        ``linear_3xtf32.takes`` holds, else through ``tp.linear``."""
+        if lin3.takes(y, self.pwconv1, self.pwconv2):
+            return lin3.linear_3xtf32(lin3.linear_3xtf32(y, self.pwconv1, gelu=True), self.pwconv2)
+        if y.is_cuda:
+            ConvNeXtBlock.library_mlps += 1
+        return tp.linear(self.pwconv2, F.gelu(tp.linear(self.pwconv1, y)))
+
     def forward(self, x: torch.Tensor, noise: torch.Generator | None = None) -> torch.Tensor:
         y = self.norm(conv_time(self.dwconv, x))
         with span("gen.mlp"):
-            y = tp.linear(self.pwconv2, F.gelu(tp.linear(self.pwconv1, y)))  # exact (erf) GELU, torch's default
+            y = self.mlp(y)
         if self.gamma is not None:
             y = self.gamma * y
         if noise is not None:

@@ -44,10 +44,12 @@ RESOLUTION = {"refinegan": "24000_256_1024"}  # the only one its rates build at
 
 
 def kernel_times(prof) -> dict[str, list[float]]:
-    """Kernel name -> the durations (µs) of its launches in the trace."""
+    """Kernel name -> the durations (µs) of its launches in the trace.  The device-side copies of the
+    forward's spans (``record_function`` ranges, nested, each spanning the kernels inside it) are left out:
+    counted as kernels, they read the card busy two to three times over."""
     out = collections.defaultdict(list)
     for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
+        if e.device_type == torch.autograd.DeviceType.CUDA and not getattr(e, "is_user_annotation", False):
             out[e.name].append(e.time_range.elapsed_us())
     return out
 
