@@ -2891,7 +2891,7 @@ def _tp_bigvgan_forwards(mg, dev, rank: int) -> dict:
     from vocoder_tpu_torch.nn import fold_weight_norm
     from vocoder_tpu_torch.ops import launch_counts
     from vocoder_tpu_torch.ops.aa_snake import aa_snake
-    from vocoder_tpu_torch.ops.amp_block import amp_stage, stage_plan
+    from vocoder_tpu_torch.ops.amp_block import amp_stage, stage_plans
     from vocoder_tpu_torch.parallel import tp
 
     cfg = build_task_config("bigvgan", "44100_512_2048").generator
@@ -2914,10 +2914,10 @@ def _tp_bigvgan_forwards(mg, dev, rank: int) -> dict:
         cases = (("fp32", model, mel, {}), ("fp32_again", model, mel, {}),
                  ("fp32_masked", model, masked, {"frame_lengths": frames}), ("bf16", model_bf16, mel.bfloat16(), {}))
         for tag, m, x, kw in cases:
-            before = (stage_plan.builds, stage_plan.hits, tp.whole_blocks.builds, tp.whole_blocks.hits)
+            before = (stage_plans.builds, stage_plans.hits, tp.whole_stages.builds, tp.whole_stages.hits)
             aa_snake.launches = aa_snake.bwd_launches = amp_stage.launches = amp_stage.mma_launches = 0
             y, ms = _timed(lambda: m(x, **kw))
-            after = (stage_plan.builds, stage_plan.hits, tp.whole_blocks.builds, tp.whole_blocks.hits)
+            after = (stage_plans.builds, stage_plans.hits, tp.whole_stages.builds, tp.whole_stages.hits)
             runs[tag] = _every_rank(y, mg)
             out[tag] = {"launches": launch_counts(), "ms_2_gloo_ranks_on_one_card": ms,
                         **dict(zip(("k2_plans_packed", "k2_plans_reused", "gathered_stages_made", "gathered_stages_reused"),

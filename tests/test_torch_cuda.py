@@ -168,6 +168,39 @@ def test_packed_weight_cache_follows_in_place_changes(cuda_device, dtype):
     assert _rel_l2(second.float(), first.float()) > 1e-2
 
 
+@pytest.mark.parametrize("what", ["blocks", "conv_weights"])
+def test_packed_weight_cache_follows_a_cast_round_trip(cuda_device, what):
+    """A fp32 -> bf16 -> fp32 round trip keeps every ``_version``, and the caching allocator can hand the
+    second cast the block that the first freed, at the old address.  The plan is packed again all the same,
+    and the stage runs the rounded weights.  ``blocks``: ``Module.to`` on the blocks, to bf16 and back;
+    ``conv_weights``: each conv weight's two casts back to back, by ``.data`` as ``Module.to`` swaps it, so
+    that no other allocation comes between the first's free and the second."""
+    blocks = list(_model(NARROW, cuda_device).resblocks[:3])
+    convs = [c for b in blocks for c in (*b.convs1, *b.convs2)]
+    x = torch.randn(1, 32, 200, device=cuda_device)
+    with torch.inference_mode():
+        first = amp_stage(blocks, x, True)
+        plan = stage_plan(blocks, True)
+    ptrs = [c.weight.data_ptr() for c in convs]
+    if what == "blocks":
+        for dtype in (torch.bfloat16, torch.float32):
+            for b in blocks:
+                b.to(dtype)
+    else:
+        for c in convs:
+            for dtype in (torch.bfloat16, torch.float32):
+                c.weight.data = c.weight.data.to(dtype)
+    reused = sum(c.weight.data_ptr() == p for c, p in zip(convs, ptrs))
+    with torch.inference_mode():
+        second = amp_stage(blocks, x, True)
+        rebuilt = stage_plan(blocks, True) is not plan
+        want = amp_stage_plain(blocks, x, True)
+    print(f"{what}: {reused} of {len(convs)} conv weights at their old address; plan packed again: {rebuilt}")
+    assert rebuilt
+    torch.testing.assert_close(second, want, rtol=2e-4, atol=2e-5)
+    assert _rel_l2(second, first) > 1e-5
+
+
 def test_kernels_refuse_autograd(cuda_device):
     """The kernels are forward only: with gradients on, K2's wrapper and a direct K1 launch raise instead of
     returning a tensor without a graph.  K1 under autograd goes through ``AASnakeFunction`` (tests below)."""
@@ -749,12 +782,12 @@ def test_linear_3xtf32_inference_tensor_weights(cuda_device):
         block = ConvNeXtBlock(64, ConvNeXtConfig(dims=(64,), depths=(1,)), device=cuda_device).eval()
         xb = torch.randn(2, 9, 64, device=cuda_device, generator=gen)
     want = x.double() @ lin.weight.double().T + lin.bias.double()
-    builds, launches, library = lin3.packed_weight.builds, lin3.linear_3xtf32.launches, ConvNeXtBlock.library_mlps
+    builds, launches, library = lin3.weight_packs.builds, lin3.linear_3xtf32.launches, ConvNeXtBlock.library_mlps
     with torch.inference_mode():
         for _ in range(2):
             assert _rel_l2(lin3.linear_3xtf32(x, lin), want) < LINEAR_REL_L2
         block(xb)
-    assert lin3.packed_weight.builds == builds + 4 and lin3.linear_3xtf32.launches == launches + 4
+    assert lin3.weight_packs.builds == builds + 4 and lin3.linear_3xtf32.launches == launches + 4
     assert ConvNeXtBlock.library_mlps == library
 
 
@@ -812,12 +845,12 @@ def test_vocos_huge_b16_forward_on_the_kernel_matches_cublas(cuda_device, monkey
         assert _rel_l2(got[i, 0, : f * hop], want[i, 0, : f * hop]) < LINEAR_REL_L2
 
     block = model.backbone.stages[2][5]
-    builds = lin3.packed_weight.builds
+    builds = lin3.weight_packs.builds
     with torch.no_grad():
         block.pwconv1.weight.mul_(1.25)
     got, _, _ = forward(True)
     want, _, _ = forward(False)
-    assert lin3.packed_weight.builds == builds + 1
+    assert lin3.weight_packs.builds == builds + 1
     for i, f in enumerate(frames):
         assert _rel_l2(got[i, 0, : f * hop], want[i, 0, : f * hop]) < LINEAR_REL_L2
 

@@ -1,5 +1,6 @@
 """The 3xTF32 Linear (``ops/linear_3xtf32.py``) on the CPU: its operand split, its plain arithmetic against an
-fp64 product at the ConvNeXt MLP's widths, the routing rule of ``ConvNeXtBlock`` and the weight pack's cache.
+fp64 product at the ConvNeXt MLP's widths and the routing rule of ``ConvNeXtBlock``.  The weight pack's cache is
+held to the rule of every such cache in ``tests/test_torch_weight_cache.py``.
 
 The kernel itself runs only on the card (``tests/test_torch_cuda.py``); here the launcher is monkeypatched
 where a test needs the kernel's route taken.
@@ -125,7 +126,7 @@ def test_block_routes_by_what_it_observes(case, kernel_on_cpu, monkeypatch):
         monkeypatch.setattr(block.pwconv2, "tp_layer", object(), raising=False)
     if case == "cpu_tensor":
         monkeypatch.setattr(lin3, "KERNEL_DEVICE", "cuda")
-    before, builds = ConvNeXtBlock.library_mlps, lin3.packed_weight.builds
+    before, builds = ConvNeXtBlock.library_mlps, lin3.weight_packs.builds
     for _ in range(2):
         if case == "grad_enabled":
             y = block(x)
@@ -138,7 +139,7 @@ def test_block_routes_by_what_it_observes(case, kernel_on_cpu, monkeypatch):
     to_kernel = case in ("fp32_inference", "no_grad_with_grad_params", "inference_tensor_weights")
     assert kernel_on_cpu["kernel"] == ([True, False] * 2 if to_kernel else [])
     assert kernel_on_cpu["library"] == ([] if to_kernel else [block.pwconv1, block.pwconv2] * 2)
-    assert lin3.packed_weight.builds - builds == (4 if case == "inference_tensor_weights" else 2 if to_kernel else 0)
+    assert lin3.weight_packs.builds - builds == (4 if case == "inference_tensor_weights" else 2 if to_kernel else 0)
     assert ConvNeXtBlock.library_mlps == before  # CPU tensors are not counted
     assert y.dtype == x.dtype and y.shape == x.shape
 
@@ -151,30 +152,3 @@ def test_kernel_route_equals_library_route_on_the_cpu(kernel_on_cpu):
     assert kernel_on_cpu["kernel"] == [True, False]
     want = block(x).detach()  # grad enabled: the library route
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
-
-
-@pytest.mark.parametrize("change", ["in_place", "replaced", "cast_round_trip", "none"])
-def test_pack_follows_the_weight(change):
-    """The (2, N, K) pack is split once and reused while the weight's (data_ptr, _version, dtype, shape) stays;
-    an in-place change, a new Parameter or a fp32 -> bf16 -> fp32 round trip (``Module.to`` swaps ``.data`` and
-    keeps ``_version``) splits it again, to the new weight's halves.  The pack holds the storage it was split
-    from, so a round trip's new storage cannot take the old address."""
-    lin = _linear(8, 12, 3)
-    first, first_ptr = lin3.packed_weight(lin), lin.weight.data_ptr()
-    builds, hits = lin3.packed_weight.builds, lin3.packed_weight.hits
-    if change == "in_place":
-        with torch.no_grad():
-            lin.weight.mul_(1.5)
-    elif change == "replaced":
-        lin.weight = torch.nn.Parameter(lin.weight.detach() * 2.0)
-    elif change == "cast_round_trip":
-        version = lin.weight._version
-        lin.to(torch.bfloat16).to(torch.float32)
-        assert lin.weight._version == version  # the version counter alone would not see it
-        assert lin3._PACKS[lin].storage.data_ptr() == first_ptr != lin.weight.data_ptr()
-    again = lin3.packed_weight(lin)
-    rebuilt = change != "none"
-    assert lin3.packed_weight.builds == builds + rebuilt and lin3.packed_weight.hits == hits + (not rebuilt)
-    assert (again is not first) == rebuilt
-    hi, lo = lin3.tf32_split(lin.weight.detach())
-    assert torch.equal(again, torch.stack([hi, lo]))

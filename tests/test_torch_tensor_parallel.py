@@ -249,7 +249,8 @@ def _adam_zone(got_grads: dict, want_grads: dict) -> dict:
 def test_tp_forward_equals_one_process_and_jax(spawned, name):
     """Every rank's waveform equals one process's within ONE_PROCESS_REL_L2 and JAX's TP forward within
     JAX_ATOL, with and without lengths (0 past each); the ranks of a model group agree to the bit; a
-    second forward of BigVGAN reuses the gathered stage weights (one build, then hits)."""
+    second forward of BigVGAN reuses the gathered stage weights (one build, then hits), and a forward after a
+    fp32 -> bf16 -> fp32 round trip of the model gathers them again and equals one process's after the same."""
     per_rank, one, jax_out = spawned[0], spawned[1], spawned[2]
     key = f"forward/{name}"
     want = one[key]
@@ -267,6 +268,10 @@ def test_tp_forward_equals_one_process_and_jax(spawned, name):
         np.testing.assert_array_equal(got["audio"], per_rank[r - r % MODEL_PARALLEL][key]["audio"])
         forwards = 3 if "audio_lengths" in got else 2
         assert got["whole_blocks"] == ((1, forwards - 1) if name.startswith("bigvgan") else (0, 0)), got["whole_blocks"]
+        if name.startswith("bigvgan"):
+            assert got["whole_blocks_round_trip"] == (1, 0), got["whole_blocks_round_trip"]
+            rel = _rel_l2(got["audio_round_trip"], want["audio_round_trip"])
+            assert rel <= ONE_PROCESS_REL_L2 and _rel_l2(want["audio_round_trip"], want["audio"]) > 1e-4, (r, rel)
 
 
 def test_vocos_huge_rank_holds_about_half_the_parameters(spawned):

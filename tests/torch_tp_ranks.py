@@ -188,19 +188,31 @@ def forward_model(name: str, sd: dict, model_group=None) -> torch.nn.Module:
 
 def run_forward(name: str, sd: dict, model_group=None) -> dict:
     """The forward of ``mel_input(name)``, and with its lengths and its template where it has them; twice
-    (the second forward must reuse K2's gathered stage weights: ``tp.whole_blocks``' counts)."""
+    (the second forward must reuse K2's gathered stage weights: ``tp.whole_blocks``' counts).  BigVGAN's then
+    runs once more after a fp32 -> bf16 -> fp32 round trip of the model, which keeps every ``_version``: the
+    gathered stages must be made again, from the rounded weights."""
     model = forward_model(name, sd, model_group)
     inp = {k: torch.from_numpy(v) for k, v in mel_input(name).items()}
     kw = {"template": inp["template"]} if "template" in inp else {}
-    out = {}
-    before = (tp.whole_blocks.builds, tp.whole_blocks.hits)
+    out, counts = {}, {}
+
+    def counted(key: str, before: tuple) -> None:
+        counts[key] = (tp.whole_stages.builds - before[0], tp.whole_stages.hits - before[1])
+
+    before = (tp.whole_stages.builds, tp.whole_stages.hits)
     with torch.inference_mode():
         out["audio"] = model(inp["mel"], **kw)
         out["audio_again"] = model(inp["mel"], **kw)
         if "lengths" in inp:
             out["audio_lengths"] = model(inp["mel"] * mask(inp["lengths"], FRAMES), frame_lengths=inp["lengths"], **kw)
-    result = _numpy(out)
-    result["whole_blocks"] = (tp.whole_blocks.builds - before[0], tp.whole_blocks.hits - before[1])
+    counted("whole_blocks", before)
+    if name.startswith("bigvgan"):
+        model.to(torch.bfloat16).to(torch.float32)
+        before = (tp.whole_stages.builds, tp.whole_stages.hits)
+        with torch.inference_mode():
+            out["audio_round_trip"] = model(inp["mel"], **kw)
+        counted("whole_blocks_round_trip", before)
+    result = {**_numpy(out), **counts}
     if tp.is_sharded(model):
         result["param_bytes"] = sum(p.numel() * p.element_size() for p in model.parameters())
     return result

@@ -42,8 +42,8 @@ K1 on this rank's channel shard.  K2 takes no shard: each of its convs mixes
 all input channels, and the JAX package's fused stage, a Pallas call that
 GSPMD replicates, runs on gathered operands.  So in eval mode a sharded
 stage gathers its input over the model group, runs K2 on the whole stage with
-the stage's gathered weights (``tp.whole_blocks``: made once per model state,
-so K2 packs them once) and keeps this rank's channel shard of the output: the
+the stage's gathered weights (``tp.whole_blocks``, kept by the rule of
+``utils/weight_cache.py``) and keeps this rank's channel shard of the output: the
 stages gain no speed from tensor parallelism, as in the JAX package.
 ``activation_post`` and conv_post run whole on every rank.
 """

@@ -143,8 +143,7 @@ def cast_parameters(module: nn.Module, dtype: torch.dtype):
 
 def cast_copy(module: nn.Module, dtype: torch.dtype) -> nn.Module:
     """A copy of ``module`` whose floating parameters are detached ``dtype`` copies (buffers copied as
-    they are).  Its modules are new objects, so no cache keyed by module (K2's ``StagePlan``) can take
-    the copy for an earlier one."""
+    they are)."""
     memo = {id(p): nn.Parameter(p.detach().to(dtype), requires_grad=False)
             for p in module.parameters() if p.is_floating_point()}
     return copy.deepcopy(module, memo)

@@ -31,9 +31,9 @@ length and writes 0 past it, so each row equals that item's stage alone
 stay on the card.
 
 Each conv's kernel arguments (the packed weights and the parameter
-pointers) are built once per model into a ``StagePlan``, cached outside the
-modules and rebuilt when a parameter is replaced or changed in place;
-``state_dict()`` never sees it.  A launch is then one ctypes call.
+pointers) are built once per model state into a ``StagePlan``, kept outside
+the modules (``stage_plans``, ``utils/weight_cache.py``); ``state_dict()``
+never sees it.  A launch is then one ctypes call.
 
 ``amp_stage`` takes a CPU tensor to ``amp_stage_plain`` and launches the
 kernel for a CUDA tensor, or raises.  ``amp_stage.launches`` counts
@@ -50,7 +50,6 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
-import weakref
 
 import torch
 import torch.nn.functional as F
@@ -58,6 +57,7 @@ import torch.nn.functional as F
 from vocoder_tpu_torch.nn import get_padding, length_mask
 from vocoder_tpu_torch.ops import build
 from vocoder_tpu_torch.ops.antialias import aa_snake_plain, item_lengths, snake_params
+from vocoder_tpu_torch.utils.weight_cache import WeightCache
 
 _C_VOID = ctypes.c_void_p
 _C_INT = ctypes.c_int
@@ -154,10 +154,6 @@ def pack_conv_weight(w: torch.Tensor) -> torch.Tensor:
 class StagePlan:
     """The launch arguments of one stage's convs, in launch order, for one model state."""
 
-    blocks: tuple[int, ...]  # id() of each block
-    slots: list  # (module._parameters, name) of every parameter of the blocks
-    key: list | None  # (data_ptr, version) of each slot's tensor; None: not trackable, never reused
-    logscale: bool
     dtype: torch.dtype
     device: torch.device
     channels: int
@@ -167,42 +163,15 @@ class StagePlan:
     weights: list[torch.Tensor]  # what the ConvParams point to, kept alive
 
 
-_PLANS: weakref.WeakKeyDictionary = weakref.WeakKeyDictionary()  # first block -> StagePlan
-
-
-def _slots(blocks) -> list:
-    return [(m._parameters, name) for blk in blocks for m in blk.modules()
-            for name, p in m._parameters.items() if p is not None]
-
-
-def _key(slots) -> list | None:
-    try:
-        return [(d[name].data_ptr(), d[name]._version) for d, name in slots]
-    except RuntimeError:  # inference tensors carry no version counter
-        return None
+stage_plans = WeightCache()  # first block -> StagePlan
 
 
 def stage_plan(blocks, logscale: bool) -> StagePlan:
-    """The cached ``StagePlan`` of these blocks, rebuilt when a parameter was replaced or changed."""
-    ids = tuple(map(id, blocks))
-    plan = _PLANS.get(blocks[0])
-    if plan is not None and plan.blocks == ids and plan.logscale == logscale:
-        key = _key(plan.slots)
-        if key is not None and key == plan.key:
-            stage_plan.hits += 1
-            return plan
-    slots = _slots(blocks)
-    plan = _build_plan(list(blocks), logscale, ids, slots, _key(slots))
-    _PLANS[blocks[0]] = plan
-    stage_plan.builds += 1
-    return plan
+    """These blocks' ``StagePlan``, kept in ``stage_plans`` by the rule of ``utils/weight_cache.py``."""
+    return stage_plans.get(blocks[0], blocks, lambda: _build_plan(blocks, logscale), logscale)
 
 
-stage_plan.builds = 0  # plans packed
-stage_plan.hits = 0  # stages that took a cached plan
-
-
-def _build_plan(blocks, logscale: bool, ids, slots, key) -> StagePlan:
+def _build_plan(blocks, logscale: bool) -> StagePlan:
     first = blocks[0].convs1[0].weight
     dtype, device, c = first.dtype, first.device, first.shape[0]
     if dtype not in ROUTES:
@@ -226,8 +195,7 @@ def _build_plan(blocks, logscale: bool, ids, slots, key) -> StagePlan:
                 params.append(ConvParams(w.data_ptr(), *(t.data_ptr() for t in vecs), build.DTYPE_CODES[dtype],
                                          int(logscale), c, k, dil, float(len(blocks))))
                 weights += [w, *vecs]
-    return StagePlan(ids, slots, key, logscale, dtype, device, c, ROUTES[dtype], params,
-                     [ctypes.addressof(p) for p in params], weights)
+    return StagePlan(dtype, device, c, ROUTES[dtype], params, [ctypes.addressof(p) for p in params], weights)
 
 
 def amp_stage_kernel(blocks, x: torch.Tensor, logscale: bool, lengths=None) -> torch.Tensor:

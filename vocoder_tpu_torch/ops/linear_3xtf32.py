@@ -10,11 +10,8 @@ hi·hi`` summed in fp32, only ``lo·lo`` dropped.
 Bound by operations: 3 x 2 M N K at 495 TFLOP/s.  The bias, and for pwconv1 the GELU, are its epilogue,
 so the hidden (M, 4C) tensor is written once and read once.
 
-The weight's halves are split once per weight into a (2, N, K) pack (hi, then lo), cached outside the module
-and rebuilt when the weight is replaced or changed in place (its ``(data_ptr, _version)``, as
-``amp_block.stage_plan`` keys K2's packs, with its dtype and shape); the activation is split inside the kernel.
-A weight made under ``torch.inference_mode`` carries no version counter, so its pack is split again at every
-call, as K2 rebuilds its plan for such weights.
+The weight's halves are split once per weight into a (2, N, K) pack (hi, then lo), kept outside the module
+by the rule of ``utils/weight_cache.py``; the activation is split inside the kernel.
 
 ``linear_3xtf32`` takes a CPU tensor to ``linear_3xtf32_plain`` and launches the kernel for a CUDA tensor,
 or raises.  ``linear_3xtf32.launches`` counts launches.  Forward only: ``takes`` is the routing rule
@@ -24,15 +21,14 @@ or raises.  ``linear_3xtf32.launches`` counts launches.  Forward only: ``takes``
 from __future__ import annotations
 
 import ctypes
-import dataclasses
 import functools
-import weakref
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from vocoder_tpu_torch.ops import build
+from vocoder_tpu_torch.utils.weight_cache import WeightCache
 
 LIB = "linear_3xtf32"  # csrc/linear_3xtf32.cu
 KERNEL_DEVICE = "cuda"  # the device type the kernel runs on
@@ -75,39 +71,13 @@ def linear_3xtf32_plain(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tenso
     return F.gelu(y) if gelu else y
 
 
-@dataclasses.dataclass
-class Pack:
-    """A weight's tf32 halves, (2, N, K): the kernel's B operands."""
-
-    key: tuple  # the weight's (data_ptr, _version, dtype, shape) at the split
-    storage: torch.UntypedStorage  # the weight's storage then, held so that no later weight takes its address
-    halves: torch.Tensor
-
-
-_PACKS: weakref.WeakKeyDictionary = weakref.WeakKeyDictionary()  # the Linear -> Pack
+weight_packs = WeightCache()  # the Linear -> its (2, N, K) pack
 
 
 def packed_weight(linear: nn.Linear) -> torch.Tensor:
-    """The cached (2, N, K) pack of ``linear.weight``'s hi and lo halves, split again when the weight was
-    replaced (``Module.to`` swaps ``.data`` and keeps ``_version``: the pack holds the old storage, so a new one
-    cannot reuse its address) or changed in place.  An inference tensor's halves are split at every call and
-    not kept."""
-    w = linear.weight
-    key = None if w.is_inference() else (w.data_ptr(), w._version, w.dtype, w.shape)
-    pack = _PACKS.pop(linear, None) if key is None else _PACKS.get(linear)
-    if pack is not None and pack.key == key:
-        packed_weight.hits += 1
-        return pack.halves
-    with torch.no_grad():
-        halves = torch.stack(tf32_split(w.detach()))
-    if key is not None:
-        _PACKS[linear] = Pack(key, w.untyped_storage(), halves)
-    packed_weight.builds += 1
-    return halves
-
-
-packed_weight.builds = 0  # packs split
-packed_weight.hits = 0  # launches that took a cached pack
+    """The (2, N, K) pack of ``linear.weight``'s hi and lo halves, kept in ``weight_packs`` by the rule of
+    ``utils/weight_cache.py``."""
+    return weight_packs.get(linear, (linear,), lambda: torch.stack(tf32_split(linear.weight.detach())))
 
 
 def takes(x: torch.Tensor, *linears: nn.Linear) -> bool:

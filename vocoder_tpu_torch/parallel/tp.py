@@ -21,7 +21,8 @@ the collectives that GSPMD would insert, so that every rank computes one process
 - ``conv`` and ``linear`` run a layer as its ``tp_layer`` (set by ``shard_module``) says, or as
   the plain layer; ``whole`` gathers a channel shard where a replicated layer follows.
 - ``whole_blocks`` gives the kernel that takes a whole AMP stage (K2) the stage's gathered weights,
-  made once per model state, as GSPMD replicates a Pallas call on gathered operands.
+  made once per model state (``utils/weight_cache.py``), as GSPMD replicates a Pallas call on gathered
+  operands.
 - ``grad_norm`` is the whole gradient's norm, and ``whole_state_dict`` / ``shard_state`` and their
   optimizer counterparts turn a sharded state into whole tensors and back (checkpoints hold whole
   tensors, as Orbax saves global arrays).
@@ -50,7 +51,6 @@ from __future__ import annotations
 import contextlib
 import copy
 import dataclasses
-import weakref
 
 import numpy as np
 import torch
@@ -62,6 +62,7 @@ from torch.nn.utils import parametrize
 from vocoder_tpu_torch.convert import shard_state_dict
 from vocoder_tpu_torch.parallel import dist
 from vocoder_tpu_torch.parallel.tp_specs import MIN_SIZE, Spec, key_dims, storage_dims
+from vocoder_tpu_torch.utils.weight_cache import WeightCache
 
 
 class ModelGroup:
@@ -521,16 +522,11 @@ def shard_optimizer_state(sd: dict, module: nn.Module) -> dict:
     return {"state": state, "param_groups": sd["param_groups"]}
 
 
-_WHOLE: weakref.WeakKeyDictionary = weakref.WeakKeyDictionary()  # first shard block -> (key, whole blocks)
+whole_stages = WeightCache()  # first shard block -> the whole blocks
 
 
-def _state_key(blocks) -> list | None:
-    try:
-        return [(p.data_ptr(), p._version, p.dtype) for b in blocks for p in b.parameters()]
-    except RuntimeError:  # inference tensors carry no version counter
-        return None
-
-
+@torch.inference_mode(False)
+@torch.no_grad()
 def _whole_module(block: nn.Module, mg: ModelGroup) -> nn.Module:
     whole = copy.deepcopy(block)
     shards = dict(block.named_modules())
@@ -558,24 +554,13 @@ def _whole_module(block: nn.Module, mg: ModelGroup) -> nn.Module:
 def whole_blocks(blocks: list, mg: ModelGroup, device: torch.device) -> list:
     """Whole-width copies of a stage's blocks whose shards this rank holds, for K2, which takes a whole
     stage: every sharded weight gathered over the model group (a row-parallel conv's from its weight
-    norm with the group's norm, folded), alpha and beta too.  Kept while the shards' tensors stay (their
-    addresses, versions and dtypes) and made anew when any changed, so that K2's plan cache, keyed by
-    module, packs them once a model state; the ranks agree on that through one small all-reduce, as
-    the making gathers over the group.  Counted in ``whole_blocks.builds`` and ``.hits``."""
-    key = _state_key(blocks)
-    cached = _WHOLE.get(blocks[0])
-    hit = cached is not None and key is not None and cached[0] == key
-    miss = torch.tensor([0.0 if hit else 1.0], device=device)
-    tdist.all_reduce(miss, group=mg.group)
-    if float(miss) == 0.0:
-        whole_blocks.hits += 1
-        return cached[1]
-    with torch.inference_mode(False), torch.no_grad():
-        made = [_whole_module(b, mg) for b in blocks]
-    _WHOLE[blocks[0]] = (key, made)
-    whole_blocks.builds += 1
-    return made
+    norm with the group's norm, folded), alpha and beta too.  Kept in ``whole_stages`` by the rule of
+    ``utils/weight_cache.py``, so that K2 packs them once a model state; the ranks agree on reusing them
+    through one small all-reduce, as the making gathers over the group."""
 
+    def all_fresh(fresh: bool) -> bool:
+        miss = torch.tensor([0.0 if fresh else 1.0], device=device)
+        tdist.all_reduce(miss, group=mg.group)
+        return float(miss) == 0.0
 
-whole_blocks.builds = 0
-whole_blocks.hits = 0
+    return whole_stages.get(blocks[0], blocks, lambda: [_whole_module(b, mg) for b in blocks], agree=all_fresh)

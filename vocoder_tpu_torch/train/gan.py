@@ -65,9 +65,8 @@ and AdamW's state stays fp32.  No ``torch.autocast``: it keeps some
 operations in fp32 and would compute another function than JAX's all-bf16
 forward.  The eval step runs the "gan" family's generator as a bf16 copy
 (``nn.cast_copy``), made anew when the weights changed and shared by the
-batches of one validation, so that BigVGAN's validation takes K2's bf16 route
-and K2's plan cache, keyed by module, never reuses the packed weights of an
-earlier copy.  ``loss_stft_dtype="bfloat16"`` rounds the masked waveforms to
+batches of one validation (``utils/weight_cache.py``), so that BigVGAN's
+validation takes K2's bf16 route.  ``loss_stft_dtype="bfloat16"`` rounds the masked waveforms to
 bf16 before the MR-STFT and mel losses; the port transforms them in fp32 and
 rounds the magnitudes and the loss mels to bf16 (``ops/spectral.py``), where
 the JAX package's magnitudes come out of a bf16 DFT; the norms and logs
@@ -153,6 +152,7 @@ from vocoder_tpu_torch.ops.spectral import linear_spectrogram, log_mel_spectrogr
 from vocoder_tpu_torch.parallel import dist, tp
 from vocoder_tpu_torch.train.schedule import WarmupCosineConfig, warmup_cosine
 from vocoder_tpu_torch.utils.spans import span
+from vocoder_tpu_torch.utils.weight_cache import WeightCache
 
 DEFAULT_RESOLUTIONS = ((2048, 512, 2048), (1024, 120, 600), (2048, 240, 1200), (4096, 480, 2400), (512, 50, 240))
 TRAINABLE = ("bigvgan", "hifigan", "refinegan", "vocos", "firefly_gan_base", "vae", "vqvae", "ssl")
@@ -560,32 +560,33 @@ def make_train_step(cfg: GANTaskConfig, plain: bool = False, group=None):
     return step
 
 
+def _eval_dtype(cfg: GANTaskConfig) -> torch.dtype | None:
+    """The dtype of the generator's eval copy: bf16 compute's for a "gan" family generator, else None (no copy)."""
+    dtype = compute_dtype(cfg)
+    return dtype if cfg.family == "gan" and dtype != torch.float32 else None
+
+
 def eval_generator(generator: nn.Module, cfg: GANTaskConfig) -> nn.Module:
     """The module an eval forward runs: the generator itself, or under bf16 compute a fresh bf16 copy of
-    a "gan" family generator (``nn.cast_copy``).  The copy's modules are new, so K2's plan cache (keyed
-    by module, and by each parameter's address and version) cannot hand it the packed weights of an
-    earlier validation's copy, whose freed bf16 tensors a new copy's could reuse with version 0."""
-    dtype = compute_dtype(cfg)
-    if cfg.family != "gan" or dtype == torch.float32:
-        return generator
-    return cast_copy(generator, dtype)
+    a "gan" family generator (``nn.cast_copy``)."""
+    dtype = _eval_dtype(cfg)
+    return generator if dtype is None else cast_copy(generator, dtype)
+
+
+eval_copies = WeightCache()  # the generator -> its bf16 eval copy
 
 
 def make_eval_step(cfg: GANTaskConfig):
     """(state, batch) -> ({"val/metrics/mel": masked mel-L1 on the full clip}, masked fake): the
     generator in eval mode under ``torch.no_grad`` (BigVGAN: the inference path, K2 and K1; RefineGAN:
     the seeded-0 noise of inference; vae: z = mean; vqvae and ssl: the codebooks as they are), in bf16 under bf16
-    compute (``eval_generator``).  The bf16 copy is kept while the weights it was made from stay: the
-    same generator, step and parameter versions (every in-place change bumps a version), so the batches
-    of one validation share one copy and K2 packs its weights once."""
-    cached: dict = {}
+    compute (``eval_generator``).  The bf16 copy is kept in ``eval_copies`` by the rule of
+    ``utils/weight_cache.py``, so the batches of one validation share one copy and K2 packs its weights once."""
+    dtype = _eval_dtype(cfg)
 
     def eval_module(state: TrainState) -> nn.Module:
-        key = (state.step, tuple(p._version for p in state.generator.parameters()))
-        if cached.get("master") is not state.generator or cached["key"] != key:
-            cached.clear()  # the old copy goes before the new one is made
-            cached.update(master=state.generator, key=key, module=eval_generator(state.generator, cfg))
-        return cached["module"]
+        gen = state.generator
+        return gen if dtype is None else eval_copies.get(gen, (gen,), lambda: eval_generator(gen, cfg), dtype)
 
     def step(state: TrainState, batch: dict):
         audio, lengths = batch["audio"], batch["lengths"]
