@@ -16,8 +16,10 @@ Phases, in order; any failure exits non-zero:
      the 3968-output tile's edges +- 1 and random ones), exactly 0 past each;
   2. K2 (AMP stage, csrc/amp_conv_mma.cu) against its plain stage at the
      five stage shapes of the 44.1 kHz preset, F = 256 frames, b1 and b16: fp32
-     through the 3xTF32 route, bf16 through the bf16 route against the
-     plain stage that rounds the same conv inputs to bf16; then every stage
+     through the 3xTF32 route (csrc/amp_conv_wgmma.cu where the shape rule
+     gives it the stage: each line names its `kernel`), bf16 through the
+     bf16 route against the plain stage that rounds the same conv inputs to
+     bf16; then every stage
      at b16 with per-item lengths (as K1's, with K2's time tile's edges)
      against the masked plain stage, exactly 0 past each length;
   3. the full-width BigVGAN (random weights from a numpy seed, saved as a
@@ -38,7 +40,9 @@ Phases, in order; any failure exits non-zero:
   7. CUDA-event timings of K1, both K2 routes and the generator in bf16 and
      fp32 at b1 and b16, with K2's yardsticks (the stage's convs alone in
      cuDNN, the design's traffic floor) and each kernel's host time per
-     launch.  K1's launches are queued behind a spin kernel, so its time is
+     launch; each fp32 stage that the wgmma kernel takes also on each of the
+     two fp32 kernels (`mma_ms`, `wgmma_ms`) beside the one its shape rule
+     picks (`kernel`).  K1's launches are queued behind a spin kernel, so its time is
      the card's alone (`device_time`, vocoder_tpu_torch/tools/timing.py).
      Then BigVGAN's masked b16 forward against the unmasked one at the same
      padded shape, HiFiGAN's and Vocos' forwards at b1 and b16 in both
@@ -199,6 +203,7 @@ default flags (cuDNN TF32 on), so that it checks the CLI's own setting.
 from __future__ import annotations
 
 import concurrent.futures
+import contextlib
 import copy
 import dataclasses
 import itertools
@@ -360,17 +365,33 @@ def library_convs(blocks, a):
             F.conv1d(a, c2.weight, c2.bias, padding=get_padding(k))
 
 
+@contextlib.contextmanager
+def fp32_k2_kernel(wgmma: bool):
+    """Inside: every fp32 K2 stage on the wgmma kernel where its plan has the maps for it (`wgmma`), or on the
+    mma.sync kernel, whatever the shape rule (`amp_block.takes_wgmma`) would pick."""
+    from vocoder_tpu_torch.ops import amp_block
+
+    rule = amp_block.takes_wgmma
+    amp_block.takes_wgmma = lambda plan, b, t: wgmma and bool(plan.maps)
+    try:
+        yield
+    finally:
+        amp_block.takes_wgmma = rule
+
+
 def time_k2(model, dtype, b: int, gen, stamp: dict) -> dict:
     """CUDA-event times of the five AMP stages of `model` at batch b and F_FRAMES frames, on
     random stage inputs, beside the plain stage, the stage's convs alone in cuDNN (conv_library_ms),
-    the bound, the per-conv design's traffic floor and the host time per launch.  Logs one line
-    per stage and returns the forward's totals.
+    the bound, the per-conv design's traffic floor and the host time per launch; in fp32, a stage the
+    wgmma kernel takes is timed on each fp32 kernel too (mma_ms, wgmma_ms), and `kernel` names the one
+    the shape rule picks.  Logs one line per stage and returns the forward's totals.
 
     The forward's bound is the sum of the stages' bounds; it is set by operations or bytes as
     the stages bound by each weigh in that sum."""
     import torch
 
-    from vocoder_tpu_torch.ops.amp_block import ROUTES, amp_stage_kernel, amp_stage_plain, launch_shape
+    from vocoder_tpu_torch.ops.amp_block import (ROUTES, amp_stage_kernel, amp_stage_plain, launch_shape,
+                                                 stage_plan, takes_wgmma)
     from vocoder_tpu_torch.tools.timing import cuda_ms
 
     cfg = model.cfg
@@ -398,7 +419,13 @@ def time_k2(model, dtype, b: int, gen, stamp: dict) -> dict:
         floor_ms = 1e3 * k2_design_bytes(blocks, b, c, t, itemsize) / HBM_BYTES_PER_S
         by = "operations" if comp_s >= mem_s else "bytes"
         tile, n_blocks = launch_shape(dtype, c, b, t)
-        log({"metric": "k2_stage_ms", "batch": b, "stage": i, "shape": [b, c, t], "dtype": str(dtype)[6:],
+        plan = stage_plan(blocks, cfg.snake_logscale)
+        kernels = {"kernel": "wgmma" if takes_wgmma(plan, b, t) else "mma"}
+        if plan.maps:
+            for name, wgmma in (("mma_ms", False), ("wgmma_ms", True)):
+                with fp32_k2_kernel(wgmma):
+                    kernels[name] = cuda_ms(lambda: amp_stage_kernel(blocks, xs, cfg.snake_logscale), iters)
+        log({"metric": "k2_stage_ms", "batch": b, "stage": i, "shape": [b, c, t], "dtype": str(dtype)[6:], **kernels,
              "ms": ms, "plain_ms": plain_ms, "conv_library_ms": conv_ms, "bound_ms": 1e3 * max(comp_s, mem_s),
              "bound_by": by, "bound_ms_cuda_cores": 1e3 * max(cores_s, mem_s), "design_floor_ms": floor_ms,
              "host_us_per_launch": 1e6 * host_s / n_launch, "conv_tflops": conv_flops / (ms * 1e9),
@@ -497,7 +524,8 @@ def drive_path(name: str, fn, need: tuple[str, ...], paths: dict, blockwise: int
     from vocoder_tpu_torch.ops.amp_block import amp_stage
     from vocoder_tpu_torch.ops.linear_3xtf32 import linear_3xtf32
 
-    aa_snake.launches = aa_snake.bwd_launches = amp_stage.launches = amp_stage.mma_launches = 0
+    aa_snake.launches = aa_snake.bwd_launches = 0
+    amp_stage.launches = amp_stage.wgmma_launches = amp_stage.mma_launches = 0
     BigVGAN.blockwise_stages = linear_3xtf32.launches = ConvNeXtBlock.library_mlps = 0
     out = fn()
     torch.cuda.synchronize()
@@ -2800,7 +2828,8 @@ def _dp_rank(rank: int, port: int, out: str) -> None:
     dist.broadcast_modules([state.generator, state.discriminators], dist.world_group())
     old = {n: p.detach().clone() for n, p in named(state)} if rank == 0 else None
     start = gan.draw_crop_start(state, task, t)
-    aa_snake.launches = aa_snake.bwd_launches = amp_stage.launches = amp_stage.mma_launches = 0
+    aa_snake.launches = aa_snake.bwd_launches = 0
+    amp_stage.launches = amp_stage.wgmma_launches = amp_stage.mma_launches = 0
     metrics = {k: float(v) for k, v in gan.make_train_step(task, group=dist.world_group())(state, mine, start).items()}
     torch.cuda.synchronize()
     counts = launch_counts()
@@ -2915,7 +2944,8 @@ def _tp_bigvgan_forwards(mg, dev, rank: int) -> dict:
                  ("fp32_masked", model, masked, {"frame_lengths": frames}), ("bf16", model_bf16, mel.bfloat16(), {}))
         for tag, m, x, kw in cases:
             before = (stage_plans.builds, stage_plans.hits, tp.whole_stages.builds, tp.whole_stages.hits)
-            aa_snake.launches = aa_snake.bwd_launches = amp_stage.launches = amp_stage.mma_launches = 0
+            aa_snake.launches = aa_snake.bwd_launches = 0
+            amp_stage.launches = amp_stage.wgmma_launches = amp_stage.mma_launches = 0
             y, ms = _timed(lambda: m(x, **kw))
             after = (stage_plans.builds, stage_plans.hits, tp.whole_stages.builds, tp.whole_stages.hits)
             runs[tag] = _every_rank(y, mg)
@@ -3081,7 +3111,8 @@ def _tp_train_step(mg, dev, rank: int, task, sd: dict, batch: dict) -> dict:
 
     state = fresh(mg)
     start = gan.draw_crop_start(state, task, t)
-    aa_snake.launches = aa_snake.bwd_launches = amp_stage.launches = amp_stage.mma_launches = 0
+    aa_snake.launches = aa_snake.bwd_launches = 0
+    amp_stage.launches = amp_stage.wgmma_launches = amp_stage.mma_launches = 0
     metrics, ms = _timed(lambda: gan.make_train_step(task)(state, batch, start))
     counts = launch_counts()
     metrics = {k: float(v) for k, v in metrics.items()}
@@ -3436,7 +3467,7 @@ def main() -> int:
     from vocoder_tpu_torch.nn import fold_weight_norm
     from vocoder_tpu_torch.ops import build
     from vocoder_tpu_torch.ops.aa_snake import aa_snake_kernel
-    from vocoder_tpu_torch.ops.amp_block import amp_stage_kernel, amp_stage_plain
+    from vocoder_tpu_torch.ops.amp_block import amp_stage_kernel, amp_stage_plain, stage_plan, takes_wgmma
     from vocoder_tpu_torch.ops.antialias import aa_snake_plain, snake_params
     from vocoder_tpu_torch.tools.timing import card_line, cuda_ms, device_time
 
@@ -3535,8 +3566,9 @@ def main() -> int:
                     err = float((got - want).abs().max())
                     errs[FP32_K2] = max(errs[FP32_K2], err)
                     ok = bool(torch.allclose(got, want, rtol=K2_FP32_RTOL, atol=K2_FP32_ATOL))
-                    log({"phase": "k2_check", "stage": i, "shape": [b, c, t], "dtype": "fp32", "max_abs_err": err,
-                         "max_abs_ref": float(want.abs().max()), "ok": ok})
+                    kernel = "wgmma" if takes_wgmma(stage_plan(blocks, cfg.snake_logscale), b, t) else "mma"
+                    log({"phase": "k2_check", "stage": i, "shape": [b, c, t], "dtype": "fp32", "kernel": kernel,
+                         "max_abs_err": err, "max_abs_ref": float(want.abs().max()), "ok": ok})
                 else:
                     err = rel_l2(got.float(), want.float())
                     mma_rel = max(mma_rel, err)
@@ -3823,8 +3855,10 @@ def main() -> int:
                 "calls_train_step_checkpointed": ckpt_rec["k1_bwd_calls_per_step"]["with"]}]
     for name, dtype in ((FP32_K2, "fp32"), (BF16_K2, "bf16")):
         k2, k2_b16 = entries[name][1], entries[name][16]
+        # the fp32 launches that took csrc/amp_conv_wgmma.cu, each path's count beside it
+        wgmma = {"wgmma": launches("amp_conv_wgmma")} if dtype == "fp32" else {}
         kernels.append({"name": name, "route": "cuda", "source": "vocoder_tpu_torch/csrc/amp_conv_mma.cu",
-                        "replaces": "vocoder_tpu/ops/pallas/amp_block.py:590", **launches(name),
+                        "replaces": "vocoder_tpu/ops/pallas/amp_block.py:590", **launches(name), **wgmma,
                         "max_abs_err": errs[name], "max_abs_err_masked": errs_masked[name], "dtype": dtype,
                         "ms": k2["ms"], "plain_ms": k2["plain_ms"],
                         "bound_ms": k2["bound_ms"], "bound_by": k2["bound_by"], "library_ms": None,

@@ -128,6 +128,86 @@ def test_amp_mma_kernel_channel_tiles(cuda_device, c, batch):
     assert _rel_l2(got.float(), amp_stage_plain(blocks, x, True).float()) <= K2_BF16_REL_L2
 
 
+def _stage_blocks(c, device):
+    """The first AMP stage (three blocks, kernels 3, 7, 11, dilations 1, 3, 5) of a BigVGAN whose first stage is
+    c channels wide, fp32, weights from seed 0."""
+    cfg = BigVGANConfig(hop_length=4, upsample_rates=(2, 2), upsample_kernel_sizes=(4, 4), num_mels=8,
+                        upsample_initial_channel=2 * c)
+    return list(_model(cfg, device).resblocks[:3])
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("batch", [1, 16])
+@pytest.mark.parametrize("c", [64, 128, 256])
+def test_amp_stage_wgmma_matches_plain(cuda_device, c, batch, masked):
+    """The fp32 route's wgmma kernel (csrc/amp_conv_wgmma.cu) at every width it takes, b1 and b16, at the
+    shortest T whose grid fills the card's SMs plus a part tile (no multiple of the time tile); with lengths,
+    items that end mid-tile, at 0 and 1, and tiles wholly in an item's padding.  Every launch of the stage is
+    counted in ``wgmma_launches``, and the stage holds the fp32 route's tolerance against the plain stage."""
+    from vocoder_tpu_torch.ops import amp_block
+
+    tile = amp_block.WGMMA_TIME_TILES[c]
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    t = tile * -(-sms // batch) + tile // 2 + 3
+    assert amp_block.wgmma_wins(c, batch, t, sms)
+    assert amp_block.launch_shape(torch.float32, c, batch, t) == (tile, batch * -(-t // tile))
+    blocks = _stage_blocks(c, cuda_device)
+    gen = torch.Generator(device=cuda_device).manual_seed(c + batch)
+    x = torch.randn(batch, c, t, device=cuda_device, generator=gen)
+    lengths = lens = None
+    if masked:
+        lengths = [t - tile - tile // 2] if batch == 1 else [
+            t, 0, 1, 7, tile - 1, tile + 1, 2 * tile, t - 1, 5 * tile + 3, 33, t - tile, 100, 3 * tile - 2, t // 2, 17,
+            t - tile // 2]
+        lens = torch.tensor(lengths, device=cuda_device, dtype=torch.int32)
+    before = amp_stage.launches, amp_stage.wgmma_launches
+    with torch.inference_mode():
+        got = amp_stage(blocks, x, True, lens)
+    assert (amp_stage.launches - before[0], amp_stage.wgmma_launches - before[1]) == (18, 18)
+    want = amp_stage_plain(blocks, x, True, lens)
+    if masked:
+        _lengths_past_zero(got, lengths)
+    torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-5)  # tests/test_amp_fused.py:66
+
+
+def test_amp_stage_short_grid_keeps_the_mma_kernel(cuda_device):
+    """Where the wgmma kernel loses (C = 256 at b1 with a grid of a quarter of the SMs), the shape rule keeps the
+    mma.sync kernel: the stage's 18 fp32 launches, none of them wgmma, and the same answer."""
+    from vocoder_tpu_torch.ops import amp_block
+
+    c = 256
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    t = amp_block.WGMMA_TIME_TILES[c] * (sms // 4)
+    assert not amp_block.wgmma_wins(c, 1, t, sms)
+    blocks = _stage_blocks(c, cuda_device)
+    x = torch.randn(1, c, t, device=cuda_device, generator=torch.Generator(device=cuda_device).manual_seed(c))
+    before = amp_stage.launches, amp_stage.wgmma_launches
+    with torch.inference_mode():
+        got = amp_stage(blocks, x, True)
+    assert (amp_stage.launches - before[0], amp_stage.wgmma_launches - before[1]) == (18, 0)
+    torch.testing.assert_close(got, amp_stage_plain(blocks, x, True), rtol=2e-4, atol=2e-5)
+
+
+def test_amp_stage_wide_halo_keeps_the_mma_kernel(cuda_device):
+    """A conv whose act tile and weight ring would not fit in shared memory (C = 256, kernel 11, dilation 9: a
+    154-row act tile) leaves its stage's plan without TMA maps, so the stage runs on the mma.sync kernel at a
+    shape where the rule would take the wgmma kernel, with the same answer."""
+    from vocoder_tpu_torch.ops import amp_block
+
+    cfg = BigVGANConfig(hop_length=4, upsample_rates=(2, 2), upsample_kernel_sizes=(4, 4), num_mels=8,
+                        upsample_initial_channel=512, resblock_kernel_sizes=(11,), resblock_dilation_sizes=((1, 3, 9),))
+    blocks = list(_model(cfg, cuda_device).resblocks[:1])
+    plan = amp_block.stage_plan(blocks, True)
+    assert len(plan.halves) == 6 and plan.maps == []
+    x = torch.randn(16, 256, 700, device=cuda_device, generator=torch.Generator(device=cuda_device).manual_seed(9))
+    assert amp_block.wgmma_wins(256, 16, 700, torch.cuda.get_device_properties(cuda_device).multi_processor_count)
+    before = amp_stage.launches, amp_stage.wgmma_launches
+    with torch.inference_mode():
+        got = amp_stage(blocks, x, True)
+    assert (amp_stage.launches - before[0], amp_stage.wgmma_launches - before[1]) == (6, 0)
+    torch.testing.assert_close(got, amp_stage_plain(blocks, x, True), rtol=2e-4, atol=2e-5)
+
+
 def test_amp_stage_routes_by_model_dtype(cuda_device):
     """fp32 models take the kernel's 3xTF32 route (counter ``launches``), bf16 models its bf16 route
     (``mma_launches``); a bf16 model also takes an fp32 x (the residual stream's dtype)."""

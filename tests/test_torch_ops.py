@@ -29,7 +29,9 @@ from vocoder_tpu_torch.nn import fold_weight_norm
 from vocoder_tpu_torch.ops import antialias as taa
 from vocoder_tpu_torch.ops import build
 from vocoder_tpu_torch.ops.aa_snake import AASnakeFunction, aa_snake, aa_snake_bwd_kernel
+from vocoder_tpu_torch.ops import amp_block
 from vocoder_tpu_torch.ops.amp_block import amp_stage, amp_stage_plain, pack_conv_weight
+from vocoder_tpu_torch.ops.linear_3xtf32 import tf32_split as k3_split
 from vocoder_tpu_torch.ops.spectral import log_mel_spectrogram, mel_filterbank
 from vocoder_tpu_torch.tools import k1_variants, k2_phases, timing
 
@@ -147,11 +149,15 @@ def test_function_backward_on_the_cpu_is_the_plain_vjp():
 @pytest.mark.parametrize("tool, source, variant", [
     *(("k1_variants", "aa_snake.cu", v) for v in k1_variants.VARIANTS),
     *(("k2_phases", "amp_conv_mma.cu", v) for v in k2_phases.CUTS),
+    *(("k2_phases", "amp_conv_wgmma.cu", v) for v in k2_phases.WGMMA_CUTS),
 ])
 def test_timing_tool_variants_find_their_text(tool, source, variant):
     """The timing tools build each variant by replacing pieces of a kernel source, each of which must
     still be there exactly once, or the tool fails on the card."""
-    pairs = k1_variants.VARIANTS[variant] if tool == "k1_variants" else [k2_phases.CUTS[variant][:2]]
+    if tool == "k1_variants":
+        pairs = k1_variants.VARIANTS[variant]
+    else:
+        pairs = [(k2_phases.WGMMA_CUTS if source == "amp_conv_wgmma.cu" else k2_phases.CUTS)[variant][:2]]
     src = (build.CSRC / source).read_text()
     assert timing.edit(src, variant, pairs) != src
 
@@ -358,6 +364,51 @@ def test_pack_conv_weight():
     assert packed.shape == (5, 32, 16) and packed.dtype == torch.bfloat16 and packed.is_contiguous()
     for j, o, i in np.ndindex(5, 32, 16):
         assert packed[j, o, i] == w[o, i, j]
+
+
+@pytest.mark.parametrize("dtype,c", [(torch.float32, 64), (torch.float32, 128), (torch.float32, 32),
+                                     (torch.bfloat16, 64)])
+def test_wgmma_weight_pack(dtype, c):
+    """The wgmma kernel's B operand (``StagePlan.halves``): at fp32 and C in ``WGMMA_TIME_TILES`` each conv of
+    the plan, in launch order, keeps a contiguous (2, K, C, C) pack, hi then lo of ``tf32_split`` (K3's split)
+    of ``pack_conv_weight``'s output.  The kernel's TMA map reads it as 2 K C rows of C: tap j's hi half at
+    rows j C + o, its lo half at rows (K + j) C + o, input channel i in column i.  Other dtypes and widths
+    keep none, and a plan on the CPU holds no maps."""
+    cfg = BigVGANConfig(hop_length=4, upsample_rates=(2, 2), upsample_kernel_sizes=(4, 4), num_mels=8,
+                        upsample_initial_channel=2 * c)
+    from vocoder_tpu_torch.models.bigvgan import BigVGAN, random_state_dict
+
+    model = BigVGAN(cfg)
+    model.load_state_dict(random_state_dict(cfg, seed=4))
+    blocks = list(fold_weight_norm(model).to(dtype).eval().resblocks[:3])
+    plan = amp_block.stage_plan(blocks, True)
+    assert plan.maps == [] and plan.map_addrs == []
+    if dtype != torch.float32 or c not in amp_block.WGMMA_TIME_TILES:
+        assert plan.halves == []
+        return
+    convs = [(conv, blk.kernel_size) for blk in blocks for pair in zip(blk.convs1, blk.convs2) for conv in pair]
+    assert len(plan.halves) == len(convs) == 18
+    for halves, (conv, k) in zip(plan.halves, convs):
+        assert halves.shape == (2, k, c, c) and halves.dtype == torch.float32 and halves.is_contiguous()
+        assert torch.equal(halves, torch.stack(k3_split(pack_conv_weight(conv.weight))))
+        rows = halves.view(2 * k * c, c)
+        for h, half in enumerate(k3_split(conv.weight.detach())):
+            for j in range(k):
+                assert torch.equal(rows[(h * k + j) * c : (h * k + j + 1) * c], half[:, :, j])
+
+
+def test_wgmma_shape_rule():
+    """The wgmma kernel takes a stage from (C, B, T) and the SM count alone: on 132 SMs, C = 64 and 128 at every
+    grid, and C = 256 once its grid (one block a 64-time tile and item) passes a quarter of the SMs, so BigVGAN's
+    b16 stages at 256 frames and a request's stage 0 from 34 tiles (265 frames) on; never a width outside
+    ``WGMMA_TIME_TILES`` (C = 32, 16, 192)."""
+    wins = amp_block.wgmma_wins
+    assert amp_block.WGMMA_TIME_TILES == {64: 128, 128: 128, 256: 64}
+    assert all(wins(c, 16, 256 * 8 * 2**i, 132) for i, c in enumerate((256, 128, 64)))
+    assert wins(128, 1, 1, 132) and wins(64, 1, 128, 132)
+    assert not wins(256, 1, 33 * 64, 132) and wins(256, 1, 33 * 64 + 1, 132) and wins(256, 1, 265 * 8, 132)
+    assert not wins(256, 1, 256 * 8, 132) and wins(256, 3, 12 * 64, 132)
+    assert not any(wins(c, 16, 65536, 132) for c in (16, 32, 192))
 
 
 @pytest.mark.parametrize("resolution", ["44100_512_2048", "24000_256_1024"])

@@ -1,5 +1,6 @@
 """The one rule for state made from weights (``vocoder_tpu_torch/utils/weight_cache.py``), held by each cache
-that keeps such state: K2's stage plans, K3's tf32 packs and the bf16 eval copy of the generator.  Tensor
+that keeps such state: K2's stage plans (with the wgmma kernel's tf32 halves at a 64-channel fp32 stage), K3's
+tf32 packs and the bf16 eval copy of the generator.  Tensor
 parallelism's gathered stages are held to it in ``tests/torch_tp_ranks.py``, where the ranks run.
 
 Each case makes the cache's value, changes the parameters (or not), asks again and reads the cache's
@@ -64,6 +65,24 @@ def _k2() -> Cache:
                  lambda: amp_block.stage_plan(blocks, True), follows)
 
 
+def _k2_halves() -> Cache:
+    """K2's plan at a 64-channel fp32 stage, which also keeps each conv's tf32 halves for the wgmma kernel."""
+    cfg = dataclasses.replace(NARROW, upsample_initial_channel=128)
+    model = BigVGAN(cfg)
+    model.load_state_dict(random_state_dict(cfg, seed=6))
+    model = fold_weight_norm(model).eval()
+    blocks = list(model.resblocks[:3])
+    convs = [c for b in blocks for pair in zip(b.convs1, b.convs2) for c in pair]  # in launch order
+
+    def follows(plan) -> bool:
+        return len(plan.halves) == 18 and all(
+            torch.equal(plan.halves[i], torch.stack(lin3.tf32_split(amp_block.pack_conv_weight(c.weight))))
+            for i, c in enumerate(convs))
+
+    return Cache(amp_block.stage_plans, blocks[0], model, (blocks[2].convs1[1], "weight"),
+                 lambda: amp_block.stage_plan(blocks, True), follows)
+
+
 def _k3() -> Cache:
     rng = np.random.default_rng(3)
     lin = nn.Linear(8, 12)
@@ -96,13 +115,14 @@ def _eval_copy(monkeypatch) -> Cache:
 
 
 @pytest.mark.parametrize("change", CHANGES)
-@pytest.mark.parametrize("name", ["k2_stage_plan", "k3_packed_weight", "eval_copy"])
+@pytest.mark.parametrize("name", ["k2_stage_plan", "k3_packed_weight", "eval_copy", "k2_wgmma_halves"])
 def test_cache_follows_its_weights(name, change, monkeypatch):
     """The value is made once and reused while nothing changed; an in-place change, a new Parameter and a
     fp32 -> bf16 -> fp32 round trip (``_version`` kept; the entry holds the storage the value was made from,
     so the new tensor cannot take its address) each make it anew, from the parameters as they are; a
     Parameter that is an inference tensor makes it at every call and leaves no entry."""
-    case = {"k2_stage_plan": _k2, "k3_packed_weight": _k3, "eval_copy": lambda: _eval_copy(monkeypatch)}[name]()
+    case = {"k2_stage_plan": _k2, "k3_packed_weight": _k3, "eval_copy": lambda: _eval_copy(monkeypatch),
+            "k2_wgmma_halves": _k2_halves}[name]()
     cache, (module, pname) = case.cache, case.slot
     first = case.value()
     assert case.follows(first) and case.owner in cache._entries

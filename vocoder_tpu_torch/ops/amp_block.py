@@ -24,6 +24,13 @@ bf16) beside the aa-snake prologue on the fp32 CUDA cores; the kernel computes
 the aa-snake once per tile and streams each conv's packed weights through a
 ``cp.async`` ring (the source's header has the design).
 
+The fp32 route has a second kernel, ``csrc/amp_conv_wgmma.cu``: the same prologue
+and epilogue around a main loop on ``wgmma`` fed by TMA, with each conv's weights
+split once into tf32 halves (``tf32_split``, K3's rule) in the stage's plan.  It
+takes C in ``WGMMA_TIME_TILES`` at the shapes where it was measured the faster
+(``takes_wgmma``: C, B, T and the SM count, before any launch); the ``mma.sync``
+kernel keeps the other widths and C = 256 at the short grids of short b1 requests.
+
 With per-item ``lengths`` (a right-padded batch, BigVGAN's ``frame_lengths``
 scaled to the stage) every launch clamps each item's aa-snake at its own
 length and writes 0 past it, so each row equals that item's stage alone
@@ -37,8 +44,9 @@ never sees it.  A launch is then one ctypes call.
 
 ``amp_stage`` takes a CPU tensor to ``amp_stage_plain`` and launches the
 kernel for a CUDA tensor, or raises.  ``amp_stage.launches`` counts
-launches of the fp32 (3xTF32) route, ``amp_stage.mma_launches`` those of the
-bf16 route.  Forward only, as on the TPU.
+launches of the fp32 (3xTF32) route, of which ``amp_stage.wgmma_launches``
+took the wgmma kernel; ``amp_stage.mma_launches`` counts those of the bf16
+route.  Forward only, as on the TPU.
 
 ``kernel_takes`` says, from the width alone and before any launch, whether
 the kernel takes a stage, as the JAX package's ``amp_stage_supported`` does;
@@ -50,6 +58,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -57,12 +66,21 @@ import torch.nn.functional as F
 from vocoder_tpu_torch.nn import get_padding, length_mask
 from vocoder_tpu_torch.ops import build
 from vocoder_tpu_torch.ops.antialias import aa_snake_plain, item_lengths, snake_params
+from vocoder_tpu_torch.ops.linear_3xtf32 import tf32_split
 from vocoder_tpu_torch.utils.weight_cache import WeightCache
 
 _C_VOID = ctypes.c_void_p
 _C_INT = ctypes.c_int
 
 LIB = "amp_conv_mma"  # csrc/amp_conv_mma.cu
+WGMMA_LIB = "amp_conv_wgmma"  # csrc/amp_conv_wgmma.cu: the fp32 route's wgmma kernel
+# The wgmma kernel's time tile for each channel class it takes (the source's with_config).
+WGMMA_TIME_TILES = {64: 128, 128: 128, 256: 64}
+# The share of the card's SMs that a stage's wgmma grid (one block a time tile and item) must pass for the
+# wgmma kernel to take it.  Measured at b1 on the H100 (132 SMs, 8 to 264 blocks): at C = 64 and 128 it
+# beat the mma.sync kernel at every grid (0.67-0.72x); at C = 256 it lost by 5-11% up to 32 blocks, where
+# the mma.sync kernel's 32 x 128 tiles still run in one wave, and won from 48 on (0.30-0.58x).
+WGMMA_MIN_SM_SHARE = {64: 0.0, 128: 0.0, 256: 0.25}
 # The kernel's route (operand type of the convs) for each parameter dtype.
 ROUTES = {torch.float32: "3xtf32", torch.bfloat16: "bf16"}
 MMA_MAX_CHANNELS = 256
@@ -76,6 +94,12 @@ class ConvParams(ctypes.Structure):
         ("param_dtype", _C_INT), ("logscale", _C_INT), ("C", _C_INT), ("K", _C_INT), ("dil", _C_INT),
         ("n_blocks", ctypes.c_float),
     ]
+
+
+class TmaMap(ctypes.Structure):
+    """A ``CUtensorMap`` (128 opaque bytes): the wgmma kernel's TMA map of one conv's tf32 halves."""
+
+    _fields_ = [("opaque", ctypes.c_uint64 * 16)]
 
 
 def _lib() -> ctypes.CDLL:
@@ -95,9 +119,55 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
+def bind_wgmma(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """``lib`` (a build of ``csrc/amp_conv_wgmma.cu``) with its entries' argument types set."""
+    lib.amp_conv_wgmma_fwd.argtypes = [
+        _C_VOID, _C_VOID, _C_VOID, _C_INT, _C_INT, _C_INT,  # params, map, x, x_dtype, B, T
+        _C_VOID, _C_INT, _C_VOID, _C_VOID, _C_VOID,  # res, res_dtype, out, acc_in, acc_out
+        _C_VOID, _C_INT, _C_VOID, _C_VOID,  # fin, fin_dtype, lens, stream
+    ]
+    lib.amp_conv_wgmma_fwd.restype = _C_INT
+    lib.amp_conv_wgmma_map.argtypes = [_C_VOID, _C_INT, _C_INT, _C_INT, _C_VOID]
+    lib.amp_conv_wgmma_map.restype = _C_INT
+    lib.amp_conv_wgmma_launch_shape.argtypes = [_C_INT, _C_INT, _C_INT, ctypes.POINTER(_C_INT)]
+    lib.amp_conv_wgmma_launch_shape.restype = _C_INT
+    lib.error_string.argtypes = [_C_INT]
+    lib.error_string.restype = ctypes.c_char_p
+    return lib
+
+
+@functools.cache
+def _wgmma_lib() -> ctypes.CDLL:
+    return bind_wgmma(build.load(WGMMA_LIB))
+
+
+@functools.cache
+def _sm_count(device_index: int) -> int:
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
+
+
+def wgmma_wins(c: int, b: int, t: int, sms: int) -> bool:
+    """Whether the wgmma kernel is the faster at (C, B, T) on a card of ``sms`` SMs: C is one of its
+    channel classes and its grid passes that class's ``WGMMA_MIN_SM_SHARE`` of the SMs."""
+    tile = WGMMA_TIME_TILES.get(c)
+    return tile is not None and b * -(-t // tile) > WGMMA_MIN_SM_SHARE[c] * sms
+
+
+def takes_wgmma(plan: StagePlan, b: int, t: int) -> bool:
+    """Whether a stage of ``plan`` at (B, T) runs on the wgmma kernel: an fp32 plan on the card whose every
+    conv it takes (``plan.maps``), at a shape where it wins (``wgmma_wins``)."""
+    return bool(plan.maps) and wgmma_wins(plan.channels, b, t, _sm_count(plan.device.index))
+
+
 def launch_shape(dtype: torch.dtype, c: int, b: int, t: int) -> tuple[int, int]:
-    """(time tile, blocks) of one kernel launch for a ``dtype`` model at (C, B, T) on the current card."""
+    """(time tile, blocks) of one kernel launch for a ``dtype`` model at (C, B, T) on the current card: the
+    wgmma kernel's where an fp32 stage takes it (BigVGAN's kernel sizes and dilations), else the
+    mma.sync kernel's."""
     shape = (_C_INT * 2)()
+    if dtype == torch.float32 and wgmma_wins(c, b, t, _sm_count(torch.cuda.current_device())):
+        if _wgmma_lib().amp_conv_wgmma_launch_shape(c, b, t, shape):
+            raise ValueError(f"amp_stage: no wgmma launch at C = {c}, B = {b}, T = {t}")
+        return shape[0], shape[1]
     err = _lib().amp_conv_launch_shape(build.DTYPE_CODES[dtype], c, b, t, shape)
     if err:
         raise ValueError(f"amp_stage: no launch at C = {c}, B = {b}, T = {t}")
@@ -161,6 +231,12 @@ class StagePlan:
     params: list[ConvParams]
     addrs: list[int]  # ctypes.addressof of each ConvParams
     weights: list[torch.Tensor]  # what the ConvParams point to, kept alive
+    # fp32 at C in WGMMA_TIME_TILES: each conv's (2, K, C, C) pack of tf32 halves, hi then lo, of its
+    # packed weight (pack_conv_weight), the wgmma kernel's B operand; else empty.
+    halves: list[torch.Tensor]
+    # On the card, each conv's TMA map of its halves, where the wgmma kernel takes every conv; else empty.
+    maps: list[TmaMap]
+    map_addrs: list[int]
 
 
 stage_plans = WeightCache()  # first block -> StagePlan
@@ -178,7 +254,8 @@ def _build_plan(blocks, logscale: bool) -> StagePlan:
         raise TypeError(f"amp_stage: no kernel for {dtype} parameters (float32 or bfloat16)")
     if c > MMA_MAX_CHANNELS:
         raise ValueError(f"amp_stage: the kernel takes C <= {MMA_MAX_CHANNELS}, got C = {c}")
-    params, weights = [], []
+    params, weights, halves = [], [], []
+    split = dtype == torch.float32 and c in WGMMA_TIME_TILES
     for blk in blocks:
         k = blk.kernel_size
         for i, (c1, c2, d) in enumerate(zip(blk.convs1, blk.convs2, blk.dilations)):
@@ -195,7 +272,27 @@ def _build_plan(blocks, logscale: bool) -> StagePlan:
                 params.append(ConvParams(w.data_ptr(), *(t.data_ptr() for t in vecs), build.DTYPE_CODES[dtype],
                                          int(logscale), c, k, dil, float(len(blocks))))
                 weights += [w, *vecs]
-    return StagePlan(dtype, device, c, ROUTES[dtype], params, [ctypes.addressof(p) for p in params], weights)
+                if split:
+                    halves.append(torch.stack(tf32_split(w)))
+    maps = _wgmma_maps(params, halves) if halves and device.type == "cuda" else []
+    return StagePlan(dtype, device, c, ROUTES[dtype], params, [ctypes.addressof(p) for p in params], weights,
+                     halves, maps, [ctypes.addressof(m) for m in maps])
+
+
+def _wgmma_maps(params: list[ConvParams], halves: list[torch.Tensor]) -> list[TmaMap]:
+    """Each conv's TMA map of its halves, or [] where the wgmma kernel does not take one of them (an act
+    tile and ring that would not fit in shared memory at its kernel size and dilation).  Raises where a
+    map cannot be made."""
+    lib, maps = _wgmma_lib(), []
+    for p, h in zip(params, halves):
+        m = TmaMap()
+        err = lib.amp_conv_wgmma_map(h.data_ptr(), p.C, p.K, p.dil, ctypes.byref(m))
+        if err == -1:
+            return []
+        if err:
+            raise RuntimeError(f"amp_stage: no TMA map for the wgmma kernel: {lib.error_string(err).decode()}")
+        maps.append(m)
+    return maps
 
 
 def amp_stage_kernel(blocks, x: torch.Tensor, logscale: bool, lengths=None) -> torch.Tensor:
@@ -216,10 +313,12 @@ def amp_stage_kernel(blocks, x: torch.Tensor, logscale: bool, lengths=None) -> t
     xd = build.dtype_code(x, "amp_stage x")
     lens = build.lengths_arg(lengths, x)
     lens_p = build.ptr(lens)
-    lib = _lib()
-    fn = lib.amp_conv_fwd
     fp32 = plan.dtype == torch.float32
     b, _, t = x.shape
+    wgmma = takes_wgmma(plan, b, t)
+    lib = _wgmma_lib() if wgmma else _lib()
+    fn = lib.amp_conv_wgmma_fwd if wgmma else lib.amp_conv_fwd
+    maps = iter(plan.map_addrs)
     n_k = len(blocks)
     # fp32 scratch: the residual stream of the current block, the first conv of the
     # current pair and the sum of the finished blocks, in one allocation.
@@ -232,11 +331,13 @@ def amp_stage_kernel(blocks, x: torch.Tensor, logscale: bool, lengths=None) -> t
     addrs = iter(plan.addrs)
 
     def launch(src, src_dt, res_p, res_dt, out=None, acc_in=None, acc_out=None, fin=None):
-        err = fn(next(addrs), src, src_dt, b, t, res_p, res_dt, out, acc_in, acc_out, fin, xd, lens_p, stream)
+        args = (src, src_dt, b, t, res_p, res_dt, out, acc_in, acc_out, fin, xd, lens_p, stream)
+        err = fn(next(addrs), next(maps), *args) if wgmma else fn(next(addrs), *args)
         if err:
             raise RuntimeError(f"amp_stage: launch failed: {lib.error_string(err).decode()}")
         if fp32:
             amp_stage.launches += 1
+            amp_stage.wgmma_launches += wgmma
         else:
             amp_stage.mma_launches += 1
 
@@ -266,4 +367,5 @@ def amp_stage(blocks, x: torch.Tensor, logscale: bool, lengths=None) -> torch.Te
 
 
 amp_stage.launches = 0
+amp_stage.wgmma_launches = 0
 amp_stage.mma_launches = 0

@@ -2,17 +2,19 @@
 
     python -m vocoder_tpu_torch.tools.k2_phases [--dtype bf16|fp32]   # from the repository root; one CUDA card
 
-Builds copies of ``csrc/amp_conv_mma.cu`` in which one phase does nothing (the
-aa-snake prologue, the tensor-core main loop, or the epilogue's reads and
-writes of device memory; in fp32 also the operand split, left out or
-written as ``cvt.rna``), times the five AMP stages of the 44.1 kHz BigVGAN
-(F = 256 frames, random weights from seed 0) in the model dtype ``--dtype``
-(bf16 by default; fp32 takes the 3xTF32 route) through each at b1 and b16
-with CUDA events, and prints one JSON line per variant.  The three phase cuts
-are in code that the two routes share, so they serve both.  A phase's cost
-is the full time minus the time without it; phases overlap across blocks, so
-the costs need not add up to the full time.  The outputs of the cut variants
-are wrong by design and are not checked.
+Builds copies of K2's sources in which one phase does nothing (the aa-snake
+prologue, the tensor-core main loop, or the epilogue's reads and writes of
+device memory; in fp32 also the operand split, left out or written as
+``cvt.rna``), times the five AMP stages of the 44.1 kHz BigVGAN (F = 256
+frames, random weights from seed 0) in the model dtype ``--dtype`` (bf16 by
+default; fp32 takes the 3xTF32 route) through each at b1 and b16 with CUDA
+events, and prints one JSON line per variant.  In fp32 each variant cuts the
+same phase from both kernels, ``csrc/amp_conv_mma.cu`` (``CUTS``) and the wgmma
+kernel ``csrc/amp_conv_wgmma.cu`` (``WGMMA_CUTS``), so every stage runs the cut
+whichever kernel the shape rule gives it.  A phase's cost is the full time
+minus the time without it; phases overlap across blocks, so the costs need
+not add up to the full time.  The outputs of the cut variants are wrong by
+design and are not checked.
 """
 
 from __future__ import annotations
@@ -29,7 +31,8 @@ from vocoder_tpu_torch.config import build_task_config
 from vocoder_tpu_torch.models.bigvgan import BigVGAN, random_state_dict
 from vocoder_tpu_torch.nn import fold_weight_norm
 from vocoder_tpu_torch.ops import build
-from vocoder_tpu_torch.ops.amp_block import LIB, amp_stage_kernel
+from vocoder_tpu_torch.ops import amp_block
+from vocoder_tpu_torch.ops.amp_block import LIB, WGMMA_LIB, amp_stage_kernel
 from vocoder_tpu_torch.tools.timing import build_variants, card_line, cuda_ms, edit
 
 # Each cut: (text in the source, what replaces it, the dtypes it applies to).
@@ -48,14 +51,34 @@ CUTS = {
       asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(f.lo[i]) : "f"(rest));""", ("fp32",)),
 }
 
+# The same cuts in the wgmma kernel (fp32 only): (text in csrc/amp_conv_wgmma.cu, what replaces it).
+_WG_SPLIT = """          hi[kk][i] = tf32_rna(r[i]);
+          lo[kk][i] = tf32_rna(__float_as_uint(__fsub_rn(__uint_as_float(r[i]), __uint_as_float(hi[kk][i]))));"""
+WGMMA_CUTS = {
+    "no_prologue": ("  if (threadIdx.x < C * kSeg) {", "  if (false) {"),
+    "no_mma": ("n_chunks = K * per_tap;", "n_chunks = 0;"),  # no weight loads either: the producer waits on none
+    "no_epilogue_io": ("for (int idx = threadIdx.x; idx < C * kQuads; idx += kThreads) {",
+                       "for (int idx = threadIdx.x; idx < 0; idx += kThreads) {"),
+    "no_split": (_WG_SPLIT, "          hi[kk][i] = lo[kk][i] = r[i];"),
+    "cvt_split": (_WG_SPLIT, """          asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(hi[kk][i]) : "f"(__uint_as_float(r[i])));
+          const float rest = __fsub_rn(__uint_as_float(r[i]), __uint_as_float(hi[kk][i]));
+          asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(lo[kk][i]) : "f"(rest));"""),
+}
+
 
 def variant_sources(dtype: str) -> dict[str, tuple[str, Path]]:
-    """The kernel and each of the dtype's cut copies: name -> (source text, include directory)."""
+    """The kernels and each of the dtype's cut copies: name -> (source text, include directory), the
+    wgmma kernel's under ``<name>.wgmma`` in fp32."""
     src = (build.CSRC / f"{LIB}.cu").read_text()
+    wg_src = (build.CSRC / f"{WGMMA_LIB}.cu").read_text()
     jobs = {"full": (src, build.CSRC)}
+    if dtype == "fp32":
+        jobs["full.wgmma"] = (wg_src, build.CSRC)
     for cut, (old, new, dtypes) in CUTS.items():
         if dtype in dtypes:
             jobs[cut] = (edit(src, cut, [(old, new)]), build.CSRC)
+            if dtype == "fp32":
+                jobs[f"{cut}.wgmma"] = (edit(wg_src, cut, [WGMMA_CUTS[cut]]), build.CSRC)
     return jobs
 
 
@@ -81,8 +104,12 @@ def main(argv: list[str] | None = None) -> int:
         shapes.append((cfg.upsample_initial_channel // 2 ** (i + 1), t))
     with torch.inference_mode():
         for variant, path in libs.items():
-            lib = ctypes.CDLL(path)
-            build._libs[LIB] = lib  # amp_stage_kernel launches through this library from now on
+            if variant.endswith(".wgmma"):
+                continue
+            build._libs[LIB] = ctypes.CDLL(path)  # amp_stage_kernel launches through these libraries from now on
+            if f"{variant}.wgmma" in libs:
+                wg = amp_block.bind_wgmma(ctypes.CDLL(libs[f"{variant}.wgmma"]))
+                amp_block._wgmma_lib = lambda wg=wg: wg
             row = {"variant": variant, "dtype": args.dtype, "card": card}
             for b in (1, 16):
                 for i, (c, t) in enumerate(shapes):
